@@ -1,0 +1,237 @@
+"""``repro_torch.api`` — the facade over the port's BHFL system (§3.1).
+
+Port of ``repro.api.run_bhfl`` for the paper's MNIST MLP in the ideal
+setting (no scenario, no faults, one committee):
+
+    from repro_torch import api
+
+    run = api.run_bhfl(model="mlp", n_nodes=8, clients_per_node=5,
+                       fel_iterations=3, rounds=3, seed=0)   # on the card
+    run.chain_valid, run.chain_height, run.history[-1].test_accuracy
+
+One call publishes the task, negotiates it (Stackelberg), partitions the
+data into the FEL hierarchy, and runs PoFEL rounds on ``device`` — the
+CUDA card unless the caller passes ``device="cpu"``. The simulator
+(``scenario=``, ``faults=``), the sharded consortium (``committees`` > 1)
+and the LM families are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import difflib
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.core.btsv import BTSVConfig
+from repro_torch.core.consensus import ConsensusRecord, PoFELConsensus
+from repro_torch.data.synthetic import make_mnist_like
+from repro_torch.fl.adapters import MLPAdapter, params_from_jax
+from repro_torch.fl.hfl_runtime import (AllNodesPlagiarizeError, BHFLConfig,
+                                        BHFLRuntime, RoundMetrics)
+from repro_torch.fl.hierarchy import build_hierarchy
+from repro_torch.fl.task import (LearningTask, RewardLedger, TaskAgreement,
+                                 negotiate_task)
+from repro_torch.obs import get_recorder
+
+__all__ = [
+    "run_bhfl", "BHFLRun",
+    "LearningTask", "TaskAgreement", "RewardLedger", "negotiate_task",
+    "BHFLConfig", "BHFLRuntime", "RoundMetrics", "build_hierarchy",
+    "MLPAdapter", "params_from_jax",
+    "PoFELConsensus", "ConsensusRecord", "BTSVConfig",
+    "AllNodesPlagiarizeError", "make_mnist_like",
+]
+
+
+@dataclass
+class BHFLRun:
+    """Everything a finished (or stopped) BHFL task produced."""
+
+    task: LearningTask
+    agreement: TaskAgreement
+    rewards: RewardLedger
+    runtime: BHFLRuntime
+    history: List[RoundMetrics] = field(default_factory=list)
+    # metrics rollup from the active obs recorder (None when tracing off)
+    obs: Optional[Dict[str, Any]] = None
+
+    @property
+    def chain_height(self) -> int:
+        return self.runtime.consensus.ledgers[0].height
+
+    @property
+    def chain_valid(self) -> bool:
+        return all(led.verify_chain()
+                   for led in self.runtime.consensus.ledgers)
+
+    @property
+    def leader_counts(self) -> Dict[int, int]:
+        return self.runtime.leader_counts()
+
+
+def _default_task(max_rounds: int) -> LearningTask:
+    return LearningTask(
+        task_id="bhfl-task-0", publisher_id="model-owner-0",
+        description="BHFL learning task (repro.api default)",
+        target_loss=0.0, max_rounds=max_rounds, block_reward=10.0)
+
+
+# every keyword run_bhfl itself accepts, for the did-you-mean hint
+_RUN_BHFL_KWARGS = frozenset((
+    "task", "model", "data", "cfg", "n_nodes", "clients_per_node",
+    "fel_iterations", "rounds", "engine", "distribution", "gamma", "mu",
+    "seed", "vote_hook", "plagiarists", "on_round", "scenario", "faults",
+    "committees", "device"))
+# BHFLConfig fields not already exposed as explicit run_bhfl kwargs
+_CFG_OVERRIDES = frozenset(
+    f.name for f in dataclasses.fields(BHFLConfig)) - _RUN_BHFL_KWARGS
+
+
+def _check_overrides(overrides: Dict[str, Any], cfg_given: bool) -> None:
+    """Reject unknown keyword arguments loudly (a typo'd option silently
+    swallowed by ``**overrides`` would run another configuration than the
+    caller believes)."""
+    if not overrides:
+        return
+    unknown = set(overrides) - _CFG_OVERRIDES
+    if unknown:
+        hints = []
+        for k in sorted(unknown):
+            close = difflib.get_close_matches(
+                k, sorted(_CFG_OVERRIDES | _RUN_BHFL_KWARGS), n=1)
+            hints.append(k + (f" (did you mean {close[0]!r}?)"
+                              if close else ""))
+        raise TypeError(
+            f"run_bhfl() got unexpected keyword argument(s): "
+            f"{', '.join(hints)}; valid BHFLConfig overrides are "
+            f"{sorted(_CFG_OVERRIDES)}")
+    if cfg_given:
+        raise ValueError(
+            f"config overrides {sorted(overrides)} conflict with an "
+            f"explicit cfg=; set them on the BHFLConfig instead")
+
+
+def _check_ported(model: Any, scenario: Any, faults: Any,
+                  committees: Optional[int]) -> None:
+    if scenario is not None or faults is not None:
+        raise NotImplementedError(
+            "scenario=/faults= need the fault-injecting simulator, which is "
+            "not ported yet (ROADMAP Queue 1 item 10, simulator)")
+    if committees is not None and committees > 1:
+        raise NotImplementedError(
+            "committees > 1 needs the sharded consortium, which is not "
+            "ported yet (ROADMAP Queue 1 item 10, consortium)")
+    if isinstance(model, str) and model != "mlp":
+        if model in ("transformer", "rwkv6"):
+            raise NotImplementedError(
+                f"the {model!r} LM family is not ported yet (ROADMAP "
+                f"Queue 1 item 11, LM families)")
+        raise ValueError(f"unknown model {model!r}; the port has 'mlp' "
+                         f"or an MLPAdapter instance")
+    if not isinstance(model, (str, MLPAdapter)):
+        raise TypeError(f"model must be 'mlp' or an MLPAdapter, got "
+                        f"{type(model).__name__}")
+
+
+def run_bhfl(task: Optional[LearningTask] = None,
+             model: "str | MLPAdapter" = "mlp",
+             data: Optional[Tuple[Any, Any]] = None,
+             *,
+             cfg: Optional[BHFLConfig] = None,
+             n_nodes: Optional[int] = None,
+             clients_per_node: Optional[int] = None,
+             fel_iterations: Optional[int] = None,
+             rounds: Optional[int] = None,
+             engine: Optional[str] = None,
+             distribution: str = "iid",
+             gamma: Optional[Dict[int, float]] = None,
+             mu: Optional[Dict[int, float]] = None,
+             seed: Optional[int] = None,
+             vote_hook: Optional[Callable] = None,
+             plagiarists: Sequence[int] = (),
+             on_round: Optional[Callable[[RoundMetrics], None]] = None,
+             scenario: Optional[Any] = None,
+             faults: Optional[Any] = None,
+             committees: Optional[int] = None,
+             device: Any = None,
+             **overrides: Any,
+             ) -> BHFLRun:
+    """Publish → negotiate → build hierarchy → run PoFEL rounds → settle.
+
+    Arguments follow ``repro.api.run_bhfl``; ``device`` picks where the
+    models train and ME runs (``None`` is the CUDA card and raises if
+    there is none; ``"cpu"`` runs on the CPU). ``model`` is ``"mlp"`` or
+    an :class:`MLPAdapter` on ``device``; data defaults to
+    ``make_mnist_like(4000, 600, seed)``.
+    """
+    _check_overrides(overrides, cfg_given=cfg is not None)
+    _check_ported(model, scenario, faults, committees)
+    device = resolve_device(device)
+    if cfg is None:
+        cfg = BHFLConfig(n_nodes=n_nodes if n_nodes is not None else 6,
+                         clients_per_node=clients_per_node
+                         if clients_per_node is not None else 4,
+                         fel_iterations=fel_iterations
+                         if fel_iterations is not None else 2,
+                         seed=seed if seed is not None else 0,
+                         engine=engine if engine is not None else "reference")
+    else:
+        for kwarg, val, cfg_val in (
+                ("n_nodes", n_nodes, cfg.n_nodes),
+                ("clients_per_node", clients_per_node, cfg.clients_per_node),
+                ("fel_iterations", fel_iterations, cfg.fel_iterations),
+                ("engine", engine, cfg.engine),
+                ("seed", seed, cfg.seed)):
+            if val is not None and val != cfg_val:
+                raise ValueError(
+                    f"{kwarg}={val} conflicts with cfg.{kwarg}={cfg_val}; "
+                    f"set it on cfg or drop the kwarg")
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    n_nodes = cfg.n_nodes
+    seed = cfg.seed     # one seed governs data, gamma draws, and init
+    adapter = model if isinstance(model, MLPAdapter) else None
+
+    max_rounds = rounds if rounds is not None else (
+        task.max_rounds if task is not None else 10)
+    if task is None:
+        task = _default_task(max_rounds)
+
+    # 1-2. publication + incentive negotiation
+    rng = np.random.default_rng(seed)
+    node_ids = list(range(n_nodes))
+    if gamma is None:
+        gamma = {i: float(g)
+                 for i, g in enumerate(rng.uniform(0.008, 0.02, n_nodes))}
+    if mu is None:
+        mu = {i: 5.0 for i in node_ids}
+    agreement = negotiate_task(task, node_ids, gamma, mu)
+    rewards = RewardLedger(agreement)
+
+    # 3. hierarchy over (possibly synthesized) data
+    if data is None:
+        data = make_mnist_like(n_train=4000, n_test=600, seed=seed)
+    train, test = data
+    clusters = build_hierarchy(train, n_nodes, cfg.clients_per_node,
+                               distribution, seed=seed)
+
+    # 4. FEL + consensus rounds until termination
+    runtime = BHFLRuntime(clusters, cfg, test, adapter=adapter, device=device)
+    runtime.vote_hook = vote_hook
+    runtime.plagiarists = set(plagiarists)
+    run = BHFLRun(task, agreement, rewards, runtime, runtime.history)
+    for _ in range(min(max_rounds, task.max_rounds)):
+        m = runtime.run_round()
+        rewards.settle_round(m.leader_id)
+        if on_round is not None:
+            on_round(m)
+        if test is not None and m.test_loss <= task.target_loss:
+            break
+    rec = get_recorder()
+    if rec.enabled:
+        run.obs = rec.metrics_snapshot()
+    return run

@@ -1,0 +1,228 @@
+"""BHFL runtime — the paper-faithful end-to-end loop (paper §3.1).
+
+Port of ``repro.fl.hfl_runtime`` with the reference FEL engine. Per BCFL
+round k:
+  1. every cluster runs `fel_iterations` of FEL (clients local-train,
+     edge FedAvg) starting from the current global model,
+  2. the N resulting intermediate models W(k) go through one PoFEL
+     consensus round (HCDS → ME → vote submission → BTSV tally → block
+     mint — the phase pipeline of ``repro_torch.core.phases``),
+  3. the weighted global aggregate gw(k) (Eq. 1) becomes the next round's
+     starting model, and the block is appended to every ledger.
+
+Models live on the runtime's ``device`` (the CUDA card unless the caller
+asks for the CPU); ME runs there through the port's kernels, and gw(k)
+is adopted there without a host roundtrip.
+
+``engine="auto"`` resolves to the reference engine, as the reference does
+for an adapter without a batched train spec; the batched in-graph engine
+is not ported yet (ROADMAP Queue 1 item 8), so ``engine="batched"``
+raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.btsv import BTSVConfig
+from repro_torch.core.consensus import ConsensusRecord, PoFELConsensus
+from repro_torch.core.serialization import flatten_pytree
+from repro_torch.fl.adapters import MLPAdapter
+from repro_torch.fl.fedavg import fedavg
+from repro_torch.fl.hierarchy import FELCluster
+from repro_torch.models.mlp import MLPConfig
+from repro_torch.obs import get_recorder
+
+ENGINES = ("reference", "batched", "auto")
+
+
+@dataclass
+class BHFLConfig:
+    n_nodes: int = 8
+    clients_per_node: int = 5
+    fel_iterations: int = 3         # FEL iterations per BCFL round (paper §7.1)
+    local_epochs: int = 1
+    batch_size: int = 32
+    lr: float = 1e-3
+    momentum: float = 0.9
+    decay: float = 5e-4             # half the lr, per paper
+    mlp: MLPConfig = field(default_factory=MLPConfig)
+    btsv: BTSVConfig = field(default_factory=BTSVConfig)
+    g_max: float = 0.99
+    seed: int = 0
+    engine: str = "reference"       # "reference" | "auto" ("batched" raises)
+
+    def default_adapter(self, device: torch.device) -> MLPAdapter:
+        """The paper's workload: the MNIST MLP with §7.1 hyperparameters."""
+        return MLPAdapter(cfg=self.mlp, local_epochs=self.local_epochs,
+                          batch_size=self.batch_size, lr=self.lr,
+                          momentum=self.momentum, decay=self.decay,
+                          device=device)
+
+
+@dataclass
+class RoundMetrics:
+    round: int
+    leader_id: int
+    test_accuracy: float
+    test_loss: float
+    mean_similarity: float
+    consensus: Optional[ConsensusRecord]
+
+
+class AllNodesPlagiarizeError(RuntimeError):
+    """Every BCFL node was configured as a plagiarist — there is no honest
+    model to copy, and HCDS would reject every reveal anyway (§3.2)."""
+
+
+class BHFLRuntime:
+    """Drives FEL clusters + PoFEL consensus for a full learning task.
+
+    ``device=None`` runs on the CUDA card and raises if there is none;
+    pass ``device="cpu"`` to run on the CPU. A given ``adapter`` must
+    live on the same device.
+    """
+
+    def __init__(self, clusters: List[FELCluster], cfg: BHFLConfig,
+                 test_set: Optional[Any] = None,
+                 adapter: Optional[MLPAdapter] = None,
+                 device: Any = None):
+        if len(clusters) != cfg.n_nodes:
+            raise ValueError(f"{len(clusters)} clusters for "
+                             f"n_nodes={cfg.n_nodes}")
+        if cfg.engine not in ENGINES:
+            raise ValueError(f"unknown engine {cfg.engine!r}; "
+                             f"choose from {ENGINES}")
+        if cfg.engine == "batched":
+            raise ValueError(
+                "engine='batched' needs the batched in-graph FEL engine, "
+                "which is not ported yet (ROADMAP Queue 1 item 8); use "
+                "engine='reference' or 'auto'")
+        self.device = resolve_device(device)
+        self.clusters = clusters
+        self.cfg = cfg
+        self.test_set = test_set
+        self.adapter = (adapter if adapter is not None
+                        else cfg.default_adapter(self.device))
+        if torch.device(self.adapter.device) != self.device:
+            raise ValueError(f"adapter runs on {self.adapter.device} but the "
+                             f"runtime on {self.device}")
+        self.consensus = PoFELConsensus(cfg.n_nodes, cfg.btsv,
+                                        g_max=cfg.g_max)
+        self.global_params = self.adapter.init(
+            torch.Generator().manual_seed(cfg.seed))
+        self._check_adapter_layout()
+        self.history: List[RoundMetrics] = []
+        # adversaries: plagiarists copy an honest model in FEL, vote hooks
+        # act at consensus time
+        self.plagiarists: set[int] = set()
+        self.vote_hook: Optional[Callable] = None
+
+    @property
+    def engine(self) -> str:
+        """Which FEL engine actually runs."""
+        return "reference"
+
+    def _check_adapter_layout(self) -> None:
+        """ME produces gw(k) in the canonical sorted-keypath layout and the
+        runtime adopts it through ``adapter.unflatten``, so an adapter whose
+        flatten deviates from that layout would silently scramble weights
+        every round. Catch it once, at init."""
+        probe = self.adapter.flatten(self.global_params)
+        canonical = flatten_pytree(self.global_params)
+        if probe.shape != canonical.shape or not torch.equal(probe,
+                                                             canonical):
+            raise ValueError(
+                f"adapter {self.adapter.name!r} flattens parameters in a "
+                "non-canonical order; flatten/unflatten must use the "
+                "sorted-keypath layout of core.serialization.flatten_pytree")
+
+    # -- one FEL phase inside cluster `c` (reference engine) -----------------
+    def _run_fel(self, cluster: FELCluster, start_params: Any,
+                 round_seed: int) -> Any:
+        params = start_params
+        for it in range(self.cfg.fel_iterations):
+            locals_, sizes = [], []
+            for client in cluster.clients:
+                if client.data_size == 0:
+                    continue    # empty shard: zero FedAvg weight, skip
+                p, _ = self.adapter.local_train(
+                    params, client,
+                    seed=round_seed * 1000 + client.client_id * 10 + it)
+                locals_.append(p)
+                sizes.append(client.data_size)
+            if not locals_:
+                # a dataless cluster keeps the incoming global model; its
+                # consensus weight (|DS_m| = 0) already zeroes it in Eq. 1
+                return params
+            params = fedavg(locals_, sizes)
+        return params
+
+    def _fel_models(self, round_seed: int) -> List[Any]:
+        models: List[Any] = []
+        for cluster in self.clusters:
+            if cluster.node_id in self.plagiarists:
+                models.append(None)  # filled in below by copying a victim
+            else:
+                models.append(self._run_fel(cluster, self.global_params,
+                                            round_seed=round_seed))
+        # plagiarists copy the first honest model they "received"
+        victim = next(i for i, m in enumerate(models) if m is not None)
+        return [dict(models[victim]) if m is None else m for m in models]
+
+    # -- one BCFL round ------------------------------------------------------
+    def run_round(self) -> RoundMetrics:
+        cfg = self.cfg
+        k = self.consensus.round
+        node_ids = {c.node_id for c in self.clusters}
+        if node_ids and node_ids <= self.plagiarists:
+            raise AllNodesPlagiarizeError(
+                f"all {cfg.n_nodes} nodes are plagiarists — at least one "
+                f"honest node must train a model for round {k}")
+        rec = get_recorder()
+        # the top-level round span: its children (fel, the consensus span
+        # opened inside run_round, adopt_global, evaluate) account for the
+        # round's wall time
+        rec.open_span("round", cat="runtime", round=k)
+        round_seed = cfg.seed + k + 1
+        sizes = [float(c.data_size) for c in self.clusters]
+        try:
+            with rec.span("fel", round=k, engine="reference"):
+                models = self._fel_models(round_seed)
+            record = self.consensus.run_round(models, sizes,
+                                              vote_hook=self.vote_hook)
+        except BaseException as e:
+            rec.close_span(error=type(e).__name__)
+            raise
+
+        # adopt gw(k) as the next global model (it stays on the device)
+        with rec.span("adopt_global", round=k):
+            self.global_params = self.adapter.unflatten(
+                record.global_model, self.global_params)
+
+        acc, loss = float("nan"), float("nan")
+        if self.test_set is not None:
+            with rec.span("evaluate", round=k):
+                acc, loss = self.adapter.evaluate(self.global_params,
+                                                  self.test_set)
+
+        metrics = RoundMetrics(k, record.leader_id, acc, loss,
+                               float(np.mean(record.similarities)), record)
+        self.history.append(metrics)
+        rec.close_span(aborted=False)
+        return metrics
+
+    def run(self, n_rounds: int) -> List[RoundMetrics]:
+        return [self.run_round() for _ in range(n_rounds)]
+
+    # -- leader statistics (paper Fig. 6b) -----------------------------------
+    def leader_counts(self) -> Dict[int, int]:
+        counts: Dict[int, int] = {i: 0 for i in range(self.cfg.n_nodes)}
+        for m in self.history:
+            counts[m.leader_id] += 1
+        return counts

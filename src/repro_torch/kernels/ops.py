@@ -1,0 +1,44 @@
+"""Public wrappers around the port's ME kernels, and their launch counts.
+
+Each op runs its hand-written CUDA kernel for a CUDA tensor and its plain
+PyTorch version (``repro_torch.kernels.ref``) for a CPU tensor; there is
+no other route. :func:`launch_counts` reads how many times each kernel
+was launched, so a run can show that its main path went through them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import cosine_sim as _cs
+from repro_torch.kernels import weighted_agg as _wa
+from repro_torch.kernels.cosine_sim import cosine_partials
+from repro_torch.kernels.weighted_agg import weighted_aggregate
+
+
+def combine_partials(dot: torch.Tensor, wsq: torch.Tensor,
+                     gsq: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Eq. 2 from its partials: dot / max(‖w‖·‖gw‖, eps)."""
+    return dot / torch.clamp(torch.sqrt(wsq) * torch.sqrt(gsq), min=eps)
+
+
+def batched_cosine_similarity(W: torch.Tensor,
+                              gw: torch.Tensor) -> torch.Tensor:
+    """(N, D), (D,) → (N,) cosine similarities via the fused partials."""
+    return combine_partials(*cosine_partials(W, gw))
+
+
+def launch_counts() -> Dict[str, int]:
+    return {"cosine_partials": _cs.launches,
+            "weighted_aggregate": _wa.launches}
+
+
+def reset_launch_counts() -> None:
+    _cs.launches = 0
+    _wa.launches = 0
+
+
+__all__ = ["batched_cosine_similarity", "combine_partials", "cosine_partials",
+           "launch_counts", "reset_launch_counts", "weighted_aggregate"]
