@@ -27,7 +27,22 @@ CUDA build of PyTorch. It never imports JAX or the reference package
    unprofiled rounds, and the kernels that took it;
 6. agreement: with dropout off, a short run on the card must elect the
    same leaders as the same run on the CPU (plain versions), with
-   similarities and accuracy within tolerance.
+   similarities and accuracy within tolerance;
+7. wkv6 kernel: the RWKV-6 recurrence at (B, S, H, K) = (8, 1, 32, 64)
+   (decode) and (8, 512, 32, 64) (a forward) in float32, against its
+   plain PyTorch version on the card, bit-identical on repeat, timed
+   beside the plain version and the byte/operation bound;
+8. serving: ``Model(get_config("rwkv6-1.6b"))`` at full width (24
+   layers, d_model 2048, 32 heads of 64, vocab 65,536; seeded random
+   weights on the card) behind ``ServingEngine.generate``: 8 greedy
+   requests, prompts of 16-64 tokens, 32 new tokens each. Finite logits,
+   one wkv6 launch per layer per decode step, the same tokens on a
+   second run; then one ``Model.forward`` on (8, 512) tokens, and a
+   profile of decode steps;
+9. serving agreement: the reduced RWKV-6 config with the same weights on
+   the card and on the CPU, teacher-forced along the CPU's greedy
+   tokens: logits within the bfloat16 tolerance, the same argmax wherever
+   the CPU's top-2 margin is clear of it.
 
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
@@ -52,6 +67,15 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SHAPES = ((8, 101_770), (50, 101_770))
 MAIN_ROUNDS = 3
+ME_KERNELS = ("cosine_partials", "weighted_aggregate")
+WKV6_SHAPES = ((8, 1, 32, 64), (8, 512, 32, 64))
+# float32, sums over K in another order carried through up to 512 steps
+WKV6_TOL = dict(rtol=1e-5, atol=1e-4)
+N_REQUESTS, NEW_TOKENS = 8, 32
+# bfloat16 model, card against CPU (tests/test_torch_rwkv6.py): logits
+# within LOGIT_ATOL (0.02 on average); the argmax must agree where the
+# top-2 margin exceeds twice that
+LOGIT_ATOL, LOGIT_MEAN = 0.125, 0.02
 
 
 class SmokeFailure(RuntimeError):
@@ -135,7 +159,7 @@ def entry(name, source, replaces, W, max_err, bit, k_us, p_us, b, lib_us,
             "max_abs_err": max_err, "bit_identical": bit,
             "ms": k_us / 1e3, "plain_ms": p_us / 1e3,
             "bound_ms": b_us / 1e3, "bound_by": b_by,
-            "library_ms": lib_us / 1e3,
+            "library_ms": None if lib_us is None else lib_us / 1e3,
             "kernel_us": k_us, "plain_us": p_us, "bound_us": b_us,
             "library_us": lib_us, "call_us": call_us, **extra}
 
@@ -265,10 +289,10 @@ def phase_main_path(dev):
           f"main path: chain height {run.chain_height} != {MAIN_ROUNDS}")
     check(all(math.isfinite(m.test_loss) and math.isfinite(m.test_accuracy)
               for m in run.history), "main path: non-finite loss/accuracy")
-    for name, n in counts.items():
-        check(n == MAIN_ROUNDS,
-              f"main path: {name} launched {n} times in {MAIN_ROUNDS} "
-              f"rounds (want one per round)")
+    for name in ME_KERNELS:
+        check(counts[name] == MAIN_ROUNDS,
+              f"main path: {name} launched {counts[name]} times in "
+              f"{MAIN_ROUNDS} rounds (want one per round)")
     w1 = run.runtime.global_params["w1"]
     check(w1.is_cuda and tuple(w1.shape) == (784, 128),
           f"main path: global model w1 is {tuple(w1.shape)} on {w1.device}")
@@ -300,21 +324,20 @@ def phase_main_path(dev):
     return counts, run.runtime, round_ms
 
 
-def phase_profile(runtime, round_ms: float) -> None:
-    """Device busy share of one round: the union of the device's kernel
-    and copy intervals in a profiled round, over the median wall time of
-    the unprofiled rounds (the profiler slows the host, not the device)."""
+def device_busy(fn, what: str):
+    """Run ``fn`` under ``torch.profiler``: (device ops, busy µs — the union
+    of the device's kernel and copy intervals —, top 8 [name, µs])."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        runtime.run_round()
+        fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(len(spans) > 0, "profile: the profiler saw no device activity")
+    check(len(spans) > 0, f"{what}: the profiler saw no device activity")
     busy_us, end = 0.0, float("-inf")
     by_name: dict = {}
     for t0, t1, name in spans:
@@ -322,14 +345,21 @@ def phase_profile(runtime, round_ms: float) -> None:
         end = max(end, t1)
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return len(spans), busy_us, [[n[:80], round(t, 1)] for n, t in top]
+
+
+def phase_profile(runtime, round_ms: float) -> None:
+    """Device busy share of one round: the union of the device's kernel
+    and copy intervals in a profiled round, over the median wall time of
+    the unprofiled rounds (the profiler slows the host, not the device)."""
+    n_ops, busy_us, top = device_busy(runtime.run_round, "profile")
     share = busy_us / (round_ms * 1e3)
-    print(f"profile: {len(spans)} device ops, busy {busy_us:.0f} us in a "
+    print(f"profile: {n_ops} device ops, busy {busy_us:.0f} us in a "
           f"{round_ms:.1f} ms round: busy share {share:.4f}, idle share "
           f"{1 - share:.4f}", flush=True)
     print("profile " + json.dumps({
-        "device_ops": len(spans), "busy_us": busy_us, "round_ms": round_ms,
-        "busy_share": share,
-        "top_us": [[n[:80], round(t, 1)] for n, t in top]}), flush=True)
+        "device_ops": n_ops, "busy_us": busy_us, "round_ms": round_ms,
+        "busy_share": share, "top_us": top}), flush=True)
 
 
 def phase_agreement(dev) -> None:
@@ -361,6 +391,277 @@ def phase_agreement(dev) -> None:
           f"{[m.leader_id for m in gpu.history]}", flush=True)
 
 
+def wkv6_bound_us(B: int, S: int, H: int, K: int) -> tuple[float, str]:
+    """Read r, k, v, w, u and s0 once, write o and the final state once;
+    7 float32 operations per state entry and step (k·v, u·kv, + S, r·,
+    the sum over k, w·S, + kv)."""
+    n_bytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
+    return bound_us(n_bytes, 7.0 * B * H * S * K * K)
+
+
+def check_wkv6(gen, dev, B: int, S: int, H: int, K: int) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import wkv6_recurrence_ref
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    r, k, v = randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, K)
+    w = 0.2 + 0.79 * torch.rand(B, S, H, K, generator=gen, device=dev)
+    u, s0 = randn(H, K), 0.1 * randn(B, H, K, K)
+    args = (r, k, v, w, u, s0)
+    out = ops.wkv6_recurrence(*args)
+    again = ops.wkv6_recurrence(*args)
+    torch.cuda.synchronize()
+    ref = wkv6_recurrence_ref(*args)
+    bit = all(torch.equal(a, b) for a, b in zip(out, again))
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    tag = f"wkv6 {(B, S, H, K)}"
+    check(bit, f"{tag}: two launches on one input differ")
+    check(all(torch.allclose(a, b, **WKV6_TOL) for a, b in zip(out, ref)),
+          f"{tag}: disagrees with wkv6_recurrence_ref (max abs err {err})")
+    # the plain loop is S steps of ~8 launches: fewer graph replays
+    plain_reps = dict(reps=2, samples=5) if S > 64 else {}
+    return entry(
+        "wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
+        "src/repro/kernels/wkv6.py:29", r, err, bit,
+        graph_time_us(lambda: ops.wkv6_recurrence(*args)),
+        graph_time_us(lambda: wkv6_recurrence_ref(*args), **plain_reps),
+        wkv6_bound_us(B, S, H, K), None,
+        call_time_us(lambda: ops.wkv6_recurrence(*args)),
+        library_call="none: no single PyTorch call computes the WKV6 "
+                     "recurrence")
+
+
+def phase_wkv6(dev) -> list:
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for shape in WKV6_SHAPES:
+        row = check_wkv6(gen, dev, *shape)
+        print(f"kernel wkv6 {row['shape']} float32: max_abs_err "
+              f"{row['max_abs_err']:.3e} bit-identical {row['bit_identical']}"
+              f" | kernel {row['kernel_us']:.2f} us, plain "
+              f"{row['plain_us']:.2f} us, bound {row['bound_us']:.2f} us "
+              f"({row['bound_by']}), eager call {row['call_us']:.2f} us",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+class FiniteWatch:
+    """A model seen through the engine's eyes (device, init_cache,
+    decode_step) that notes on the device whether every logit it returned
+    was finite, without a host sync per step."""
+
+    def __init__(self, model):
+        import torch
+        self.model = model
+        self.device = model.device
+        self.finite = torch.ones((), dtype=torch.bool, device=model.device)
+
+    def init_cache(self, batch: int, seq_len: int):
+        return self.model.init_cache(batch, seq_len)
+
+    def decode_step(self, params, cache, tokens, pos):
+        import torch
+        logits, cache = self.model.decode_step(params, cache, tokens, pos)
+        self.finite &= torch.isfinite(logits).all()
+        return logits, cache
+
+
+def rwkv_requests(vocab: int):
+    """The serving phases' requests: 8 prompts of 16-64 tokens (lengths
+    from numpy seed 0, ids from seed 1), 32 new tokens each, greedy."""
+    import numpy as np
+    from repro_torch.serving import GenerationRequest
+    lens = np.random.default_rng(0).integers(16, 65, N_REQUESTS)
+    ids = np.random.default_rng(1)
+    return [GenerationRequest(i, ids.integers(0, vocab, n).astype(np.int32),
+                              NEW_TOKENS) for i, n in enumerate(lens)]
+
+
+def phase_serving(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_api import Model
+    from repro_torch.obs import TraceRecorder, use_recorder
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("rwkv6-1.6b")
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"],
+                                       params["final_norm"],
+                                       *params["layers"].values()])
+    reqs = rwkv_requests(cfg.vocab_size)
+    max_p = max(len(r.prompt) for r in reqs)
+    runs = []
+    for attempt in range(2):
+        watch = FiniteWatch(model)
+        rec = TraceRecorder("serving")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with use_recorder(rec):
+            out = ServingEngine(watch, params, device=dev).generate(reqs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        span = {sp.name: sp.wall_dur * 1e3 for sp in rec.spans}
+        runs.append({"tokens": [c.tokens for c in out], "counts": counts,
+                     "finite": bool(watch.finite),
+                     "prompt_ms": span["serve_prompt"],
+                     "decode_ms": span["serve_decode"],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        check(len(out) == N_REQUESTS and all(
+            c.request_id == i and 0 < len(c.tokens) <= NEW_TOKENS
+            and all(0 <= t < cfg.vocab_size for t in c.tokens)
+            for i, c in enumerate(out)),
+              f"serving: bad completions {[len(c.tokens) for c in out]}")
+        check(runs[-1]["finite"], "serving: a non-finite logit")
+        want = (max_p + NEW_TOKENS - 1) * cfg.n_layers
+        check(counts["wkv6"] == want,
+              f"serving: wkv6 launched {counts['wkv6']} times, want "
+              f"({max_p} + {NEW_TOKENS - 1}) x {cfg.n_layers} = {want}")
+        check(all(counts[n] == 0 for n in ME_KERNELS),
+              f"serving: ME kernels launched {counts}")
+    check(runs[0]["tokens"] == runs[1]["tokens"],
+          "serving: a second identical run gave other tokens")
+    for k, r in enumerate(runs):
+        print(f"serving run {k}: prompt replay ({max_p} steps) "
+              f"{r['prompt_ms']:.1f} ms, decode {r['decode_ms']:.1f} ms = "
+              f"{r['decode_ms'] / (NEW_TOKENS - 1):.2f} ms per decoded token "
+              f"(batch {N_REQUESTS}), peak {r['peak_gb']:.2f} GB, wkv6 "
+              f"launches {r['counts']['wkv6']}", flush=True)
+
+    # one forward over (8, 512) tokens
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (N_REQUESTS, 512)).astype(np.int32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        logits, _ = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_launches = ops.launch_counts()["wkv6"]
+        check(fwd_launches == cfg.n_layers,
+              f"forward: wkv6 launched {fwd_launches} times, want "
+              f"{cfg.n_layers}")
+        check(tuple(logits.shape) == (N_REQUESTS, 512, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"forward: logits {tuple(logits.shape)} not all finite")
+        del logits
+        fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+        fwd_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # where a decode step's time goes
+        cache = model.init_cache(N_REQUESTS, 1)
+        tok = toks[:, :1]
+        step_ms = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.decode_step(params, cache, tok, 0)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        step = statistics.median(step_ms[2:])
+        n_ops, busy_us, top = device_busy(
+            lambda: [model.decode_step(params, cache, tok, 0)
+                     for _ in range(4)], "serving profile")
+    share = busy_us / 4 / (step * 1e3)
+    print(f"forward (8, 512): {statistics.median(fwd_ms):.1f} ms (median "
+          f"of 3), wkv6 launches {fwd_launches}, peak {fwd_peak:.2f} GB",
+          flush=True)
+    print(f"decode step (batch 8): {step:.2f} ms synchronized; profile of 4 "
+          f"steps: {n_ops} device ops, busy {busy_us / 4:.0f} us a step: "
+          f"busy share {share:.4f}, idle share {1 - share:.4f}", flush=True)
+    summary = {"n_params": n_params, "init_s": init_s, "max_prompt": max_p,
+               "prompt_lens": [len(r.prompt) for r in reqs],
+               "runs": [{k: v for k, v in r.items() if k != "tokens"}
+                        for r in runs],
+               "ms_per_token": [r["decode_ms"] / (NEW_TOKENS - 1)
+                                for r in runs],
+               "forward_ms": fwd_ms, "forward_launches": fwd_launches,
+               "forward_peak_gb": fwd_peak, "decode_step_ms": step,
+               "decode_device_ops": n_ops / 4, "decode_busy_us": busy_us / 4,
+               "decode_busy_share": share, "decode_top_us": top,
+               "first_tokens": runs[0]["tokens"][0][:8]}
+    print("serving " + json.dumps(summary), flush=True)
+    return {"launches": runs[0]["counts"]["wkv6"],
+            "forward_launches": fwd_launches}
+
+
+def teacher_forced(model, params, reqs, forced):
+    """(B, n, V) float32 logits on the host: the left-padded prompts of
+    ``reqs`` replayed through decode steps, then ``forced`` (B, n) fed one
+    token a step, as the engine feeds its own tokens."""
+    import numpy as np
+    import torch
+    P = max(len(r.prompt) for r in reqs)
+    padded = np.zeros((len(reqs), P), np.int32)
+    for i, r in enumerate(reqs):
+        padded[i, P - len(r.prompt):] = r.prompt
+    feed = torch.from_numpy(np.concatenate([padded, forced], 1)).to(
+        model.device)
+    cache = model.init_cache(len(reqs), P + forced.shape[1])
+    out = []
+    with torch.inference_mode():
+        for i in range(P + forced.shape[1] - 1):
+            logits, cache = model.decode_step(params, cache,
+                                              feed[:, i:i + 1], i)
+            if i >= P - 1:
+                out.append(logits[:, -1].float().cpu())
+    return torch.stack(out, 1)
+
+
+def phase_serving_agreement(dev) -> None:
+    """The reduced RWKV-6 with one set of weights on the card and on the
+    CPU, fed the CPU's greedy tokens: logits within LOGIT_ATOL, and the
+    same argmax wherever the CPU's top-2 margin exceeds 2 * LOGIT_ATOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("rwkv6-1.6b").reduced()
+    card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    params = card.init(torch.Generator(device=dev).manual_seed(0))
+    cpu_params = {k: ({n: t.cpu() for n, t in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    reqs = rwkv_requests(cfg.vocab_size)
+    done = ServingEngine(cpu, cpu_params, device="cpu").generate(reqs)
+    forced = np.asarray([c.tokens for c in done], np.int32)
+    lh = teacher_forced(cpu, cpu_params, reqs, forced)
+    lc = teacher_forced(card, params, reqs, forced)
+    check(torch.equal(lh.argmax(-1), torch.from_numpy(forced).long()),
+          "serving agreement: the CPU's greedy tokens are not its argmax")
+    diff = (lc - lh).abs()
+    check(float(diff.max()) <= LOGIT_ATOL
+          and float(diff.mean()) <= LOGIT_MEAN,
+          f"serving agreement: logits differ by {float(diff.max())} "
+          f"(mean {float(diff.mean())})")
+    top2 = lh.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_ATOL
+    same = lc.argmax(-1) == lh.argmax(-1)
+    check(bool(same[clear].all()),
+          f"serving agreement: {int((~same & clear).sum())} clear-margin "
+          f"steps pick another token on the card")
+    print(f"serving agreement: {N_REQUESTS} x {NEW_TOKENS} steps, logits max "
+          f"diff {float(diff.max()):.4f} (mean {float(diff.mean()):.5f}); "
+          f"argmax equal at {int(same.sum())} of {same.numel()} steps, "
+          f"{int(clear.sum())} with a clear margin", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -382,7 +683,7 @@ def main() -> int:
     for name in _build.SOURCES:
         print(f"--- nvcc {name}.cu ---\n{_build.build_log(name).strip()}",
               flush=True)
-    # 3. kernels
+    # 3. ME kernels
     rows = phase_kernels(dev)
     # 4. main path
     counts, runtime, round_ms = phase_main_path(dev)
@@ -392,7 +693,15 @@ def main() -> int:
     phase_agreement(dev)
     for row in rows:
         row["launches"] = counts[row["name"]]
-    print(json.dumps({"kernels": rows}), flush=True)
+    # 7. wkv6 kernel
+    wkv_rows = phase_wkv6(dev)
+    # 8. RWKV-6 1.6B serving at full width
+    served = phase_serving(dev)
+    for row in wkv_rows:
+        row.update(served)
+    # 9. the served model on the card against the CPU
+    phase_serving_agreement(dev)
+    print(json.dumps({"kernels": rows + wkv_rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ each model's bytes, so the encoding must match the reference's byte for
 byte for identical weights: leaves in sorted key-path order, with
 key-paths spelled the way ``jax.tree_util.keystr`` writes them
 (``['w1']`` for a dict key, ``''`` for a bare leaf); numpy dtype
-strings (``<f4``); int64 shapes; raw little-endian bytes. The same order
+strings (``<f4``; ``<V2`` for bfloat16, as JAX's numpy arrays spell it); int64
+shapes; raw little-endian bytes. The same order
 defines the canonical flat float32 vector that ME and every adapter use.
 """
 
@@ -40,9 +41,16 @@ def _sorted_leaves(tree: Any) -> List[Tuple[str, Any]]:
     return sorted(_leaves_with_paths(tree), key=lambda kv: kv[0])
 
 
+def _is_bf16(leaf: Any) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+
+
 def _to_numpy(leaf: Any) -> np.ndarray:
+    """A leaf's host array; a bfloat16 tensor comes out as its raw 2-byte
+    values (int16)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(leaf)
 
 
@@ -97,7 +105,9 @@ def serialize_pytree(tree: Any) -> bytes:
     for path, leaf in leaves:
         arr = _to_numpy(leaf)
         path_b = path.encode()
-        dtype_b = arr.dtype.str.encode()
+        # numpy has no bfloat16: the reference's bfloat16 arrays spell it
+        # '<V2', and a bfloat16 tensor reads out through an int16 view
+        dtype_b = b"<V2" if _is_bf16(leaf) else arr.dtype.str.encode()
         out.append(struct.pack("<I", len(path_b)))
         out.append(path_b)
         out.append(struct.pack("<I", len(dtype_b)))

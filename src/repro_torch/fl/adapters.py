@@ -14,12 +14,13 @@ cannot be reproduced in torch).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Any, Mapping, NamedTuple
+from dataclasses import dataclass
+from typing import Any, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.serialization import flatten_pytree, unflatten_pytree
 from repro_torch.fl.client import Client, local_train
 from repro_torch.models.mlp import (MLPConfig, mlp_accuracy, mlp_init,
@@ -35,7 +36,7 @@ class EvalResult(NamedTuple):
 class MLPAdapter:
     """The paper's 784-hidden-10 MLP over ``SyntheticImageDataset`` shards,
     trained with SGD+momentum+decay exactly as §7.1 specifies, on
-    ``device``."""
+    ``device`` (the CUDA card unless the caller asks for the CPU)."""
 
     cfg: MLPConfig = MLPConfig()
     local_epochs: int = 1
@@ -43,9 +44,12 @@ class MLPAdapter:
     lr: float = 1e-3
     momentum: float = 0.9
     decay: float = 5e-4
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: Optional[torch.device | str] = None   # None: the CUDA card
 
     name: str = "mlp"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     def init(self, generator: torch.Generator) -> dict:
         return mlp_init(self.cfg, generator, device=self.device)

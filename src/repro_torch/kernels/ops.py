@@ -1,4 +1,4 @@
-"""Public wrappers around the port's ME kernels, and their launch counts.
+"""Public wrappers around the port's kernels, and their launch counts.
 
 Each op runs its hand-written CUDA kernel for a CUDA tensor and its plain
 PyTorch version (``repro_torch.kernels.ref``) for a CPU tensor; there is
@@ -14,8 +14,10 @@ import torch
 
 from repro_torch.kernels import cosine_sim as _cs
 from repro_torch.kernels import weighted_agg as _wa
+from repro_torch.kernels import wkv6 as _wkv
 from repro_torch.kernels.cosine_sim import cosine_partials
 from repro_torch.kernels.weighted_agg import weighted_aggregate
+from repro_torch.kernels.wkv6 import wkv6_recurrence
 
 
 def combine_partials(dot: torch.Tensor, wsq: torch.Tensor,
@@ -32,13 +34,16 @@ def batched_cosine_similarity(W: torch.Tensor,
 
 def launch_counts() -> Dict[str, int]:
     return {"cosine_partials": _cs.launches,
-            "weighted_aggregate": _wa.launches}
+            "weighted_aggregate": _wa.launches,
+            "wkv6": _wkv.launches}
 
 
 def reset_launch_counts() -> None:
     _cs.launches = 0
     _wa.launches = 0
+    _wkv.launches = 0
 
 
 __all__ = ["batched_cosine_similarity", "combine_partials", "cosine_partials",
-           "launch_counts", "reset_launch_counts", "weighted_aggregate"]
+           "launch_counts", "reset_launch_counts", "weighted_aggregate",
+           "wkv6_recurrence"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the ME kernels (the counterparts of
+"""Plain PyTorch versions of the port's kernels (the counterparts of
 ``repro.kernels.ref``).
 
 The CPU tests hold them against the JAX oracles, the wrappers take them
@@ -36,3 +36,40 @@ def weighted_aggregate_ref(W: torch.Tensor,
     lam = weights.to(torch.float32)
     lam = lam / torch.sum(lam)
     return torch.einsum("n,nd->d", lam, W.to(torch.float32))
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(BH, S, K) WKV6 recurrence, a Python loop over time.
+
+    o_t = r_t · (S + diag(u)·k_tᵀv_t);  S ← diag(w_t)·S + k_tᵀv_t.
+    Returns (o (BH, S, K), final state (BH, K, K)) in float32.
+    """
+    rf, kf, vf, wf = (t.to(torch.float32) for t in (r, k, v, w))
+    uf = u.to(torch.float32)
+    state = s0.to(torch.float32)
+    outs = []
+    for t in range(rf.shape[1]):
+        k_t, v_t = kf[:, t], vf[:, t]
+        kv = k_t[:, :, None] * v_t[:, None, :]                # (BH, K, K)
+        outs.append(torch.sum(rf[:, t, :, None]
+                              * (state + uf[:, :, None] * kv), dim=1))
+        state = wf[:, t, :, None] * state + kv
+    return torch.stack(outs, dim=1), state
+
+
+def wkv6_recurrence_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wkv6_ref` in the op's layout: r, k, v, w (B, S, H, K),
+    u (H, K), s0 (B, H, K, K) → (o (B, S, H, K), state (B, H, K, K))."""
+    B, S, H, K = r.shape
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(B * H, S, K)
+
+    o, s_fin = wkv6_ref(flat(r), flat(k), flat(v), flat(w),
+                        u[None].expand(B, H, K).reshape(B * H, K),
+                        s0.reshape(B * H, K, K))
+    return o.reshape(B, H, S, K).transpose(1, 2), s_fin.reshape(B, H, K, K)

@@ -1,1 +1,4 @@
-"""The paper's MLP (:mod:`repro_torch.models.mlp`)."""
+"""The port's models: the paper's MLP (:mod:`repro_torch.models.mlp`) and
+the RWKV-6 LM (:mod:`repro_torch.models.rwkv6`,
+:mod:`repro_torch.models.ssm_models`) behind
+:class:`repro_torch.models.model_api.Model`."""

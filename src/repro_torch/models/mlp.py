@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 class MLPConfig(NamedTuple):
     in_dim: int = 784
@@ -28,9 +30,11 @@ class MLPConfig(NamedTuple):
 
 
 def mlp_init(cfg: MLPConfig, generator: torch.Generator,
-             device: torch.device | str = "cpu") -> dict:
+             device: Optional[torch.device | str] = None) -> dict:
     """He-normal weights and zero biases, drawn on the CPU from
-    ``generator`` and moved to ``device``."""
+    ``generator`` and moved to ``device`` (the CUDA card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     s1 = math.sqrt(2.0 / cfg.in_dim)
     s2 = math.sqrt(2.0 / cfg.hidden)
     params = {

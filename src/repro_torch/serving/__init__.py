@@ -1,0 +1,9 @@
+"""Serving: the batched generation engine and its samplers (port of
+``repro.serving``)."""
+
+from repro_torch.serving.engine import (Completion, GenerationRequest,
+                                        ServingEngine, serve_batch)
+from repro_torch.serving.sampler import SamplerConfig, sample_token
+
+__all__ = ["Completion", "GenerationRequest", "ServingEngine", "SamplerConfig",
+           "sample_token", "serve_batch"]

@@ -179,3 +179,113 @@ def test_build_all_runs_one_compiler_per_source(tmp_path, monkeypatch, fails):
         assert (_build.build_dir() / f"lib{name}.so").is_file()
         assert _build.build_log(name).strip() == f"ptxas info {name}"
     assert _build.build_all() == {}     # built once per source hash
+
+
+# --- WKV6 recurrence -------------------------------------------------------
+# Tolerance atol 1e-5, the reference's own (tests/test_kernels_wkv6.py):
+# float32 sums over K taken in another order.
+
+from repro.kernels.ops import wkv6_recurrence as j_wkv6_recurrence
+from repro.kernels.wkv6 import wkv6 as pallas_wkv6
+
+
+def _wkv6_flat(seed, BH, S, K):
+    """(BH, S, K) inputs as the reference's tests draw them."""
+    r = np.random.default_rng(seed)
+    arrs = (r.normal(size=(BH, S, K)), r.normal(size=(BH, S, K)),
+            r.normal(size=(BH, S, K)), r.uniform(0.2, 0.99, size=(BH, S, K)),
+            r.normal(size=(BH, K)), 0.1 * r.normal(size=(BH, K, K)))
+    return [a.astype(np.float32) for a in arrs]
+
+
+def _wkv6_bshk(seed, B, S, H, K, zero_state=False):
+    """(B, S, H, K) inputs, u (H, K), s0 (B, H, K, K)."""
+    r = np.random.default_rng(seed)
+    arrs = (r.normal(size=(B, S, H, K)), r.normal(size=(B, S, H, K)),
+            r.normal(size=(B, S, H, K)),
+            r.uniform(0.2, 0.99, size=(B, S, H, K)), r.normal(size=(H, K)),
+            np.zeros((B, H, K, K)) if zero_state
+            else 0.1 * r.normal(size=(B, H, K, K)))
+    return [a.astype(np.float32) for a in arrs]
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 8), (4, 64, 16), (2, 96, 32),
+                                   (3, 5, 64)])
+def test_wkv6_ref_matches_reference_and_pallas(shape):
+    BH, S, K = shape
+    arrs = _wkv6_flat(BH * S + K, BH, S, K)
+    o, sf = tref.wkv6_ref(*map(torch.from_numpy, arrs))
+    jarrs = list(map(jnp.asarray, arrs))
+    for jo, jsf in (jref.wkv6_ref(*jarrs),
+                    pallas_wkv6(*jarrs, chunk=min(16, S) if S % 16 else 16)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=1e-5)
+        np.testing.assert_allclose(sf.numpy(), np.asarray(jsf), atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("s", [1, 2, 17, 32, 33, 70])
+def test_wkv6_ops_cpu_matches_reference_wrapper(s, k):
+    """The port's (B, S, H, K) op on the CPU against the reference's padded
+    Pallas wrapper (interpret mode), S from 1 to 70 as the reference's
+    property test draws it."""
+    B, H = 2, 3
+    arrs = _wkv6_bshk(s * 10 + k, B, s, H, k, zero_state=(s % 2 == 0))
+    o, sf = ops.wkv6_recurrence(*map(torch.from_numpy, arrs))
+    jo, jsf = j_wkv6_recurrence(*map(jnp.asarray, arrs), chunk=32)
+    assert o.shape == (B, s, H, k) and sf.shape == (B, H, k, k)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(jsf), atol=1e-5)
+
+
+def test_wkv6_state_threading():
+    """Two calls threading the state ≡ one call over the whole sequence."""
+    r, k, v, w, u, s0 = map(torch.from_numpy, _wkv6_bshk(5, 2, 64, 3, 8))
+    o_full, s_full = ops.wkv6_recurrence(r, k, v, w, u, s0)
+    o1, s_mid = ops.wkv6_recurrence(r[:, :32], k[:, :32], v[:, :32],
+                                    w[:, :32], u, s0)
+    o2, s_end = ops.wkv6_recurrence(r[:, 32:], k[:, 32:], v[:, 32:],
+                                    w[:, 32:], u, s_mid)
+    torch.testing.assert_close(torch.cat([o1, o2], dim=1), o_full,
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(s_end, s_full, rtol=0, atol=1e-5)
+
+
+def test_wkv6_cpu_dispatch_is_plain_version_and_launches_nothing():
+    B, S, H, K = 2, 7, 3, 16
+    r, k, v, w, u, s0 = map(torch.from_numpy, _wkv6_bshk(1, B, S, H, K))
+    before = ops.launch_counts()
+    o, sf = ops.wkv6_recurrence(r, k, v, w, u, s0)
+    flat = lambda t: t.transpose(1, 2).reshape(B * H, S, K)
+    ro, rsf = tref.wkv6_ref(flat(r), flat(k), flat(v), flat(w),
+                            u.repeat(B, 1), s0.reshape(B * H, K, K))
+    assert torch.equal(flat(o), ro)
+    assert torch.equal(sf.reshape(B * H, K, K), rsf)
+    assert ops.launch_counts() == before
+    assert before.keys() == {"cosine_partials", "weighted_aggregate", "wkv6"}
+
+
+@pytest.mark.parametrize("bad", ["dtype", "head_size", "shape", "state",
+                                 "empty", "ndim", "device"])
+def test_wkv6_checks_inputs(bad):
+    r, k, v, w, u, s0 = map(torch.from_numpy, _wkv6_bshk(2, 1, 4, 2, 8))
+    err = ValueError
+    if bad == "dtype":
+        w, err = w.to(torch.bfloat16), TypeError
+    elif bad == "head_size":
+        r, k, v, w = (torch.ones(1, 4, 2, 12) for _ in range(4))
+        u, s0 = torch.ones(2, 12), torch.ones(1, 2, 12, 12)
+    elif bad == "shape":
+        v = v[:, :3]
+    elif bad == "state":
+        s0 = s0[:, :1]
+    elif bad == "empty":
+        r, k, v, w = (t[:, :0] for t in (r, k, v, w))
+    elif bad == "ndim":
+        r = r[0]
+    else:
+        meta = [t.to("meta") for t in (r, k, v, w, u, s0)]
+        with pytest.raises(ValueError, match="no wkv6 kernel"):
+            ops.wkv6_recurrence(*meta)  # on a device without a kernel
+        u = meta[4]                     # mixed devices
+    with pytest.raises(err):
+        ops.wkv6_recurrence(r, k, v, w, u, s0)

@@ -7,7 +7,12 @@ the reference package):
 
 Tolerances are the reference's (tests/test_kernels.py): float32
 aggregate rtol 2e-5 / atol 2e-6, bfloat16 2e-2; the fused partials rtol
-1e-4 (dot atol 1e-2, sums of 10^5 terms in another order).
+1e-4 (dot atol 1e-2, sums of 10^5 terms in another order). The WKV6
+recurrence: rtol 1e-5 / atol 1e-4 — float32, sums over K in another
+order, carried through up to 512 steps of the state. The RWKV-6 model on
+the card against the CPU: logits within 0.125 and 0.02 on average, the
+bfloat16 rule of tests/test_torch_rwkv6.py (cuBLAS rounds its bfloat16
+products in other places than the CPU).
 """
 
 import pytest
@@ -54,7 +59,7 @@ def test_kernels_match_plain(cuda_device, n, d, dtype):
                                tref.weighted_aggregate_ref(W, w), **tol)
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == \
-        {"cosine_partials": 1, "weighted_aggregate": 1}
+        {"cosine_partials": 1, "weighted_aggregate": 1, "wkv6": 0}
 
 
 def test_kernels_bit_identical_on_repeat(cuda_device):
@@ -109,4 +114,92 @@ def test_run_bhfl_on_card_goes_through_kernels(cuda_device):
     assert run.chain_valid and run.chain_height == 2
     assert run.runtime.global_params["w1"].is_cuda
     assert {k: after[k] - before[k] for k in after} == \
-        {"cosine_partials": 2, "weighted_aggregate": 2}
+        {"cosine_partials": 2, "weighted_aggregate": 2, "wkv6": 0}
+
+
+WKV6 = dict(rtol=1e-5, atol=1e-4)
+
+
+def _wkv6_inputs(gen, dev, B, S, H, K):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    w = 0.2 + 0.79 * torch.rand(B, S, H, K, generator=gen, device=dev)
+    return (randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, K), w,
+            randn(H, K), 0.1 * randn(B, H, K, K))
+
+
+@pytest.mark.parametrize("B,S,H,K", [(8, 1, 32, 64), (8, 512, 32, 64),
+                                     (1, 16, 2, 8), (4, 64, 2, 16),
+                                     (2, 96, 3, 32), (2, 70, 3, 8)])
+def test_wkv6_matches_plain(cuda_device, B, S, H, K):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * S + K)
+    args = _wkv6_inputs(gen, cuda_device, B, S, H, K)
+    before = ops.launch_counts()["wkv6"]
+    o, sf = ops.wkv6_recurrence(*args)
+    assert ops.launch_counts()["wkv6"] == before + 1
+    ro, rsf = tref.wkv6_recurrence_ref(*args)
+    torch.testing.assert_close(o, ro, **WKV6)
+    torch.testing.assert_close(sf, rsf, **WKV6)
+    again = ops.wkv6_recurrence(*args)
+    assert torch.equal(o, again[0]) and torch.equal(sf, again[1])
+
+
+def test_wkv6_reads_strided_inputs(cuda_device):
+    """r, k, v, w as (B, H, S, K) buffers seen through a transpose give the
+    same bits as contiguous copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    B, S, H, K = 2, 33, 4, 64
+    r, k, v, w, u, s0 = _wkv6_inputs(gen, cuda_device, B, S, H, K)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (r, k, v, w)]
+    assert not views[0].is_contiguous()
+    o1, s1 = ops.wkv6_recurrence(*views, u, s0)
+    o2, s2 = ops.wkv6_recurrence(r, k, v, w, u, s0)
+    assert torch.equal(o1, o2) and torch.equal(s1, s2)
+
+
+def test_wkv6_refuses_what_it_cannot_run(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    r, k, v, w, u, s0 = _wkv6_inputs(gen, cuda_device, 1, 4, 2, 16)
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv6_recurrence(r.half(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="strides"):
+        ops.wkv6_recurrence(r, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v, w, u, s0)
+    with pytest.raises(ValueError, match="is on"):
+        ops.wkv6_recurrence(r, k, v, w, u.cpu(), s0)
+    with pytest.raises(ValueError, match="K in"):
+        ops.wkv6_recurrence(*(torch.ones(1, 4, 2, 12, device=cuda_device)
+                              for _ in range(4)),
+                            torch.ones(2, 12, device=cuda_device),
+                            torch.ones(1, 2, 12, 12, device=cuda_device))
+
+
+def test_rwkv_serving_on_card_goes_through_wkv6(cuda_device):
+    """The reduced RWKV-6 on the card: one wkv6 launch per layer per
+    decode step, and logits that agree with the same weights on the CPU."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving import GenerationRequest, ServingEngine
+    cfg = get_config("rwkv6-1.6b").reduced()
+    card = Model(cfg)
+    params = card.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu_params = {k: ({n: t.cpu() for n, t in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    prompts = [np.arange(n, dtype=np.int32) * 7 % 512 for n in (3, 11, 6)]
+    before = ops.launch_counts()
+    out = ServingEngine(card, params).generate(
+        [GenerationRequest(i, p, 5) for i, p in enumerate(prompts)])
+    after = ops.launch_counts()
+    assert after["wkv6"] - before["wkv6"] == (11 + 5 - 1) * cfg.n_layers
+    assert [len(c.tokens) for c in out] == [5, 5, 5]
+    assert all(0 <= t < cfg.vocab_size for c in out for t in c.tokens)
+    toks = torch.from_numpy(np.stack([np.arange(24) * 5 % 512] * 2))
+    lc, _ = card.forward(params, {"tokens": toks.to(cuda_device)})
+    lh, _ = cpu.forward(cpu_params, {"tokens": toks})
+    diff = (lc.float().cpu() - lh.float()).abs()
+    assert torch.isfinite(lc).all()
+    assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02

@@ -86,3 +86,29 @@ def test_params_from_jax_checks(bad):
         err = TypeError
     with pytest.raises(err):
         params_from_jax(ref, MLPConfig(hidden=16))
+
+
+def test_bf16_leaves_bytes_identical(rng):
+    """A mixed float32/bfloat16 tree (RWKV-6 keeps embed and lm_head in
+    bfloat16): the reference writes a bfloat16 leaf as dtype '<V2' and its
+    raw 2-byte values; the port must write the same bytes."""
+    import jax.numpy as jnp
+    vals = {"embed": rng.normal(size=(5, 3)).astype(np.float32),
+            "layers": {"w": rng.normal(size=(2, 3)).astype(np.float32)},
+            "lm_head": rng.normal(size=(3,)).astype(np.float32)}
+    ref = {"embed": np.asarray(jnp.asarray(vals["embed"], jnp.bfloat16)),
+           "layers": {"w": vals["layers"]["w"]},
+           "lm_head": np.asarray(jnp.asarray(vals["lm_head"], jnp.bfloat16))}
+    port = {"embed": torch.from_numpy(vals["embed"]).to(torch.bfloat16),
+            "layers": {"w": torch.from_numpy(vals["layers"]["w"])},
+            "lm_head": torch.from_numpy(vals["lm_head"]).to(torch.bfloat16)}
+    data = tser.serialize_pytree(port)
+    assert data == jser.serialize_pytree(ref)
+    assert b"<V2" in data
+    flat = jser.deserialize_pytree_flat(data)
+    assert flat["['embed']"].view(np.uint16).tolist() == \
+        port["embed"].view(torch.int16).numpy().view(np.uint16).tolist()
+    np.testing.assert_array_equal(tser.flatten_pytree(port).numpy(),
+                                  np.asarray(jser.flatten_pytree(ref)))
+    assert tser.serialize_pytree(port["embed"]) == \
+        jser.serialize_pytree(ref["embed"])
