@@ -25,35 +25,44 @@ ARCH_IDS = [
     "mnist-mlp",        # the paper's own model
 ]
 
-_PORTED = ("rwkv6-1.6b", "mnist-mlp")
+_PORTED = {"rwkv6-1.6b": "rwkv6_1_6b"}      # id -> module of its config
 
-_DENSE = ("ROADMAP Queue 1 items 11-12: dense-transformer serving with the "
-          "flash-attention kernel (Queue 2 item 4)")
-_PENDING = {
-    "starcoder2-3b": _DENSE,
-    "qwen2.5-14b": _DENSE,
-    "yi-6b": _DENSE,
-    "mistral-nemo-12b": _DENSE,
-    "phi3.5-moe-42b-a6.6b": "ROADMAP Queue 1 item 11: the MoE family",
-    "deepseek-moe-16b": "ROADMAP Queue 1 item 11: the MoE family",
-    "zamba2-7b": "ROADMAP Queue 1 item 11: the Mamba2/Zamba2 hybrid family",
-    "llama-3.2-vision-90b": "ROADMAP Queue 1 item 11: the cross-attention "
-                            "(vision/audio) families",
-    "musicgen-medium": "ROADMAP Queue 1 item 11: the cross-attention "
-                       "(vision/audio) families",
+# why a family is not ported yet: the ROADMAP item that brings it. Read by
+# get_config and by models.model_api.Model.
+_CROSS = "ROADMAP Queue 1 item 11: the cross-attention (vision/audio) families"
+NOT_PORTED = {
+    "dense": "ROADMAP Queue 1 items 11-12: dense-transformer serving with "
+             "the flash-attention kernel (Queue 2 item 4)",
+    "moe": "ROADMAP Queue 1 item 11: the MoE family",
+    "hybrid": "ROADMAP Queue 1 item 11: the Mamba2/Zamba2 hybrid family",
+    "vlm": _CROSS,
+    "audio": _CROSS,
+    "mlp": "the paper's MLP is repro_torch.models.mlp.MLPConfig, run by "
+           "repro_torch.api.run_bhfl",
 }
-
-_MODULE_OF = {a: a.replace(".", "_").replace("-", "_") for a in _PORTED}
+_FAMILY_OF = {
+    "phi3.5-moe-42b-a6.6b": "moe",
+    "llama-3.2-vision-90b": "vlm",
+    "musicgen-medium": "audio",
+    "deepseek-moe-16b": "moe",
+    "starcoder2-3b": "dense",
+    "qwen2.5-14b": "dense",
+    "yi-6b": "dense",
+    "mistral-nemo-12b": "dense",
+    "zamba2-7b": "hybrid",
+    "mnist-mlp": "mlp",
+}
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in _PENDING:
+    if arch_id in _FAMILY_OF:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported to repro_torch yet: {_PENDING[arch_id]}")
-    if arch_id not in _MODULE_OF:
+            f"{arch_id!r} is not ported to repro_torch yet: "
+            f"{NOT_PORTED[_FAMILY_OF[arch_id]]}")
+    if arch_id not in _PORTED:
         raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch_id]}")
+    mod = importlib.import_module(f"repro_torch.configs.{_PORTED[arch_id]}")
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "get_config"]
+__all__ = ["ARCH_IDS", "NOT_PORTED", "get_config"]

@@ -8,10 +8,15 @@
 //     o_t[j]   = sum_i r_t[i] * (S[i,j] + u[i] * k_t[i] * v_t[j])
 //     S[i,j]  <- w_t[i] * S[i,j] + k_t[i] * v_t[j]
 //
-// What bounds it: at decode (S = 1) bytes, the state read from s0 and
+// What bounds it: bytes. At decode (S = 1) the state read from s0 and
 // written back (2 * B*H*K*K*4 bytes) dwarfs r, k, v, w and o. Over a long
-// sequence it is the ~7*K^2 fp32 operations per (b, h, t), done one
-// timestep after another: the recurrence is sequential in t.
+// sequence r, k, v, w and o (5 * 4 bytes per (b, t, h, channel)) outweigh
+// the 5*K^2 fp32 operations per (b, h, t) the function needs (one
+// multiply-add for o, since the bonus term is a scalar per step times
+// v_t, and three for the state update): at K = 64 that is 320
+// operations against 20 bytes per channel, 16 a byte, under the card's
+// fp32 rate of about 20 a byte (67 TFLOP/s over 3.35 TB/s). What keeps this kernel from the bound is that the recurrence is
+// sequential in t: each step is a chain of K dependent multiply-adds.
 //
 // The TPU kernel keeps the state in VMEM across an in-kernel fori_loop
 // over a chunk of t, and across chunks through the sequential minor grid

@@ -20,24 +20,13 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import NOT_PORTED
 from repro_torch.models import ssm_models
 from repro_torch.models.config import ArchConfig
 
 # default weight of the auxiliary (load-balancing) loss term; eval paths
 # that recombine (logits, aux) outside Model.loss must use the same value
 DEFAULT_AUX_WEIGHT = 0.01
-
-_CROSS = "ROADMAP Queue 1 item 11: the cross-attention (vision/audio) families"
-_PENDING = {
-    "hybrid": "ROADMAP Queue 1 item 11: the Mamba2/Zamba2 hybrid family",
-    "moe": "ROADMAP Queue 1 item 11: the MoE family",
-    "dense": "ROADMAP Queue 1 items 11-12: dense-transformer serving with "
-             "the flash-attention kernel (Queue 2 item 4)",
-    "vlm": _CROSS,
-    "audio": _CROSS,
-    "mlp": "the paper's MLP runs through repro_torch.models.mlp and "
-           "repro_torch.api.run_bhfl, not Model",
-}
 
 
 def _token_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -63,7 +52,7 @@ class Model:
             raise NotImplementedError(
                 f"{self.cfg.name} ({self.cfg.family}) is not ported to "
                 f"repro_torch yet: "
-                f"{_PENDING.get(self.cfg.family, 'ROADMAP Queue 1 item 11')}")
+                f"{NOT_PORTED.get(self.cfg.family, 'ROADMAP Queue 1 item 11')}")
 
     # -- params -------------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:

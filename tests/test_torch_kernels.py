@@ -222,12 +222,13 @@ def test_wkv6_ref_matches_reference_and_pallas(shape):
         np.testing.assert_allclose(sf.numpy(), np.asarray(jsf), atol=1e-5)
 
 
-@pytest.mark.parametrize("k", [8, 16])
-@pytest.mark.parametrize("s", [1, 2, 17, 32, 33, 70])
+@pytest.mark.parametrize("s,k", [(1, 8), (2, 16), (17, 8), (32, 16),
+                                 (33, 8), (70, 16)])
 def test_wkv6_ops_cpu_matches_reference_wrapper(s, k):
     """The port's (B, S, H, K) op on the CPU against the reference's padded
     Pallas wrapper (interpret mode), S from 1 to 70 as the reference's
-    property test draws it."""
+    property test draws it: one chunk or less, a chunk boundary, and
+    lengths that pad, each head size on every other length."""
     B, H = 2, 3
     arrs = _wkv6_bshk(s * 10 + k, B, s, H, k, zero_state=(s % 2 == 0))
     o, sf = ops.wkv6_recurrence(*map(torch.from_numpy, arrs))

@@ -58,15 +58,21 @@ def _reduced():
     reduced config: 2 layers, d_model 256, 4 heads of 64, vocab 512."""
     jcfg = j_get_config("rwkv6-1.6b").reduced()
     jm = JModel(jcfg)
-    jp = jm.init(jax.random.key(0))
+    jp = jax.jit(jm.init)(jax.random.key(0))
     cfg = get_config("rwkv6-1.6b").reduced()
     m = Model(cfg, device="cpu")
     return jm, jp, m, rwkv_params_from_jax(_np_tree(jp), cfg, device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def _block_init(jcfg):
+    """The reference's block init, compiled once per config."""
+    return jax.jit(functools.partial(jrwkv.rwkv_block_init, jcfg))
+
+
 def _block(d_model, head_size, seed):
     jcfg = jrwkv.RWKVConfig(d_model=d_model, head_size=head_size)
-    jp = _np_tree(jrwkv.rwkv_block_init(jcfg, jax.random.key(seed)))
+    jp = _np_tree(_block_init(jcfg)(jax.random.key(seed)))
     # a nonzero bonus u and varied mixes, so every term of the recurrence
     # is exercised (the init has u = 0 and mu = 0.5)
     r = np.random.default_rng(seed)
@@ -81,9 +87,11 @@ def _close(t, j, **tol):
                                np.asarray(jnp.asarray(j, jnp.float32)), **tol)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("d_model,head_size,S,carry", [
-    (64, 16, 40, False), (128, 64, 9, True), (64, 16, 1, True)])
+# the reference's Pallas path (interpret mode) on the shape with every
+# term: the model's head size, a carried state and shift
+@pytest.mark.parametrize("d_model,head_size,S,carry,use_pallas", [
+    (64, 16, 40, False, False), (128, 64, 9, True, False),
+    (64, 16, 1, True, False), (128, 64, 9, True, True)])
 def test_time_mix_fp32_matches_reference(d_model, head_size, S, carry,
                                          use_pallas):
     jcfg, jp, tcfg, tp = _block(d_model, head_size, S)
@@ -95,11 +103,11 @@ def test_time_mix_fp32_matches_reference(d_model, head_size, S, carry,
         state = 0.1 * r.normal(size=(B, H, head_size, head_size))
         state = state.astype(np.float32)
         shift = r.normal(size=(B, d_model)).astype(np.float32)
-    jout = jrwkv.rwkv_time_mix(
-        jp, jnp.asarray(x), jcfg,
+    jout = jax.jit(functools.partial(
+        jrwkv.rwkv_time_mix, cfg=jcfg, use_pallas=use_pallas))(
+        jp, jnp.asarray(x),
         state=None if state is None else jnp.asarray(state),
-        shift_state=None if shift is None else jnp.asarray(shift),
-        use_pallas=use_pallas)
+        shift_state=None if shift is None else jnp.asarray(shift))
     tout = trwkv.rwkv_time_mix(
         tp, torch.from_numpy(x), tcfg,
         state=None if state is None else torch.from_numpy(state),
@@ -109,8 +117,8 @@ def test_time_mix_fp32_matches_reference(d_model, head_size, S, carry,
     _close(tout[2], jout[2], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("carry,use_pallas", [(False, False), (True, False),
+                                              (True, True)])
 def test_block_apply_fp32_matches_reference(carry, use_pallas, monkeypatch):
     if use_pallas:   # the reference's block calls the scan; send it to Pallas
         monkeypatch.setattr(jrwkv, "rwkv_time_mix", functools.partial(
@@ -126,7 +134,8 @@ def test_block_apply_fp32_matches_reference(carry, use_pallas, monkeypatch):
               r.normal(size=(B, 128)).astype(np.float32)]
         jst = jrwkv.RWKVBlockState(*map(jnp.asarray, st))
         tst = trwkv.RWKVBlockState(*map(torch.from_numpy, st))
-    jx, jnew = jrwkv.rwkv_block_apply(jp, jnp.asarray(x), jcfg, state=jst)
+    jx, jnew = jax.jit(functools.partial(jrwkv.rwkv_block_apply, cfg=jcfg))(
+        jp, jnp.asarray(x), state=jst)
     tx, tnew = trwkv.rwkv_block_apply(tp, torch.from_numpy(x), tcfg,
                                       state=tst)
     _close(tx, jx, **FP32)
@@ -147,15 +156,15 @@ def _assert_logits_close(t, j):
 def test_forward_logits_match_reference():
     jm, jp, m, tp = _reduced()
     toks = np.random.default_rng(1).integers(0, 512, (3, 24)).astype(np.int32)
-    jl, jaux = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    jl, jaux = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
     tl, taux = m.forward(tp, {"tokens": torch.from_numpy(toks)})
     assert tl.dtype == torch.bfloat16 and float(taux) == float(jaux) == 0.0
     _assert_logits_close(tl, jl)
     labels = np.random.default_rng(2).integers(0, 512, (3, 24))
     loss = m.loss(tp, {"tokens": torch.from_numpy(toks),
                        "labels": torch.from_numpy(labels)})
-    jloss = jm.loss(jp, {"tokens": jnp.asarray(toks),
-                         "labels": jnp.asarray(labels)})
+    jloss = jax.jit(jm.loss)(jp, {"tokens": jnp.asarray(toks),
+                                  "labels": jnp.asarray(labels)})
     assert abs(float(loss) - float(jloss)) <= 1e-2
 
 
@@ -199,7 +208,7 @@ def test_prefill_returns_last_logits_and_fresh_cache():
     jm, jp, m, tp = _reduced()
     toks = np.random.default_rng(5).integers(0, 512, (2, 7)).astype(np.int32)
     tl, cache = m.prefill(tp, {"tokens": torch.from_numpy(toks)})
-    jl, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
+    jl, jcache = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks)})
     assert tl.shape == (2, 1, 512)
     _assert_logits_close(tl, jl)
     for t, j in zip(cache, jcache):
@@ -262,7 +271,8 @@ def test_unported_families_name_their_roadmap_item():
         Model(j_get_config("zamba2-7b"), device="cpu")
     with pytest.raises(KeyError):
         get_config("gpt-5")
-    assert get_config("mnist-mlp").d_model == 128
+    with pytest.raises(NotImplementedError, match="run_bhfl"):
+        get_config("mnist-mlp")
 
 
 def test_entry_points_default_to_the_card():

@@ -39,7 +39,7 @@ MARGIN = 0.25         # twice the logits tolerance of tests/test_torch_rwkv6
 def _models():
     jcfg = j_get_config("rwkv6-1.6b").reduced()
     jm = JModel(jcfg)
-    jp = jm.init(jax.random.key(1))
+    jp = jax.jit(jm.init)(jax.random.key(1))
     m = Model(get_config("rwkv6-1.6b").reduced(), device="cpu")
     return jm, jp, m, rwkv_params_from_jax(jax.tree.map(np.asarray, jp),
                                            m.cfg, device="cpu")
