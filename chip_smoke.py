@@ -42,7 +42,24 @@ CUDA build of PyTorch. It never imports JAX or the reference package
 9. serving agreement: the reduced RWKV-6 config with the same weights on
    the card and on the CPU, teacher-forced along the CPU's greedy
    tokens: logits within the bfloat16 tolerance, the same argmax wherever
-   the CPU's top-2 margin is clear of it.
+   the CPU's top-2 margin is clear of it;
+10. flash kernel: flash attention at the Yi-6B serving prefill
+    (8, 57, Hq 32, Hk 4, hd 128) and forward (8, 512, 32, 4, 128) shapes
+    in bfloat16 (the forward also in float32), a 256-key window at hd 64
+    and a non-causal case at hd 32, against its plain PyTorch version on the card, bit-identical on
+    repeat, timed beside the plain version, the byte/operation bound and
+    ``scaled_dot_product_attention`` (the library yardstick, never called
+    by the port);
+11. dense serving: ``Model(get_config("yi-6b"))`` at full width (32
+    layers, d_model 4096, 32 heads and 4 KV heads of 128, d_ff 11008,
+    vocab 64,000; seeded random bfloat16 weights on the card) behind
+    ``ServingEngine.generate``: the requests of phase 8, twice. Finite
+    logits, one flash launch per layer, all in the one prefill, the same
+    tokens on a second run; then one ``Model.forward`` on (8, 512) tokens
+    (one flash launch per layer), and a profile of decode steps;
+12. dense serving agreement: phase 9 for the reduced Yi-6B and the
+    reduced StarCoder2-3B (GQA and random QKV biases), the prompt through
+    ``prefill`` and the KV cache grown as the engine grows it.
 
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
@@ -62,9 +79,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor-core) peak
+# H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor-core) and dense
+# bf16 tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 SHAPES = ((8, 101_770), (50, 101_770))
 MAIN_ROUNDS = 3
 ME_KERNELS = ("cosine_partials", "weighted_aggregate")
@@ -76,6 +95,17 @@ N_REQUESTS, NEW_TOKENS = 8, 32
 # within LOGIT_ATOL (0.02 on average); the argmax must agree where the
 # top-2 margin exceeds twice that
 LOGIT_ATOL, LOGIT_MEAN = 0.125, 0.02
+# (B, S, Hq, Hk, hd, dtype, causal, window): the Yi-6B serving prefill,
+# the Yi-6B forward in bf16 and fp32, then a window, a non-causal case
+FLASH_CASES = ((8, 57, 32, 4, 128, "bfloat16", True, 0),
+               (8, 512, 32, 4, 128, "bfloat16", True, 0),
+               (8, 512, 32, 4, 128, "float32", True, 0),
+               (1, 1000, 8, 2, 64, "bfloat16", True, 256),
+               (2, 130, 4, 4, 32, "bfloat16", False, 0))
+# both versions compute in float32, sums in another order
+# (tests/test_kernels.py:19-21, 141-179)
+FLASH_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
+             "float32": dict(rtol=2e-5, atol=2e-5)}
 
 
 class SmokeFailure(RuntimeError):
@@ -143,9 +173,10 @@ def call_time_us(fn, samples: int = 50) -> float:
     return statistics.median(times)
 
 
-def bound_us(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_us(n_bytes: float, flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     return (max(t_bytes, t_ops) * 1e6,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -453,29 +484,38 @@ def phase_wkv6(dev) -> list:
 
 
 class FiniteWatch:
-    """A model seen through the engine's eyes (device, init_cache,
-    decode_step) that notes on the device whether every logit it returned
-    was finite, without a host sync per step."""
+    """A model seen through the engine's eyes (cfg, device, init_cache,
+    prefill, decode_step) that notes on the device whether every logit it
+    returned was finite, without a host sync per step."""
 
     def __init__(self, model):
         import torch
         self.model = model
+        self.cfg = model.cfg
         self.device = model.device
         self.finite = torch.ones((), dtype=torch.bool, device=model.device)
+
+    def _watch(self, logits):
+        import torch
+        self.finite &= torch.isfinite(logits).all()
+        return logits
 
     def init_cache(self, batch: int, seq_len: int):
         return self.model.init_cache(batch, seq_len)
 
+    def prefill(self, params, batch):
+        logits, cache = self.model.prefill(params, batch)
+        return self._watch(logits), cache
+
     def decode_step(self, params, cache, tokens, pos):
-        import torch
         logits, cache = self.model.decode_step(params, cache, tokens, pos)
-        self.finite &= torch.isfinite(logits).all()
-        return logits, cache
+        return self._watch(logits), cache
 
 
-def rwkv_requests(vocab: int):
+def serving_requests(vocab: int):
     """The serving phases' requests: 8 prompts of 16-64 tokens (lengths
-    from numpy seed 0, ids from seed 1), 32 new tokens each, greedy."""
+    from numpy seed 0: 57, 47, 41, 29, 31, 18, 19, 16; ids from seed 1),
+    32 new tokens each, greedy."""
     import numpy as np
     from repro_torch.serving import GenerationRequest
     lens = np.random.default_rng(0).integers(16, 65, N_REQUESTS)
@@ -484,7 +524,17 @@ def rwkv_requests(vocab: int):
                               NEW_TOKENS) for i, n in enumerate(lens)]
 
 
-def phase_serving(dev) -> dict:
+def n_elements(tree) -> int:
+    return sum(n_elements(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
+def phase_serving(dev, arch: str, kernel: str) -> dict:
+    """``arch`` at full width behind ``ServingEngine.generate``, twice, the
+    launches of ``kernel`` counted in each run; then a forward over
+    (8, 512) tokens and a profile of decode steps. A recurrent model
+    launches its kernel once per layer in every prompt-replay and decode
+    step; a transformer once per layer in its one prefill."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -492,17 +542,20 @@ def phase_serving(dev) -> dict:
     from repro_torch.models.model_api import Model
     from repro_torch.obs import TraceRecorder, use_recorder
     from repro_torch.serving import ServingEngine
-    cfg = get_config("rwkv6-1.6b")
+    cfg = get_config(arch)
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"],
-                                       params["final_norm"],
-                                       *params["layers"].values()])
-    reqs = rwkv_requests(cfg.vocab_size)
+    n_params = n_elements(params)
+    reqs = serving_requests(cfg.vocab_size)
     max_p = max(len(r.prompt) for r in reqs)
+    if cfg.rwkv:
+        want, how = ((max_p + NEW_TOKENS - 1) * cfg.n_layers,
+                     f"({max_p} + {NEW_TOKENS - 1}) x {cfg.n_layers}")
+    else:
+        want, how = cfg.n_layers, "one a layer in the prefill"
     runs = []
     for attempt in range(2):
         watch = FiniteWatch(model)
@@ -523,22 +576,23 @@ def phase_serving(dev) -> dict:
             c.request_id == i and 0 < len(c.tokens) <= NEW_TOKENS
             and all(0 <= t < cfg.vocab_size for t in c.tokens)
             for i, c in enumerate(out)),
-              f"serving: bad completions {[len(c.tokens) for c in out]}")
-        check(runs[-1]["finite"], "serving: a non-finite logit")
-        want = (max_p + NEW_TOKENS - 1) * cfg.n_layers
-        check(counts["wkv6"] == want,
-              f"serving: wkv6 launched {counts['wkv6']} times, want "
-              f"({max_p} + {NEW_TOKENS - 1}) x {cfg.n_layers} = {want}")
-        check(all(counts[n] == 0 for n in ME_KERNELS),
-              f"serving: ME kernels launched {counts}")
+              f"serving {arch}: bad completions "
+              f"{[len(c.tokens) for c in out]}")
+        check(runs[-1]["finite"], f"serving {arch}: a non-finite logit")
+        check(counts[kernel] == want,
+              f"serving {arch}: {kernel} launched {counts[kernel]} times, "
+              f"want {how} = {want}")
+        check(all(n == 0 for k, n in counts.items() if k != kernel),
+              f"serving {arch}: other kernels launched {counts}")
     check(runs[0]["tokens"] == runs[1]["tokens"],
-          "serving: a second identical run gave other tokens")
+          f"serving {arch}: a second identical run gave other tokens")
     for k, r in enumerate(runs):
-        print(f"serving run {k}: prompt replay ({max_p} steps) "
-              f"{r['prompt_ms']:.1f} ms, decode {r['decode_ms']:.1f} ms = "
+        print(f"serving {arch} run {k}: time to first token "
+              f"({max_p}-token prompts) {r['prompt_ms']:.1f} ms, decode "
+              f"{r['decode_ms']:.1f} ms = "
               f"{r['decode_ms'] / (NEW_TOKENS - 1):.2f} ms per decoded token "
-              f"(batch {N_REQUESTS}), peak {r['peak_gb']:.2f} GB, wkv6 "
-              f"launches {r['counts']['wkv6']}", flush=True)
+              f"(batch {N_REQUESTS}), peak {r['peak_gb']:.2f} GB, {kernel} "
+              f"launches {r['counts'][kernel]}", flush=True)
 
     # one forward over (8, 512) tokens
     toks = torch.from_numpy(np.random.default_rng(2).integers(
@@ -548,13 +602,13 @@ def phase_serving(dev) -> dict:
     with torch.inference_mode():
         logits, _ = model.forward(params, {"tokens": toks})
         torch.cuda.synchronize()
-        fwd_launches = ops.launch_counts()["wkv6"]
+        fwd_launches = ops.launch_counts()[kernel]
         check(fwd_launches == cfg.n_layers,
-              f"forward: wkv6 launched {fwd_launches} times, want "
+              f"forward {arch}: {kernel} launched {fwd_launches} times, want "
               f"{cfg.n_layers}")
         check(tuple(logits.shape) == (N_REQUESTS, 512, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
-              f"forward: logits {tuple(logits.shape)} not all finite")
+              f"forward {arch}: logits {tuple(logits.shape)} not all finite")
         del logits
         fwd_peak = torch.cuda.max_memory_allocated() / 1e9
         fwd_ms = []
@@ -565,31 +619,35 @@ def phase_serving(dev) -> dict:
             torch.cuda.synchronize()
             fwd_ms.append((time.perf_counter() - t0) * 1e3)
 
-        # where a decode step's time goes
-        cache = model.init_cache(N_REQUESTS, 1)
+        # where a decode step's time goes: the step after the longest
+        # prompt, over a cache of the served length
+        cache = model.init_cache(N_REQUESTS, max_p + NEW_TOKENS)
         tok = toks[:, :1]
         step_ms = []
         for _ in range(12):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.decode_step(params, cache, tok, 0)
+            model.decode_step(params, cache, tok, max_p)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         step = statistics.median(step_ms[2:])
         n_ops, busy_us, top = device_busy(
-            lambda: [model.decode_step(params, cache, tok, 0)
-                     for _ in range(4)], "serving profile")
+            lambda: [model.decode_step(params, cache, tok, max_p)
+                     for _ in range(4)], f"serving {arch} profile")
     share = busy_us / 4 / (step * 1e3)
-    print(f"forward (8, 512): {statistics.median(fwd_ms):.1f} ms (median "
-          f"of 3), wkv6 launches {fwd_launches}, peak {fwd_peak:.2f} GB",
+    print(f"forward {arch} (8, 512): {statistics.median(fwd_ms):.1f} ms "
+          f"(median of 3), {kernel} launches {fwd_launches}, peak "
+          f"{fwd_peak:.2f} GB", flush=True)
+    print(f"decode step {arch} (batch 8): {step:.2f} ms synchronized; "
+          f"profile of 4 steps: {n_ops} device ops, busy {busy_us / 4:.0f} "
+          f"us a step: busy share {share:.4f}, idle share {1 - share:.4f}",
           flush=True)
-    print(f"decode step (batch 8): {step:.2f} ms synchronized; profile of 4 "
-          f"steps: {n_ops} device ops, busy {busy_us / 4:.0f} us a step: "
-          f"busy share {share:.4f}, idle share {1 - share:.4f}", flush=True)
-    summary = {"n_params": n_params, "init_s": init_s, "max_prompt": max_p,
+    summary = {"arch": arch, "n_params": n_params, "init_s": init_s,
+               "max_prompt": max_p,
                "prompt_lens": [len(r.prompt) for r in reqs],
                "runs": [{k: v for k, v in r.items() if k != "tokens"}
                         for r in runs],
+               "ttft_ms": [r["prompt_ms"] for r in runs],
                "ms_per_token": [r["decode_ms"] / (NEW_TOKENS - 1)
                                 for r in runs],
                "forward_ms": fwd_ms, "forward_launches": fwd_launches,
@@ -598,70 +656,185 @@ def phase_serving(dev) -> dict:
                "decode_busy_share": share, "decode_top_us": top,
                "first_tokens": runs[0]["tokens"][0][:8]}
     print("serving " + json.dumps(summary), flush=True)
-    return {"launches": runs[0]["counts"]["wkv6"],
+    return {"launches": runs[0]["counts"][kernel],
             "forward_launches": fwd_launches}
 
 
 def teacher_forced(model, params, reqs, forced):
     """(B, n, V) float32 logits on the host: the left-padded prompts of
-    ``reqs`` replayed through decode steps, then ``forced`` (B, n) fed one
-    token a step, as the engine feeds its own tokens."""
+    ``reqs`` taken in as the engine takes them (a transformer's prefill
+    and its cache grown by n slots; a recurrent model's replay through
+    decode steps), then ``forced`` (B, n) fed one token a step, as the
+    engine feeds its own tokens."""
     import numpy as np
     import torch
+    from repro_torch.serving import grow_cache
     P = max(len(r.prompt) for r in reqs)
+    n = forced.shape[1]
     padded = np.zeros((len(reqs), P), np.int32)
     for i, r in enumerate(reqs):
         padded[i, P - len(r.prompt):] = r.prompt
     feed = torch.from_numpy(np.concatenate([padded, forced], 1)).to(
         model.device)
-    cache = model.init_cache(len(reqs), P + forced.shape[1])
     out = []
     with torch.inference_mode():
-        for i in range(P + forced.shape[1] - 1):
+        if model.cfg.rwkv:
+            cache = model.init_cache(len(reqs), P + n)
+            for i in range(P - 1):
+                _, cache = model.decode_step(params, cache,
+                                             feed[:, i:i + 1], i)
+            start = P - 1
+        else:
+            logits, cache = model.prefill(params, {"tokens": feed[:, :P]})
+            cache = grow_cache(cache, n)
+            out.append(logits[:, -1].float().cpu())
+            start = P
+        for i in range(start, P + n - 1):
             logits, cache = model.decode_step(params, cache,
                                               feed[:, i:i + 1], i)
-            if i >= P - 1:
-                out.append(logits[:, -1].float().cpu())
+            out.append(logits[:, -1].float().cpu())
     return torch.stack(out, 1)
 
 
-def phase_serving_agreement(dev) -> None:
-    """The reduced RWKV-6 with one set of weights on the card and on the
-    CPU, fed the CPU's greedy tokens: logits within LOGIT_ATOL, and the
-    same argmax wherever the CPU's top-2 margin exceeds 2 * LOGIT_ATOL."""
+def to_cpu(tree):
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def phase_serving_agreement(dev, arch: str) -> None:
+    """The reduced ``arch`` with one set of weights on the card and on the
+    CPU (random QKV biases where the config has them), fed the CPU's
+    greedy tokens: logits within LOGIT_ATOL, and the same argmax wherever
+    the CPU's top-2 margin exceeds 2 * LOGIT_ATOL."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model_api import Model
     from repro_torch.serving import ServingEngine
-    cfg = get_config("rwkv6-1.6b").reduced()
+    cfg = get_config(arch).reduced()
     card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
-    params = card.init(torch.Generator(device=dev).manual_seed(0))
-    cpu_params = {k: ({n: t.cpu() for n, t in v.items()}
-                      if isinstance(v, dict) else v.cpu())
-                  for k, v in params.items()}
-    reqs = rwkv_requests(cfg.vocab_size)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = card.init(gen)
+    attn = params["layers"].get("attn", {})
+    for b in ("bq", "bk", "bv"):
+        if b in attn:
+            attn[b] = torch.randn(attn[b].shape, generator=gen, device=dev
+                                  ).to(attn[b].dtype)
+    cpu_params = to_cpu(params)
+    reqs = serving_requests(cfg.vocab_size)
     done = ServingEngine(cpu, cpu_params, device="cpu").generate(reqs)
     forced = np.asarray([c.tokens for c in done], np.int32)
     lh = teacher_forced(cpu, cpu_params, reqs, forced)
     lc = teacher_forced(card, params, reqs, forced)
     check(torch.equal(lh.argmax(-1), torch.from_numpy(forced).long()),
-          "serving agreement: the CPU's greedy tokens are not its argmax")
+          f"serving agreement {arch}: the CPU's greedy tokens are not its "
+          f"argmax")
     diff = (lc - lh).abs()
     check(float(diff.max()) <= LOGIT_ATOL
           and float(diff.mean()) <= LOGIT_MEAN,
-          f"serving agreement: logits differ by {float(diff.max())} "
+          f"serving agreement {arch}: logits differ by {float(diff.max())} "
           f"(mean {float(diff.mean())})")
     top2 = lh.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_ATOL
     same = lc.argmax(-1) == lh.argmax(-1)
     check(bool(same[clear].all()),
-          f"serving agreement: {int((~same & clear).sum())} clear-margin "
-          f"steps pick another token on the card")
-    print(f"serving agreement: {N_REQUESTS} x {NEW_TOKENS} steps, logits max "
-          f"diff {float(diff.max()):.4f} (mean {float(diff.mean()):.5f}); "
-          f"argmax equal at {int(same.sum())} of {same.numel()} steps, "
-          f"{int(clear.sum())} with a clear margin", flush=True)
+          f"serving agreement {arch}: {int((~same & clear).sum())} "
+          f"clear-margin steps pick another token on the card")
+    print(f"serving agreement {arch}: {N_REQUESTS} x {NEW_TOKENS} steps, "
+          f"logits max diff {float(diff.max()):.4f} (mean "
+          f"{float(diff.mean()):.5f}); argmax equal at {int(same.sum())} of "
+          f"{same.numel()} steps, {int(clear.sum())} with a clear margin",
+          flush=True)
+
+
+def flash_bound_us(B: int, S: int, Hq: int, Hk: int, hd: int, size: int,
+                   causal: bool, window: int,
+                   flop_per_s: float) -> tuple[float, str]:
+    """Read q, k, v once and write o once; 4·hd operations (two
+    multiply-adds a dim, q·k and p·v) for each unmasked (q, k) pair —
+    S(S+1)/2 a head when causal, fewer with a window."""
+    n_bytes = (2 * B * S * Hq * hd + 2 * B * S * Hk * hd) * size
+    pairs = 0
+    for qpos in range(S):
+        hi = qpos + 1 if causal else S
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo)
+    return bound_us(n_bytes, 4.0 * hd * B * Hq * pairs, flop_per_s)
+
+
+def check_flash(gen, dev, B: int, S: int, Hq: int, Hk: int, hd: int,
+                dtype_name: str, causal: bool, window: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_gqa_ref
+    dtype = getattr(torch, dtype_name)
+    q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window)
+    out = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = flash_attention_gqa_ref(q, k, v, **kw)
+    bit = torch.equal(out, again)
+    err = float((out.float() - ref.float()).abs().max())
+    tag = f"flash {(B, S, Hq, Hk, hd)} {dtype_name} causal {causal} " \
+          f"window {window}"
+    check(bit, f"{tag}: two launches on one input differ")
+    check(torch.allclose(out.float(), ref.float(), **FLASH_TOL[dtype_name]),
+          f"{tag}: disagrees with flash_attention_gqa_ref (max abs err "
+          f"{err})")
+    # the library yardstick: one SDPA call in its (B, H, S, hd) layout
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window > 0:
+        pos = torch.arange(S, device=dev)
+        mask = pos[None, :] > pos[:, None] - window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    check(torch.allclose(sdpa().transpose(1, 2).float(), ref.float(),
+                         **FLASH_TOL["bfloat16"]),
+          f"{tag}: the SDPA yardstick does not compute the same function")
+    plain_reps = dict(reps=2, samples=10) if S * S * B * Hq > 1 << 24 else {}
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return entry(
+        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:22", q, err, bit,
+        graph_time_us(lambda: ops.flash_attention(q, k, v, **kw)),
+        graph_time_us(lambda: flash_attention_gqa_ref(q, k, v, **kw),
+                      **plain_reps),
+        flash_bound_us(B, S, Hq, Hk, hd, q.element_size(), causal, window,
+                       peak),
+        graph_time_us(sdpa),
+        call_time_us(lambda: ops.flash_attention(q, k, v, **kw)),
+        kv_heads=Hk, causal=causal, window=window,
+        library_call="torch.nn.functional.scaled_dot_product_attention("
+                     "enable_gqa=True)")
+
+
+def phase_flash(dev) -> list:
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for case in FLASH_CASES:
+        row = check_flash(gen, dev, *case)
+        print(f"kernel flash_attention {row['shape']} Hk {row['kv_heads']} "
+              f"{row['dtype']} causal {row['causal']} window {row['window']}"
+              f": max_abs_err {row['max_abs_err']:.3e} bit-identical "
+              f"{row['bit_identical']} | kernel {row['kernel_us']:.2f} us, "
+              f"plain {row['plain_us']:.2f} us, library "
+              f"{row['library_us']:.2f} us, bound {row['bound_us']:.2f} us "
+              f"({row['bound_by']}), eager call {row['call_us']:.2f} us",
+              flush=True)
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -698,12 +871,21 @@ def main() -> int:
     # 7. wkv6 kernel
     wkv_rows = phase_wkv6(dev)
     # 8. RWKV-6 1.6B serving at full width
-    served = phase_serving(dev)
+    served = phase_serving(dev, "rwkv6-1.6b", "wkv6")
     for row in wkv_rows:
         row.update(served)
     # 9. the served model on the card against the CPU
-    phase_serving_agreement(dev)
-    print(json.dumps({"kernels": rows + wkv_rows}), flush=True)
+    phase_serving_agreement(dev, "rwkv6-1.6b")
+    # 10. flash kernel
+    flash_rows = phase_flash(dev)
+    # 11. Yi-6B serving at full width
+    served = phase_serving(dev, "yi-6b", "flash_attention")
+    for row in flash_rows:
+        row.update(served)
+    # 12. the dense models on the card against the CPU
+    for arch in ("yi-6b", "starcoder2-3b"):
+        phase_serving_agreement(dev, arch)
+    print(json.dumps({"kernels": rows + wkv_rows + flash_rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

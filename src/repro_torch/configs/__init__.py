@@ -25,14 +25,18 @@ ARCH_IDS = [
     "mnist-mlp",        # the paper's own model
 ]
 
-_PORTED = {"rwkv6-1.6b": "rwkv6_1_6b"}      # id -> module of its config
+_PORTED = {                                 # id -> module of its config
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "yi-6b": "yi_6b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+}
 
 # why a family is not ported yet: the ROADMAP item that brings it. Read by
 # get_config and by models.model_api.Model.
 _CROSS = "ROADMAP Queue 1 item 11: the cross-attention (vision/audio) families"
 NOT_PORTED = {
-    "dense": "ROADMAP Queue 1 items 11-12: dense-transformer serving with "
-             "the flash-attention kernel (Queue 2 item 4)",
     "moe": "ROADMAP Queue 1 item 11: the MoE family",
     "hybrid": "ROADMAP Queue 1 item 11: the Mamba2/Zamba2 hybrid family",
     "vlm": _CROSS,
@@ -45,10 +49,6 @@ _FAMILY_OF = {
     "llama-3.2-vision-90b": "vlm",
     "musicgen-medium": "audio",
     "deepseek-moe-16b": "moe",
-    "starcoder2-3b": "dense",
-    "qwen2.5-14b": "dense",
-    "yi-6b": "dense",
-    "mistral-nemo-12b": "dense",
     "zamba2-7b": "hybrid",
     "mnist-mlp": "mlp",
 }

@@ -1,0 +1,12 @@
+"""Qwen2.5-14B: dense GQA with QKV bias. [hf:Qwen/Qwen2.5-0.5B family card,
+scaled per brief]"""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-14b", family="dense",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=13824, vocab_size=152064, qkv_bias=True,
+    rope_theta=1000000.0,
+    source="hf:Qwen/Qwen2.5-0.5B",
+)

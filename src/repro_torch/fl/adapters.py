@@ -78,11 +78,13 @@ class MLPAdapter:
 
 
 def params_from_jax(params: Mapping[str, Any], cfg: MLPConfig = MLPConfig(),
-                    device: torch.device | str = "cpu") -> dict:
+                    device: torch.device | str | None = None) -> dict:
     """The reference's MLP parameters (a dict of numpy arrays, e.g.
     ``{k: np.asarray(v) for k, v in repro_params.items()}``) as the port's
-    float32 tensors on ``device``. Names, shapes and dtypes are checked
-    against ``cfg``; values are copied bit for bit."""
+    float32 tensors on ``device`` (the card unless the caller asks for
+    the CPU). Names, shapes and dtypes are checked against ``cfg``; values
+    are copied bit for bit."""
+    dev = resolve_device(device)
     want = {"w1": (cfg.in_dim, cfg.hidden), "b1": (cfg.hidden,),
             "w2": (cfg.hidden, cfg.n_classes), "b2": (cfg.n_classes,)}
     if set(params) != set(want):
@@ -96,6 +98,6 @@ def params_from_jax(params: Mapping[str, Any], cfg: MLPConfig = MLPConfig(),
                              f"{shape}")
         if arr.dtype != np.float32:
             raise TypeError(f"{k} has dtype {arr.dtype}; the MLP is float32")
-        out[k] = torch.from_numpy(arr.copy()).to(device)
+        out[k] = torch.from_numpy(arr.copy()).to(dev)
     return out
 

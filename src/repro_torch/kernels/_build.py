@@ -31,6 +31,8 @@ SIGNATURES = {
     "weighted_agg": ("repro_weighted_agg", [_P, _I, _P, _P, _I, _L, _P]),
     "wkv6": ("repro_wkv6", [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P]),
+    "flash_attention": ("repro_flash_attention",
+                        [_P, _P, _P, _P, *[_L] * 9, *[_I] * 8, _P]),
 }
 SOURCES = tuple(SIGNATURES)
 

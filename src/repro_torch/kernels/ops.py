@@ -13,9 +13,11 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import cosine_sim as _cs
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import weighted_agg as _wa
 from repro_torch.kernels import wkv6 as _wkv
 from repro_torch.kernels.cosine_sim import cosine_partials
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.weighted_agg import weighted_aggregate
 from repro_torch.kernels.wkv6 import wkv6_recurrence
 
@@ -35,15 +37,17 @@ def batched_cosine_similarity(W: torch.Tensor,
 def launch_counts() -> Dict[str, int]:
     return {"cosine_partials": _cs.launches,
             "weighted_aggregate": _wa.launches,
-            "wkv6": _wkv.launches}
+            "wkv6": _wkv.launches,
+            "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     _cs.launches = 0
     _wa.launches = 0
     _wkv.launches = 0
+    _fa.launches = 0
 
 
 __all__ = ["batched_cosine_similarity", "combine_partials", "cosine_partials",
-           "launch_counts", "reset_launch_counts", "weighted_aggregate",
-           "wkv6_recurrence"]
+           "flash_attention", "launch_counts", "reset_launch_counts",
+           "weighted_aggregate", "wkv6_recurrence"]

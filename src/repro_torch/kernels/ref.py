@@ -9,6 +9,8 @@ tensor.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -73,3 +75,38 @@ def wkv6_recurrence_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         u[None].expand(B, H, K).reshape(B * H, K),
                         s0.reshape(B * H, K, K))
     return o.reshape(B, H, S, K).transpose(1, 2), s_fin.reshape(B, H, K, K)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """(B, H, S, hd) naive attention (float32 softmax), in q's dtype.
+
+    Keys are masked by causality (q >= k) and the window (q - k < window)
+    with the finite -1e30 of the reference."""
+    S, hd = q.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(S, device=q.device)
+    qpos, kpos = pos[:, None], pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window > 0:
+        mask = mask & (qpos - kpos < window)
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """:func:`flash_attention_ref` in the op's layout: q (B, S, Hq, hd),
+    k and v (B, S, Hk, hd) with each KV head repeated for its Hq / Hk query
+    heads → (B, S, Hq, hd)."""
+    G = q.shape[2] // k.shape[2]
+    kt = torch.repeat_interleave(k.transpose(1, 2), G, dim=1)
+    vt = torch.repeat_interleave(v.transpose(1, 2), G, dim=1)
+    return flash_attention_ref(q.transpose(1, 2), kt, vt, causal=causal,
+                               window=window).transpose(1, 2)

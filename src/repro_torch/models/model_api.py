@@ -1,8 +1,8 @@
 """Family-dispatched model API: init / forward / loss / prefill / decode.
 
-Port of ``repro.models.model_api`` for the families ported so far
-(RWKV-6); the others raise ``NotImplementedError`` and name the ROADMAP
-item that brings them.
+Port of ``repro.models.model_api`` for the families ported so far (RWKV-6
+and the dense transformers); the others raise ``NotImplementedError`` and
+name the ROADMAP item that brings them.
 
     from repro_torch.models.model_api import Model
     model = Model(cfg)                      # on the card; device="cpu" asks
@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import NOT_PORTED
-from repro_torch.models import ssm_models
+from repro_torch.models import ssm_models, transformer
 from repro_torch.models.config import ArchConfig
 
 # default weight of the auxiliary (load-balancing) loss term; eval paths
@@ -48,7 +48,7 @@ class Model:
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
-        if not self.cfg.rwkv:
+        if not (self.cfg.rwkv or self.cfg.family == "dense"):
             raise NotImplementedError(
                 f"{self.cfg.name} ({self.cfg.family}) is not ported to "
                 f"repro_torch yet: "
@@ -61,14 +61,19 @@ class Model:
         if generator.device.type != self.device.type:
             raise ValueError(f"the generator is on {generator.device}; the "
                              f"model runs on {self.device}")
-        return ssm_models.rwkv_init_params(self.cfg, generator)
+        if self.cfg.rwkv:
+            return ssm_models.rwkv_init_params(self.cfg, generator)
+        return transformer.init_params(self.cfg, generator)
 
     # -- forward / loss -------------------------------------------------------
     def forward(self, params: dict,
                 batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, S, V), aux loss ())."""
-        logits = ssm_models.rwkv_forward(params, batch["tokens"], self.cfg)
-        return logits, torch.zeros((), device=logits.device)
+        if self.cfg.rwkv:
+            logits = ssm_models.rwkv_forward(params, batch["tokens"],
+                                             self.cfg)
+            return logits, torch.zeros((), device=logits.device)
+        return transformer.forward(params, batch["tokens"], self.cfg)
 
     def loss(self, params: dict, batch: dict,
              aux_weight: float = DEFAULT_AUX_WEIGHT) -> torch.Tensor:
@@ -77,20 +82,26 @@ class Model:
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int) -> Any:
-        del seq_len          # the recurrent state does not grow
-        return ssm_models.rwkv_init_caches(self.cfg, batch, self.device)
+        if self.cfg.rwkv:    # the recurrent state does not grow
+            return ssm_models.rwkv_init_caches(self.cfg, batch, self.device)
+        return transformer.init_cache(self.cfg, batch, seq_len, self.device)
 
     def prefill(self, params: dict, batch: dict):
-        """The last position's logits and a fresh cache, as the reference
-        has it: the recurrent prefill runs forward for the logits, and the
-        serving engine builds the state by replaying the prompt through
-        :meth:`decode_step`."""
+        """The last position's logits (B, 1, V) and a cache. A transformer
+        fills a prompt-sized KV cache in one forward. The recurrent prefill
+        runs forward for the logits and returns a fresh cache, as the
+        reference has it: the serving engine builds the state by replaying
+        the prompt through :meth:`decode_step`."""
         tokens = batch["tokens"]
+        if not self.cfg.rwkv:
+            return transformer.prefill(params, tokens, self.cfg)
         logits, _ = self.forward(params, batch)
         cache = self.init_cache(tokens.shape[0], tokens.shape[1])
         return logits[:, -1:], cache
 
     def decode_step(self, params: dict, cache: Any, tokens: torch.Tensor,
                     pos: Any):
-        return ssm_models.rwkv_decode_step(params, cache, tokens, pos,
-                                           self.cfg)
+        if self.cfg.rwkv:
+            return ssm_models.rwkv_decode_step(params, cache, tokens, pos,
+                                               self.cfg)
+        return transformer.decode_step(params, cache, tokens, pos, self.cfg)

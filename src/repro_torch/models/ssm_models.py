@@ -1,7 +1,7 @@
 """Full-model definitions of the attention-free families (port of
 ``repro.models.ssm_models``), so far RWKV-6 only: a stack of RWKV-6
 blocks (config.rwkv=True) with O(1)-state decode. The Zamba2 hybrid
-comes with the Mamba2 slice (ROADMAP Queue 1 item 11).
+is not ported (ROADMAP Queue 1 item 11).
 
 The block weights are stacked along a leading layer axis, as the
 reference stacks them for ``lax.scan``; here a Python loop walks the
@@ -15,13 +15,13 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (COMPUTE_DTYPE, dense_init, embed_init,
                                        rms_norm)
+from repro_torch.models.params_io import tree_from_numpy
 from repro_torch.models.rwkv6 import (RWKVBlockState, RWKVConfig,
                                       rwkv_block_apply, rwkv_block_init,
                                       rwkv_init_state)
@@ -117,26 +117,6 @@ def rwkv_param_shapes(cfg: ArchConfig) -> dict:
     }
 
 
-def _tensor_from_numpy(name: str, arr: Any, shape: tuple,
-                       dtype: torch.dtype) -> torch.Tensor:
-    arr = np.asarray(arr)
-    if arr.shape != shape:
-        raise ValueError(f"{name} has shape {arr.shape}; the config needs "
-                         f"{shape}")
-    if dtype == torch.bfloat16:
-        # a JAX bfloat16 array reaches numpy with an extension dtype named
-        # 'bfloat16' whose dtype string is '<V2': read its raw 2-byte values
-        if arr.dtype.name != "bfloat16" or arr.dtype.str != "<V2":
-            raise TypeError(f"{name} has dtype {arr.dtype}; the model keeps "
-                            f"it in bfloat16")
-        raw = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
-        return torch.from_numpy(raw.copy()).view(torch.bfloat16)
-    if arr.dtype != np.float32:
-        raise TypeError(f"{name} has dtype {arr.dtype}; the model keeps it "
-                        f"in float32")
-    return torch.from_numpy(np.array(arr, copy=True))
-
-
 def rwkv_params_from_jax(params: Mapping[str, Any], cfg: ArchConfig,
                          device: torch.device | str | None = None) -> dict:
     """The reference's RWKV-6 parameter tree, as numpy arrays (e.g.
@@ -144,23 +124,5 @@ def rwkv_params_from_jax(params: Mapping[str, Any], cfg: ArchConfig,
     ``device`` (the card unless the caller asks for the CPU). Names,
     shapes and dtypes are checked against ``cfg``; values are copied bit
     for bit, bfloat16 leaves included."""
-    dev = resolve_device(device)
-    want = rwkv_param_shapes(cfg)
-    if set(params) != set(want):
-        raise ValueError(f"RWKV-6 parameters must be named {sorted(want)}; "
-                         f"got {sorted(params)}")
-    if set(params["layers"]) != set(want["layers"]):
-        raise ValueError(f"RWKV-6 layer parameters must be named "
-                         f"{sorted(want['layers'])}; got "
-                         f"{sorted(params['layers'])}")
-    out: dict = {"layers": {}}
-    for name, spec in want.items():
-        if name == "layers":
-            for k, (shape, dt) in spec.items():
-                out["layers"][k] = _tensor_from_numpy(
-                    f"layers/{k}", params["layers"][k], shape, dt).to(dev)
-        else:
-            shape, dt = spec
-            out[name] = _tensor_from_numpy(name, params[name], shape,
-                                           dt).to(dev)
-    return out
+    return tree_from_numpy(params, rwkv_param_shapes(cfg),
+                           resolve_device(device))

@@ -2,8 +2,9 @@
 ``repro.serving``)."""
 
 from repro_torch.serving.engine import (Completion, GenerationRequest,
-                                        ServingEngine, serve_batch)
+                                        ServingEngine, grow_cache,
+                                        serve_batch)
 from repro_torch.serving.sampler import SamplerConfig, sample_token
 
 __all__ = ["Completion", "GenerationRequest", "ServingEngine", "SamplerConfig",
-           "sample_token", "serve_batch"]
+           "grow_cache", "sample_token", "serve_batch"]

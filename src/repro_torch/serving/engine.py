@@ -1,21 +1,24 @@
 """Batched serving engine over the PoFEL global model.
 
-Port of ``repro.serving.engine`` for the recurrent family ported so far
-(RWKV-6): a static-batch generation loop over ``Model.decode_step`` with
-per-request lengths, EOS handling and pluggable sampling.
+Port of ``repro.serving.engine`` for the families ported so far (RWKV-6
+and the dense transformers): a static-batch generation loop over
+``Model.prefill`` / ``decode_step`` with per-request lengths, EOS
+handling and pluggable sampling.
 
-Requests are left-padded into one batch, and the prompt is replayed
-through decode steps so the O(1) recurrent state absorbs it (the
-padding contributes a short constant-token prefix, harmless for the
-state). The engine tracks per-request progress and returns completions
-when all requests finish or hit their token budget. The transformer
-branch (a KV-cache ``prefill`` and ``_grow_cache``) comes with the
-dense-transformer slice (ROADMAP Queue 1 item 12).
+Requests are left-padded into one batch. A transformer runs the padded
+prompts through one ``prefill`` at positions 0..max_p-1 with no padding
+mask (the reference attends to the pad tokens too), and its KV cache is
+grown by the token budget along the sequence axis. A recurrent model
+replays the prompt through decode steps so the O(1) state absorbs it
+(the padding contributes a short constant-token prefix, harmless for the
+state). Decode step ``i`` runs at position max_p + i. The engine tracks
+per-request progress and returns completions when all requests finish or
+hit their token budget.
 
 Two spans go to the active ``repro_torch.obs`` recorder:
-``serve_prompt`` (the prompt replay up to the first sampled token, read
-back to the host) and ``serve_decode`` (the decode loop, which reads
-every step's tokens back).
+``serve_prompt`` (prefill or prompt replay up to the first sampled
+token, read back to the host) and ``serve_decode`` (the decode loop,
+which reads every step's tokens back).
 """
 
 from __future__ import annotations
@@ -90,11 +93,17 @@ class ServingEngine:
         finished_by = ["length"] * B
 
         with rec.span("serve_prompt", batch=B, prompt_len=max_p):
-            cache = self.model.init_cache(B, max_p + budget)
-            logits = None
-            for i in range(max_p):
-                logits, cache = self.model.decode_step(
-                    self.params, cache, toks[:, i:i + 1], i)
+            cfg = self.model.cfg
+            if cfg.rwkv or cfg.family == "hybrid":
+                cache = self.model.init_cache(B, max_p + budget)
+                logits = None
+                for i in range(max_p):
+                    logits, cache = self.model.decode_step(
+                        self.params, cache, toks[:, i:i + 1], i)
+            else:
+                logits, cache = self.model.prefill(self.params,
+                                                   {"tokens": toks})
+                cache = grow_cache(cache, budget)
             tok = self._sample(logits)
             for i, t in enumerate(tok[:, 0].tolist()):
                 out_tokens[i].append(t)
@@ -120,6 +129,19 @@ class ServingEngine:
 
         return [Completion(r.request_id, out_tokens[i], finished_by[i])
                 for i, r in enumerate(requests)]
+
+
+def grow_cache(cache: Any, budget: int) -> Any:
+    """A transformer's prompt-sized KV cache with ``budget`` zero slots
+    added along the sequence axis: axis 2 of ``k`` and ``v``, each
+    (L, B, S, Hk, hd).
+
+    The reference's ``_grow_cache`` pads the first axis whose size equals
+    the prompt length; when the layer count or the batch size equals it,
+    that is the wrong axis and the reference raises. The axis is named
+    here, so those batches serve."""
+    return type(cache)(*(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, budget))
+                         for t in cache))
 
 
 def serve_batch(model: Model, params: Any, prompts: List[List[int]],

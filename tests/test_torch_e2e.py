@@ -55,7 +55,7 @@ def test_two_rounds_match_reference():
                            **common), tte, device="cpu")
     trt.global_params = params_from_jax(
         {k: np.asarray(v) for k, v in jrt.global_params.items()},
-        MLPConfig(hidden=HIDDEN))
+        MLPConfig(hidden=HIDDEN), device="cpu")
     for _ in range(2):
         mj, mt = jrt.run_round(), trt.run_round()
         sj = np.asarray(mj.consensus.similarities)

@@ -44,7 +44,7 @@ HIDDEN = 24
 def _init(seed=0):
     p = j_mlp_init(JMLPConfig(hidden=HIDDEN), jax.random.key(seed))
     ref = {k: np.asarray(v) for k, v in p.items()}
-    return p, params_from_jax(ref, MLPConfig(hidden=HIDDEN))
+    return p, params_from_jax(ref, MLPConfig(hidden=HIDDEN), device="cpu")
 
 
 def _assert_params_close(t, j):
@@ -104,7 +104,8 @@ def test_local_train_matches_reference():
     # the input params are left untouched
     assert all(torch.equal(tp[k], v) for k, v in
                params_from_jax({k: np.asarray(v) for k, v in jp.items()},
-                               MLPConfig(hidden=HIDDEN)).items())
+                               MLPConfig(hidden=HIDDEN),
+                               device="cpu").items())
 
 
 def test_fedavg_matches_reference(rng):

@@ -262,7 +262,8 @@ def test_wkv6_cpu_dispatch_is_plain_version_and_launches_nothing():
     assert torch.equal(flat(o), ro)
     assert torch.equal(sf.reshape(B * H, K, K), rsf)
     assert ops.launch_counts() == before
-    assert before.keys() == {"cosine_partials", "weighted_aggregate", "wkv6"}
+    assert before.keys() == {"cosine_partials", "weighted_aggregate", "wkv6",
+                             "flash_attention"}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_size", "shape", "state",

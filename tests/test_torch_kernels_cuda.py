@@ -12,7 +12,11 @@ recurrence: rtol 1e-5 / atol 1e-4 — float32, sums over K in another
 order, carried through up to 512 steps of the state. The RWKV-6 model on
 the card against the CPU: logits within 0.125 and 0.02 on average, the
 bfloat16 rule of tests/test_torch_rwkv6.py (cuBLAS rounds its bfloat16
-products in other places than the CPU).
+products in other places than the CPU); the same rule for the dense
+transformer. Flash attention: the reference's flash tolerances
+(tests/test_kernels.py:141-179), float32 rtol/atol 2e-5 and bfloat16
+2e-2 — both versions compute in float32 and differ only in the order of
+their sums.
 """
 
 import pytest
@@ -59,7 +63,8 @@ def test_kernels_match_plain(cuda_device, n, d, dtype):
                                tref.weighted_aggregate_ref(W, w), **tol)
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == \
-        {"cosine_partials": 1, "weighted_aggregate": 1, "wkv6": 0}
+        {"cosine_partials": 1, "weighted_aggregate": 1, "wkv6": 0,
+         "flash_attention": 0}
 
 
 def test_kernels_bit_identical_on_repeat(cuda_device):
@@ -114,7 +119,8 @@ def test_run_bhfl_on_card_goes_through_kernels(cuda_device):
     assert run.chain_valid and run.chain_height == 2
     assert run.runtime.global_params["w1"].is_cuda
     assert {k: after[k] - before[k] for k in after} == \
-        {"cosine_partials": 2, "weighted_aggregate": 2, "wkv6": 0}
+        {"cosine_partials": 2, "weighted_aggregate": 2, "wkv6": 0,
+         "flash_attention": 0}
 
 
 WKV6 = dict(rtol=1e-5, atol=1e-4)
@@ -199,6 +205,112 @@ def test_rwkv_serving_on_card_goes_through_wkv6(cuda_device):
     assert all(0 <= t < cfg.vocab_size for c in out for t in c.tokens)
     toks = torch.from_numpy(np.stack([np.arange(24) * 5 % 512] * 2))
     lc, _ = card.forward(params, {"tokens": toks.to(cuda_device)})
+    lh, _ = cpu.forward(cpu_params, {"tokens": toks})
+    diff = (lc.float().cpu() - lh.float()).abs()
+    assert torch.isfinite(lc).all()
+    assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02
+
+
+FLASH_CASES = [
+    # (B, S, Hq, Hk, hd, dtype, causal, window)
+    (8, 57, 32, 4, 128, torch.bfloat16, True, 0),     # Yi-6B serving prefill
+    (8, 512, 32, 4, 128, torch.bfloat16, True, 0),    # Yi-6B forward
+    (8, 512, 32, 4, 128, torch.float32, True, 0),
+    (1, 1000, 8, 2, 64, torch.bfloat16, True, 256),
+    (2, 130, 4, 4, 32, torch.bfloat16, False, 0),
+    (1, 16, 2, 2, 16, torch.float32, True, 0),
+    (1, 150, 2, 2, 16, torch.float32, True, 7),
+    (1, 130, 8, 1, 16, torch.float32, True, 1),
+    (2, 77, 4, 2, 64, torch.float32, False, 9),
+    (3, 33, 6, 3, 32, torch.float32, True, 40),
+]
+
+
+def _flash_inputs(gen, dev, B, S, Hq, Hk, hd, dtype):
+    return (_randn(gen, dev, B, S, Hq, hd).to(dtype),
+            _randn(gen, dev, B, S, Hk, hd).to(dtype),
+            _randn(gen, dev, B, S, Hk, hd).to(dtype))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,hd,dtype,causal,window", FLASH_CASES)
+def test_flash_matches_plain(cuda_device, B, S, Hq, Hk, hd, dtype, causal,
+                             window):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * S + hd)
+    q, k, v = _flash_inputs(gen, cuda_device, B, S, Hq, Hk, hd, dtype)
+    before = ops.launch_counts()["flash_attention"]
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    ref = tref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o, ref, **(BF16 if dtype == torch.bfloat16
+                                          else FP32))
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(o, again)
+
+
+def test_flash_reads_strided_inputs(cuda_device):
+    """q, k, v as slices of one fused (B, S, Hq + 2 Hk, hd) buffer, and
+    as (B, H, S, hd) buffers seen through a transpose, give the bits of
+    contiguous copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    B, S, Hq, Hk, hd = 2, 70, 8, 2, 64
+    qkv = _randn(gen, cuda_device, B, S, Hq + 2 * Hk, hd).to(torch.bfloat16)
+    q, k, v = qkv.split([Hq, Hk, Hk], dim=2)
+    assert not q.is_contiguous()
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(ops.flash_attention(q, k, v), want)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    assert torch.equal(ops.flash_attention(*views), want)
+
+
+def test_flash_refuses_what_it_cannot_run(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = _flash_inputs(gen, cuda_device, 1, 8, 4, 2, 32, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="is torch"):
+        ops.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.flash_attention(q, k, v.transpose(1, 3).contiguous()
+                            .transpose(1, 3))
+    with pytest.raises(ValueError, match="is on"):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="hd in"):
+        ops.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError, match="multiple of Hk"):
+        ops.flash_attention(q, k[:, :, :1].expand(1, 8, 3, 32),
+                            v[:, :, :1].expand(1, 8, 3, 32))
+
+
+def test_dense_serving_on_card_goes_through_flash(cuda_device):
+    """The reduced Yi-6B on the card: one flash launch per layer in the one
+    prefill of ``generate`` and none while decoding, one per layer in a
+    forward, and logits that agree with the same weights on the CPU."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving import GenerationRequest, ServingEngine
+    cfg = get_config("yi-6b").reduced()
+    card = Model(cfg)
+    params = card.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    cpu_params = {k: ({n: ({m: t.cpu() for m, t in u.items()}
+                           if isinstance(u, dict) else u.cpu())
+                       for n, u in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    prompts = [np.arange(n, dtype=np.int32) * 7 % 512 for n in (3, 11, 6)]
+    before = ops.launch_counts()["flash_attention"]
+    out = ServingEngine(card, params).generate(
+        [GenerationRequest(i, p, 5) for i, p in enumerate(prompts)])
+    assert ops.launch_counts()["flash_attention"] - before == cfg.n_layers
+    assert [len(c.tokens) for c in out] == [5, 5, 5]
+    assert all(0 <= t < cfg.vocab_size for c in out for t in c.tokens)
+    toks = torch.from_numpy(np.stack([np.arange(24) * 5 % 512] * 2))
+    before = ops.launch_counts()["flash_attention"]
+    lc, _ = card.forward(params, {"tokens": toks.to(cuda_device)})
+    assert ops.launch_counts()["flash_attention"] - before == cfg.n_layers
     lh, _ = cpu.forward(cpu_params, {"tokens": toks})
     diff = (lc.float().cpu() - lh.float()).abs()
     assert torch.isfinite(lc).all()

@@ -266,7 +266,7 @@ def test_init_has_reference_layout():
 
 def test_unported_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        get_config("yi-6b")
+        get_config("deepseek-moe-16b")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         Model(j_get_config("zamba2-7b"), device="cpu")
     with pytest.raises(KeyError):
@@ -278,12 +278,24 @@ def test_unported_families_name_their_roadmap_item():
 def test_entry_points_default_to_the_card():
     """device=None means the CUDA card: with none, they raise instead of
     falling back to the CPU."""
-    from repro_torch.fl.adapters import MLPAdapter
+    from repro_torch.fl.adapters import MLPAdapter, params_from_jax
     from repro_torch.models.mlp import MLPConfig, mlp_init
+    from repro_torch.models.transformer import transformer_params_from_jax
     from repro_torch.serving import ServingEngine
     _, jp, m, tp = _reduced()
+    mlp = {k: np.zeros(s, np.float32) for k, s in
+           (("w1", (784, 4)), ("b1", (4,)), ("w2", (4, 10)), ("b2", (10,)))}
+    dense = get_config("yi-6b").reduced()
+    dense_np = jax.tree.map(
+        lambda s: np.zeros(s.shape, s.dtype),
+        jax.eval_shape(JModel(j_get_config("yi-6b").reduced()).init,
+                       jax.random.key(0)))
     builds = [lambda: Model(m.cfg).device,
+              lambda: Model(dense).device,
               lambda: rwkv_params_from_jax(_np_tree(jp), m.cfg)["embed"].device,
+              lambda: transformer_params_from_jax(dense_np, dense)[
+                  "embed"].device,
+              lambda: params_from_jax(mlp, MLPConfig(hidden=4))["w1"].device,
               lambda: ServingEngine(Model(m.cfg), None).device,
               lambda: MLPAdapter().device,
               lambda: mlp_init(MLPConfig(hidden=4),

@@ -24,13 +24,13 @@ def _ref_params(hidden=16, seed=0):
 @pytest.mark.parametrize("hidden", [16, 128])
 def test_mlp_bytes_identical(hidden):
     ref = _ref_params(hidden)
-    port = params_from_jax(ref, MLPConfig(hidden=hidden))
+    port = params_from_jax(ref, MLPConfig(hidden=hidden), device="cpu")
     assert tser.serialize_pytree(port) == jser.serialize_pytree(ref)
 
 
 def test_flatten_order_and_values():
     ref = _ref_params()
-    port = params_from_jax(ref, MLPConfig(hidden=16))
+    port = params_from_jax(ref, MLPConfig(hidden=16), device="cpu")
     assert [p for p, _ in tser._sorted_leaves(port)] == \
         ["['b1']", "['b2']", "['w1']", "['w2']"]
     np.testing.assert_array_equal(tser.flatten_pytree(port).numpy(),
@@ -39,7 +39,7 @@ def test_flatten_order_and_values():
 
 def test_unflatten_round_trip_and_reference_flat():
     ref = _ref_params()
-    port = params_from_jax(ref, MLPConfig(hidden=16))
+    port = params_from_jax(ref, MLPConfig(hidden=16), device="cpu")
     flat = tser.flatten_pytree(port)
     back = tser.unflatten_pytree(flat, port)
     assert set(back) == set(port)
@@ -67,7 +67,8 @@ def test_nested_and_bare_leaves_match_reference(rng):
 
 
 def test_unflatten_rejects_wrong_size():
-    port = params_from_jax(_ref_params(), MLPConfig(hidden=16))
+    port = params_from_jax(_ref_params(), MLPConfig(hidden=16),
+                           device="cpu")
     with pytest.raises(ValueError, match="elements"):
         tser.unflatten_pytree(torch.zeros(3), port)
 
@@ -85,7 +86,7 @@ def test_params_from_jax_checks(bad):
         ref["b1"] = ref["b1"].astype(np.float64)
         err = TypeError
     with pytest.raises(err):
-        params_from_jax(ref, MLPConfig(hidden=16))
+        params_from_jax(ref, MLPConfig(hidden=16), device="cpu")
 
 
 def test_bf16_leaves_bytes_identical(rng):
