@@ -10,6 +10,8 @@ CUDA build of PyTorch. It never imports JAX or the reference package
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a (one
    ``nvcc`` per source, in parallel) into ``build/repro_torch_kernels/``;
+   where the toolkit has ``cuobjdump``, the flash library must hold
+   ``HGMMA`` (wgmma) instructions: its bf16 path is on the tensor cores;
 3. kernels: each ME kernel at (N, D) = (8, 101770) and (50, 101770), in
    float32 and bfloat16, against its plain PyTorch version on the card,
    twice on the same input (the outputs must be bit-identical), then
@@ -45,9 +47,10 @@ CUDA build of PyTorch. It never imports JAX or the reference package
    the CPU's top-2 margin is clear of it;
 10. flash kernel: flash attention at the Yi-6B serving prefill
     (8, 57, Hq 32, Hk 4, hd 128) and forward (8, 512, 32, 4, 128) shapes
-    in bfloat16 (the forward also in float32), a 256-key window at hd 64
-    and a non-causal case at hd 32, against its plain PyTorch version on the card, bit-identical on
-    repeat, timed beside the plain version, the byte/operation bound and
+    in bfloat16 (tensor cores) and float32 (CUDA cores), a 256-key window
+    at hd 64 and a non-causal case at hd 32, against its plain PyTorch
+    version on the card, bit-identical on repeat, timed beside the plain
+    version, the byte/operation bound and
     ``scaled_dot_product_attention`` (the library yardstick, never called
     by the port);
 11. dense serving: ``Model(get_config("yi-6b"))`` at full width (32
@@ -70,6 +73,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -95,9 +100,11 @@ N_REQUESTS, NEW_TOKENS = 8, 32
 # within LOGIT_ATOL (0.02 on average); the argmax must agree where the
 # top-2 margin exceeds twice that
 LOGIT_ATOL, LOGIT_MEAN = 0.125, 0.02
-# (B, S, Hq, Hk, hd, dtype, causal, window): the Yi-6B serving prefill,
-# the Yi-6B forward in bf16 and fp32, then a window, a non-causal case
+# (B, S, Hq, Hk, hd, dtype, causal, window): the Yi-6B serving prefill
+# and forward, each in bf16 (tensor cores) and fp32 (CUDA cores), then a
+# window, a non-causal case
 FLASH_CASES = ((8, 57, 32, 4, 128, "bfloat16", True, 0),
+               (8, 57, 32, 4, 128, "float32", True, 0),
                (8, 512, 32, 4, 128, "bfloat16", True, 0),
                (8, 512, 32, 4, 128, "float32", True, 0),
                (1, 1000, 8, 2, 64, "bfloat16", True, 256),
@@ -123,6 +130,22 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def check_tensor_cores() -> str:
+    """The built flash library must hold HGMMA instructions (``wgmma`` in
+    its SASS); "not checked" only where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not checked (no cuobjdump)"
+    lib = _build.build_dir() / "libflash_attention.so"
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    check(n > 0, f"{lib.name}: no HGMMA instruction in its SASS; the bf16 "
+                 f"flash kernel is not on the tensor cores")
+    return f"{n} HGMMA instructions in {lib.name}"
 
 
 def graph_time_us(fn, reps: int = 20, samples: int = 50) -> float:
@@ -234,6 +257,7 @@ def check_aggregate(W, w) -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import weighted_aggregate_ref
+    from repro_torch.kernels.weighted_agg import vector_width
     out = ops.weighted_aggregate(W, w)
     again = ops.weighted_aggregate(W, w)
     torch.cuda.synchronize()
@@ -250,6 +274,7 @@ def check_aggregate(W, w) -> dict:
     N, D = W.shape
     lam = (w / w.sum()).to(W.dtype)
     Wt = W.t()
+    vec = vector_width(D, W.data_ptr(), W.element_size())
     return entry(
         "weighted_aggregate", "src/repro_torch/kernels/csrc/weighted_agg.cu",
         "src/repro/kernels/weighted_agg.py:21", W, err, bit,
@@ -258,7 +283,7 @@ def check_aggregate(W, w) -> dict:
         bound_us(N * D * W.element_size() + N * 4 + D * 4, 2.0 * N * D),
         graph_time_us(lambda: torch.mv(Wt, lam)),
         call_time_us(lambda: ops.weighted_aggregate(W, w)),
-        library_call="torch.mv(W.t(), lam)")
+        vector_width=vec, library_call="torch.mv(W.t(), lam)")
 
 
 def phase_kernels(dev) -> list:
@@ -858,6 +883,7 @@ def main() -> int:
     for name in _build.SOURCES:
         print(f"--- nvcc {name}.cu ---\n{_build.build_log(name).strip()}",
               flush=True)
+    print(f"tensor cores: {check_tensor_cores()}", flush=True)
     # 3. ME kernels
     rows = phase_kernels(dev)
     # 4. main path

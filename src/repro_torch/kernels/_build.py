@@ -28,7 +28,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "cosine_partials": ("repro_cosine_partials",
                         [_P, _P, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P]),
-    "weighted_agg": ("repro_weighted_agg", [_P, _I, _P, _P, _I, _L, _P]),
+    "weighted_agg": ("repro_weighted_agg", [_P, _I, _P, _P, _I, _L, _I, _P]),
     "wkv6": ("repro_wkv6", [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P]),
     "flash_attention": ("repro_flash_attention",

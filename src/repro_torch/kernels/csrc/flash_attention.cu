@@ -16,9 +16,8 @@
 // could do the 4*hd operations of each unmasked (q, k) pair on its tensor
 // cores at 989 TFLOP/s and move q, k, v and o once at 3.35 TB/s; at
 // (8, 512, Hq 32, Hk 4) causal that is 22.5 us of bytes against 17.4 us
-// of operations, so bytes. This first version does the arithmetic in fp32
-// on CUDA cores (67 TFLOP/s at most), so it sits well above that bound;
-// wgmma, TMA and warp specialisation are a later change.
+// of operations, so bytes. In fp32 there is no tensor-core path that
+// keeps fp32 products, so fp32 is bound by operations at 67 TFLOP/s.
 //
 // The TPU kernel walks the KV tiles as the innermost sequential grid axis
 // and carries (m, l, acc) in VMEM scratch between grid steps; its wrapper
@@ -29,49 +28,532 @@
 // skipped: with the finite -1e30 mask such a tile only adds terms that the
 // first valid key multiplies by exp(-1e30 - m) = 0, so the skip is exact.
 // q, k, v are read in their (B, S, H, hd) layout through strides and the kv
-// head is hq / G: no transpose, no repeat, no padding. The ragged last tile
-// is masked here and its missing rows are filled with zeros, so every
-// value in shared memory is finite.
+// head is hq / G: no transpose, no repeat, no padding. Every sum runs in a
+// fixed order and no atomics are used, so a repeat on the same input is
+// bit-identical. There are two kernels:
 //
-// Layout of a block: 128 threads; thread t owns query rows t/16 + 8r
-// (r = 0..7) and, for them, score columns t%16 + 16c of the 32-key tile
-// and hd/16 output dims (out_dim below). The 16 threads of a row
-// group are one half-warp, so row max and row sum are xor-shuffles inside
-// it, and the probabilities a half-warp writes to shared memory are read
-// back only by itself (a __syncwarp, not a barrier). The q tile (fp32,
-// converted once) stays in shared memory for the whole KV loop; each K/V
-// tile is converted to fp32 on its way in. Shared memory at hd = 128 is
-// 76,288 bytes (dynamic, opted in above 48 KB): two blocks an SM.
-// Every sum runs in a fixed order and no atomics are used, so a repeat on
-// the same input is bit-identical.
+// bf16: flash_fwd_tc, on the tensor cores. A warpgroup (128 threads)
+// owns a 64-query tile of one (b, hq) and walks 64-key tiles; a block has
+// two warpgroups for two query heads of one kv group where G is even (one
+// otherwise), so each K/V tile it brings serves both. At (8, 512, Hq 32,
+// Hk 4) that halves what the blocks read from L2 (~180 MB instead of
+// ~330 MB), and two such blocks fit an SM.
+//  - S = Q.K^T is wgmma m64n64k16 (bf16 operands, fp32 accumulators in
+//    registers), both operands read from shared memory, K-major; the q tile
+//    stays in shared memory for the whole KV loop. 1/sqrt(hd) (times
+//    log2 e, so the exponentials are exp2) is applied to the fp32 scores;
+//    off the edge tiles it is folded into the fma of the exponent.
+//  - The online softmax runs on the accumulator fragment: a thread holds
+//    two rows (lane/4 and lane/4 + 8 of its warp's 16), each shared by the
+//    four lanes of a quad, so row max and row sum are xor-shuffles over 1
+//    and 2 -- a butterfly, so the four lanes end with the same bits. Only
+//    tiles that cross S, the diagonal or the window edge are masked.
+//  - O += P.V is wgmma m64n{hd}k16 with P as the A operand from registers:
+//    the accumulator fragment of S is laid out as the A fragment of
+//    m64nNk16, so the fp32 pairs (8j + 2r, 8j + 2r + 1) pack into bf16x2
+//    register r of key slice j with no shuffle. l sums the fp32 p. V is
+//    the B operand, read MN-major (its rows are keys, hd contiguous) with
+//    the transpose bit that 16-bit wgmma allows.
+//  - K/V tiles come by TMA (cp.async.bulk.tensor) into a ring of two
+//    stages, completion counted in bytes on an mbarrier per stage; thread 0
+//    starts the copy of tile j + 1 before tile j's two products, so the
+//    copy overlaps them. TMA rather than cp.async: it writes the 128-byte
+//    swizzled layout that wgmma reads without a bank conflict, zero-fills
+//    rows past S (the ragged tail) by itself, costs the threads no
+//    registers or address arithmetic, and needs no proxy fence before
+//    wgmma (both are async-proxy operations). The tensor maps are encoded
+//    per call from the (B, S, H, hd) strides (cuTensorMapEncodeTiled,
+//    reached through cudaGetDriverEntryPoint, so nothing links libcuda)
+//    and passed as __grid_constant__ parameters. TMA needs 16-byte aligned
+//    bases and strides; the wrapper refuses anything else.
+//  - A tile row of hd bf16 is split into sub-tiles of min(hd, 64) columns
+//    (2 at hd = 128), each swizzled over its row width (128, 64 or 32
+//    bytes): the canonical wgmma layouts, one 8-row atom per 8 rows.
+//  - Shared memory at hd = 128: 2 q tiles 32 KB + 2 stages x (K + V)
+//    64 KB = 97 KB with the barriers and alignment; 127 registers a thread,
+//    no spills: two blocks (four warpgroups) an SM. On the H100 a third
+//    stage (one block an SM), four heads a block, or issuing the next
+//    Q.K^T before this P.V has finished (141 registers) were all slower.
+//  - What holds it back: each warpgroup runs Q.K^T, the softmax and P.V
+//    one after the other, so the tensor cores wait while it does the
+//    softmax; only the other warpgroups of the SM fill that gap. A
+//    producer warp with the softmax overlapping P.V (as FlashAttention-3
+//    does) needs more registers than four warpgroups an SM leave, and at
+//    one block of two consumer warpgroups an SM it was slower here.
 
+// fp32: flash_fwd_f32, on CUDA cores. 128 threads; thread t owns query
+// rows t/16 + 8r (r = 0..7) and, for them, score columns t%16 + 16c of
+// the 32-key tile and hd/16 output dims (out_dim below). The 16 threads
+// of a row group are one half-warp, so row max and row sum are
+// xor-shuffles inside it, and the probabilities a half-warp writes to
+// shared memory are read back only by itself (a __syncwarp, not a
+// barrier). The q tile stays in shared memory
+// for the whole KV loop; the ragged last tile is masked and its missing
+// rows are filled with zeros, so every value in shared memory is finite.
+// Shared memory at hd = 128 is 76,288 bytes (dynamic, opted in above
+// 48 KB): two blocks an SM.
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
+constexpr float NEG_INF = -1e30f;
+constexpr int NT = 128;   // threads of a block (one warpgroup)
+
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------
+
+constexpr int TQ = 64;    // query rows of a warpgroup
+constexpr int TK = 64;    // keys of a tile
+// stages of the K/V ring: tile j + KV_STAGES - 1 is on its way while tile
+// j is computed
+constexpr int KV_STAGES = 2;
+
+template <int HD>
+struct Tc {
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle bytes
+  static constexpr int COLS = SW / 2;      // columns of a sub-tile
+  static constexpr int NSUB = HD / COLS;   // sub-tiles of a row
+  static constexpr int SUB = 64 * SW;      // bytes of a 64-row sub-tile
+  static constexpr int TILE = 64 * HD * 2; // bytes of a 64-row tile
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  // NWG q tiles, then (K, V) for each ring stage, then 1 + KV_STAGES
+  // mbarriers
+  template <int NWG>
+  static constexpr int smem() {
+    return (NWG + 2 * KV_STAGES) * TILE + 8 * (1 + KV_STAGES) + 1024;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// A copy that has not landed after ~10 s of clocks traps (the launch
+// fails with an error) rather than hanging the card.
+constexpr long long WATCHDOG_CYCLES = 20'000'000'000LL;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > WATCHDOG_CYCLES) __trap();
+}
+
+// one TMA box (COLS, 1, 64, 1) of a 4-d tensor map into shared memory,
+// counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The three outer dims of a tensor map are (h, s, b) in the order of
+// their strides; `perm` holds the map dim (1..3) of h in bits 0-1, of s in
+// bits 2-3 and of b in bits 4-5 (set by encode_map below).
+__device__ __forceinline__ int pick(int perm, int dim, int h, int s, int b) {
+  return (perm & 3) == dim ? h : ((perm >> 2) & 3) == dim ? s : b;
+}
+
+// all NSUB sub-tiles of rows [s0, s0 + 64) of head h, batch b
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          int perm, uint32_t bar, int h,
+                                          int s0, int b) {
+  const int c1 = pick(perm, 1, h, s0, b), c2 = pick(perm, 2, h, s0, b),
+            c3 = pick(perm, 3, h, s0, b);
+#pragma unroll
+  for (int j = 0; j < Tc<HD>::NSUB; ++j)
+    tma_load(dst + j * Tc<HD>::SUB, map, bar, j * Tc<HD>::COLS, c1, c2, c3);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle layout
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous window of a wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// the same for the A fragments a wgmma reads from registers: they stay
+// live, and unmoved, until the wait
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define F8(a, i) F4(a, i), F4(a, i + 4)
+
+// S (+)= A.B, m64n64k16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O += P.V, m64n{16,32,64,128}k16: A (P, bf16x2) in registers, B (V)
+// MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
+        F8(d, 48), F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F8
+#undef F4
+
+// 2^x on the special-function unit; 0 for x below -126 (the p of a key
+// 2^126 below the row max does not reach bf16's P anyway)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Grid (S/64, Hq/NWG, B), NWG warpgroups: warpgroup w takes query head
+// blockIdx.y * NWG + w, and all NWG heads share one kv head (NWG divides
+// G), so each K/V tile a block brings serves NWG heads. perm_* as in
+// pick(); o is contiguous (B, S, Hq, HD). scale2 = log2(e) / sqrt(HD).
+template <int HD, int NWG>
+__global__ void __launch_bounds__(NWG * NT)
+    flash_fwd_tc(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, int perm_q,
+                 int perm_k, int perm_v, __nv_bfloat16* __restrict__ o,
+                 int S, int Hq, int Hk, int causal, int window,
+                 float scale2) {
+  using C = Tc<HD>;
+  constexpr int ST = KV_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // every sub-tile starts on a 1024-byte boundary (the 128-byte swizzle's
+  // repeat), so the swizzle TMA writes is the one wgmma reads. Layout:
+  // NWG q tiles, then (K, V) of each of the ST stages, then the barriers
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t skv = base + NWG * C::TILE;
+  const uint32_t bar_q = skv + 2 * ST * C::TILE;  // q arrived
+  const uint32_t bar_kv = bar_q + 8;  // + 8 * stage: that stage's K, V arrived
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const uint32_t sq = base + wg * C::TILE;
+  // the longest query tiles (causal) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;
+  const int h0 = blockIdx.y * NWG;
+  const int hq = h0 + wg;
+  const int b = blockIdx.z;
+  const int hk = h0 / (Hq / Hk);
+
+  // the KV tiles that hold at least one unmasked key for this query tile
+  const int q_last = min(q0 + TQ, S) - 1;
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // the oldest key any row may see
+    kt_begin = lo > 0 ? lo / TK : 0;
+  }
+  const int k_end = causal ? q_last + 1 : S;
+  const int n_tiles = (k_end + TK - 1) / TK - kt_begin;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) mbar_init(bar_kv + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, NWG * C::TILE);
+#pragma unroll
+    for (int w = 0; w < NWG; ++w)
+      load_tile<HD>(base + w * C::TILE, &mq, perm_q, bar_q, h0 + w, q0, b);
+    // the first ST - 1 tiles; tile t goes to stage t % ST
+    for (int t = 0; t < min(ST - 1, n_tiles); ++t) {
+      const uint32_t bar = bar_kv + 8 * t;
+      mbar_expect_tx(bar, 2 * C::TILE);
+      load_tile<HD>(skv + 2 * t * C::TILE, &mk, perm_k, bar, hk,
+                    (kt_begin + t) * TK, b);
+      load_tile<HD>(skv + (2 * t + 1) * C::TILE, &mv, perm_v, bar, hk,
+                    (kt_begin + t) * TK, b);
+    }
+  }
+
+  // this thread's rows: r0 and r0 + 8 of the tile
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qpos[2] = {q0 + r0, q0 + r0 + 8};
+  const int cq = 2 * (lane & 3);  // its first column in every 8-column group
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  float s[32];  // scores, then probabilities, of the current tile
+#pragma unroll
+  for (int x = 0; x < 32; ++x) s[x] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = (kt_begin + j) * TK;
+    const int stage = j % ST;
+    const uint32_t sk = skv + 2 * stage * C::TILE;
+    const uint32_t sv = sk + C::TILE;
+    if (j + ST - 1 < n_tiles) {
+      // tile j + ST - 1 goes to the stage tile j - 1 was read from, whose
+      // products every warp of every warpgroup has waited for
+      if (j > 0) __syncthreads();
+      if (tid == 0) {
+        const int nst = (j + ST - 1) % ST;
+        const uint32_t nbar = bar_kv + 8 * nst;
+        mbar_expect_tx(nbar, 2 * C::TILE);
+        load_tile<HD>(skv + 2 * nst * C::TILE, &mk, perm_k, nbar, hk,
+                      k0 + (ST - 1) * TK, b);
+        load_tile<HD>(skv + (2 * nst + 1) * C::TILE, &mv, perm_v, nbar, hk,
+                      k0 + (ST - 1) * TK, b);
+      }
+    }
+    mbar_wait(bar_kv + 8 * stage, (j / ST) & 1);
+
+    // S = Q.K^T over hd in k16 steps; step kk lies in sub-tile
+    // kk / (COLS/16), 32 bytes further along the row per step inside it
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk / (C::COLS / 16)) * C::SUB +
+                           (kk % (C::COLS / 16)) * 32;
+      wgmma_ss_n64(s, make_desc(sq + off, 16, 8 * C::SW, C::LAYOUT),
+                   make_desc(sk + off, 16, 8 * C::SW, C::LAYOUT), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+
+    // s[4c + 2i + e] is row r0 + 8i, key k0 + 8c + cq + e. Only a tile
+    // that crosses S, the diagonal or the window edge is masked: there the
+    // scores are scaled and masked first; elsewhere the row max is taken
+    // on the raw scores (scale2 > 0, so it scales exactly) and the scale
+    // is folded into the exponent's fma.
+    const bool edge = k0 + TK > S || (causal && k0 + TK - 1 > q0) ||
+                      (window > 0 && q0 + TQ - 1 - k0 >= window);
+    float mx[2] = {NEG_INF, NEG_INF};
+    if (edge) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1;
+        const int kpos = k0 + 8 * (x >> 2) + cq + (x & 1);
+        bool ok = kpos < S;
+        if (causal) ok = ok && qpos[i] >= kpos;
+        if (window > 0) ok = ok && qpos[i] - kpos < window;
+        s[x] = ok ? s[x] * scale2 : NEG_INF;
+        mx[i] = fmaxf(mx[i], s[x]);
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1;
+        mx[i] = fmaxf(mx[i], s[x]);
+      }
+      mx[0] *= scale2;
+      mx[1] *= scale2;
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = fast_exp2(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1;
+      s[x] = fast_exp2(edge ? s[x] - m[i] : fmaf(s[x], scale2, -m[i]));
+      psum[i] += s[x];
+    }
+    l[0] = corr[0] * l[0] + psum[0];
+    l[1] = corr[1] * l[1] + psum[1];
+    // multiplying by 1 is exact: skip the rescale when no row of the warp
+    // moved its max
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) acc[x] *= corr[(x >> 1) & 1];
+    }
+
+    // O += P.V, 16 keys a step; V's 16 rows of step j4 start 16 * SW
+    // bytes further into each sub-tile, the sub-tiles SUB bytes apart
+    uint32_t p[4][4];
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[j4][r] = pack_bf16(s[8 * j4 + 2 * r], s[8 * j4 + 2 * r + 1]);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4)
+      wgmma_rs(acc, p[j4],
+               make_desc(sv + 16 * j4 * C::SW, C::SUB, 8 * C::SW, C::LAYOUT));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+    reg_fence(p);
+  }
+
+  // l over the quad: a butterfly, the same bits in all four lanes
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qpos[i] >= S) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow =
+        o + ((static_cast<long long>(b) * S + qpos[i]) * Hq + hq) * HD + cq;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      const float lo = acc[4 * c + 2 * i] * inv;
+      const float hi = acc[4 * c + 2 * i + 1] * inv;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+          __floats2bfloat162_rn(lo, hi);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// fp32 on CUDA cores
+// ---------------------------------------------------------------------
+
 constexpr int BQ = 64;    // query rows of a block
 constexpr int BK = 32;    // keys of a tile
-constexpr int NT = 128;   // threads of a block
 constexpr int RPT = BQ / 8;   // rows a thread owns
 constexpr int CPT = BK / 16;  // score columns a thread owns
 constexpr int PP = BK + 4;    // padded row of the probability tile
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // The output dim of a thread's i-th accumulator. At hd >= 64 a thread
 // owns runs of 4 dims 64 apart (ln*4 + 64*(i/4) + i%4), so the 8 threads
@@ -92,13 +574,14 @@ constexpr int smem_floats() {
   return BQ * (HD + 4) + BK * (HD + 4) + BK * HD + BQ * PP;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, long long qsb,
-              long long qss, long long qsh, long long ksb, long long kss,
-              long long ksh, long long vsb, long long vss, long long vsh,
-              int S, int Hq, int Hk, int causal, int window, float scale) {
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  long long qsb, long long qss, long long qsh, long long ksb,
+                  long long kss, long long ksh, long long vsb, long long vss,
+                  long long vsh, int S, int Hq, int Hk, int causal,
+                  int window, float scale) {
   constexpr int QP = HD + 4;
   constexpr int DPT = HD / 16;  // output dims a thread owns
   extern __shared__ float4 smem4[];
@@ -115,11 +598,11 @@ __global__ void __launch_bounds__(NT)
   const int b = blockIdx.z;
   const int hk = hq / (Hq / Hk);
 
-  const T* qb = q + b * qsb + hq * qsh;
+  const float* qb = q + b * qsb + hq * qsh;
   for (int idx = tid; idx < BQ * HD; idx += NT) {
     const int r = idx / HD, d = idx - r * HD;
     const int pos = q0 + r;
-    sq[r * QP + d] = pos < S ? to_f(qb[pos * qss + d]) : 0.f;
+    sq[r * QP + d] = pos < S ? qb[pos * qss + d] : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][DPT];
@@ -141,8 +624,8 @@ __global__ void __launch_bounds__(NT)
   const int k_end = causal ? q_last + 1 : S;
   const int kt_end = (k_end + BK - 1) / BK;
 
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every thread is done with the previous tile
@@ -150,8 +633,8 @@ __global__ void __launch_bounds__(NT)
       const int r = idx / HD, d = idx - r * HD;
       const int pos = k0 + r;
       const bool in = pos < S;
-      sk[r * QP + d] = in ? to_f(kb[pos * kss + d]) : 0.f;
-      sv[r * HD + d] = in ? to_f(vb[pos * vss + d]) : 0.f;
+      sk[r * QP + d] = in ? kb[pos * kss + d] : 0.f;
+      sv[r * HD + d] = in ? vb[pos * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -260,58 +743,175 @@ __global__ void __launch_bounds__(NT)
     const int qpos = q0 + rg + 8 * r;
     if (qpos >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* orow = o + ((static_cast<long long>(b) * S + qpos) * Hq + hq) * HD;
+    float* orow = o + ((static_cast<long long>(b) * S + qpos) * Hq + hq) * HD;
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
-      orow[out_dim<HD>(ln, i)] = from_f<T>(acc[r][i] / den);
+      orow[out_dim<HD>(ln, i)] = acc[r][i] / den;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int S, int Hq, int Hk, int causal,
-           int window, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * 4;
-  // the shared-memory opt-in, once per kernel and device
-  static bool opted_in[64] = {};
+// the shared-memory opt-in above 48 KB, once per kernel and device
+template <typename Kernel>
+int opt_in(Kernel kernel, int bytes, bool (&done)[64]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!opted_in[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd<T, HD>,
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in[dev] = true;
+    done[dev] = true;
   }
+  return 0;
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const long long* st, int B, int S, int Hq, int Hk, int causal,
+               int window, cudaStream_t stream) {
+  constexpr int bytes = smem_floats<HD>() * 4;
+  static bool opted_in[64] = {};
+  const int e = opt_in(flash_fwd_f32<HD>, bytes, opted_in);
+  if (e != 0) return e;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  flash_fwd<T, HD><<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], S, Hq, Hk, causal, window,
-      scale);
+  flash_fwd_f32<HD><<<grid, NT, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], S, Hq, Hk, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// cuTensorMapEncodeTiled, a libcuda call, reached through the runtime's
+// entry-point query so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A failed encode returns -(CUresult), a missing entry point -1000.
+constexpr int NO_ENCODER = -1000;
+
+// The tensor map of one (B, S, H, HD) bf16 operand, read through its
+// element strides: dim 0 is hd (unit stride), dims 1-3 are those of h, s
+// and b of extent > 1 in the order of their strides, then those of extent
+// 1 with a packed stride (their stride is never used). The box is
+// (COLS, 64 along s, 1, 1), swizzled over its COLS * 2 bytes; rows past
+// S read as zeros. *perm says where h, s and b went (see pick()).
+template <int HD>
+int encode_map(CUtensorMap* map, int* perm, const void* ptr, int H, int S,
+               int B, long long sb, long long ss, long long sh) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return NO_ENCODER;
+  struct Dim {
+    long long n, stride;
+    int which;  // 0 h, 1 s, 2 b
+  };
+  Dim d[3] = {{H, sh, 0}, {S, ss, 1}, {B, sb, 2}};
+  std::stable_sort(d, d + 3, [](const Dim& x, const Dim& y) {
+    if ((x.n > 1) != (y.n > 1)) return x.n > 1;
+    return x.n > 1 && x.stride < y.stride;
+  });
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(Tc<HD>::COLS), 1, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  long long prev_n = HD, prev_stride = 1;
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    const long long stride = d[i].n > 1 ? d[i].stride : prev_n * prev_stride;
+    dims[1 + i] = static_cast<cuuint64_t>(d[i].n);
+    strides[i] = static_cast<cuuint64_t>(stride) * 2;
+    if (d[i].which == 1) box[1 + i] = TK;  // TQ == TK
+    *perm |= (1 + i) << (2 * d[i].which);
+    prev_n = d[i].n;
+    prev_stride = stride;
+  }
+  const CUtensorMapSwizzle swizzle =
+      Tc<HD>::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : Tc<HD>::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+template <int HD, int NWG>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              const long long* st, int B, int S, int Hq, int Hk, int causal,
+              int window, cudaStream_t stream) {
+  static_assert(TQ == TK, "one box shape serves q, k and v");
+  constexpr int bytes = Tc<HD>::template smem<NWG>();
+  static bool opted_in[64] = {};
+  int e = opt_in(flash_fwd_tc<HD, NWG>, bytes, opted_in);
+  if (e != 0) return e;
+  CUtensorMap mq, mk, mv;
+  int pq = 0, pk = 0, pv = 0;
+  if ((e = encode_map<HD>(&mq, &pq, q, Hq, S, B, st[0], st[1], st[2])) ||
+      (e = encode_map<HD>(&mk, &pk, k, Hk, S, B, st[3], st[4], st[5])) ||
+      (e = encode_map<HD>(&mv, &pv, v, Hk, S, B, st[6], st[7], st[8])))
+    return e;
+  const dim3 grid((S + TQ - 1) / TQ, Hq / NWG, B);
+  const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  flash_fwd_tc<HD, NWG><<<grid, NWG * NT, bytes, stream>>>(
+      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), S, Hq, Hk,
+      causal, window, scale2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// two query heads of one kv group a block where G is even
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              const long long* st, int B, int S, int Hq, int Hk, int causal,
+              int window, cudaStream_t stream) {
+  if ((Hq / Hk) % 2 == 0)
+    return launch_tc<HD, 2>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
+                            stream);
+  return launch_tc<HD, 1>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
+                          stream);
+}
+
+template <bool TC>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o,
                 const long long* st, int B, int S, int Hq, int Hk, int hd,
-                int causal, int window, cudaStream_t stream) {
+                int causal, int window, cudaStream_t s) {
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
-                            stream);
+#define REPRO_HD(N)                                                        \
+  case N:                                                                  \
+    return TC ? launch_tc<N>(q, k, v, o, st, B, S, Hq, Hk, causal, window, \
+                             s)                                            \
+              : launch_f32<N>(q, k, v, o, st, B, S, Hq, Hk, causal,        \
+                              window, s);
+    REPRO_HD(16)
+    REPRO_HD(32)
+    REPRO_HD(64)
+    REPRO_HD(128)
+#undef REPRO_HD
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -321,9 +921,13 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, S, Hq, hd); k, v: (B, S, Hk, hd), Hq a multiple of Hk, each read
 // through its element strides (batch, sequence, head) with a unit stride
-// over hd; o: (B, S, Hq, hd) contiguous. dtype 0 is fp32, 1 bf16; hd is 16,
-// 32, 64 or 128; window 0 means none. Returns cudaGetLastError() after the
-// launch on `stream`, or cudaErrorInvalidValue for another dtype or hd.
+// over hd; o: (B, S, Hq, hd) contiguous. dtype 0 is fp32 (CUDA cores), 1
+// bf16 (tensor cores: every base 16-byte aligned and every stride of a
+// dim of extent > 1 a multiple of 8 elements); hd is 16, 32, 64 or 128;
+// window 0 means none. Returns cudaGetLastError() after the launch on
+// `stream`, cudaErrorInvalidValue for another dtype or hd, -(CUresult)
+// if a tensor map cannot be encoded and -1000 if libcuda has no
+// cuTensorMapEncodeTiled.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
@@ -332,10 +936,10 @@ extern "C" int repro_flash_attention(
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, o, st, B, S, Hq, Hk, hd, causal,
+    return dispatch_hd<false>(q, k, v, o, st, B, S, Hq, Hk, hd, causal,
                               window, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, st, B, S, Hq, Hk, hd,
-                                      causal, window, s);
+    return dispatch_hd<true>(q, k, v, o, st, B, S, Hq, Hk, hd, causal,
+                             window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

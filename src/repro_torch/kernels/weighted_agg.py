@@ -3,11 +3,13 @@
 Port of ``repro.kernels.weighted_agg.weighted_aggregate``:
 gw[d] = Σ_n λ_n W[n, d] with λ = weights / Σ weights, in float32.
 
-For a CUDA tensor the wrapper normalizes λ (as the TPU wrapper does),
-launches the hand-written Hopper kernel in ``csrc/weighted_agg.cu`` (one
-thread per column, n summed in order — the design note is in the
-source) and counts one launch. For a CPU tensor it computes the same
-aggregate with :func:`repro_torch.kernels.ref.weighted_aggregate_ref`.
+For a CUDA tensor the wrapper launches the hand-written Hopper kernel in
+``csrc/weighted_agg.cu`` (each thread owns :func:`vector_width`
+consecutive columns read with one wide load, n summed in order, λ
+normalized in the kernel — the design note is in the source) and counts
+one launch; it launches nothing else where the weights are float32
+already. For a CPU tensor it computes the same aggregate with
+:func:`repro_torch.kernels.ref.weighted_aggregate_ref`.
 """
 
 from __future__ import annotations
@@ -18,8 +20,19 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import weighted_aggregate_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+LOAD_BYTES = 16      # the widest load of one thread
 
 launches = 0     # kernel launches
+
+
+def vector_width(D: int, data_ptr: int, element_size: int) -> int:
+    """Columns a thread reads with one load: the widest power of two up to
+    16 bytes that divides D and the base address, so every row start
+    (base + n·D·size) is aligned to the load too."""
+    v = LOAD_BYTES // element_size
+    while v > 1 and (D % v or data_ptr % (v * element_size)):
+        v //= 2
+    return v
 
 
 def _check(W: torch.Tensor, weights: torch.Tensor) -> None:
@@ -52,13 +65,13 @@ def weighted_aggregate(W: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     global launches
     N, D = W.shape
     fn = _build.entry_point("weighted_agg")
-    lam = weights.to(torch.float32)
-    lam = (lam / torch.sum(lam)).contiguous()
+    w = weights.to(torch.float32).contiguous()   # no launch if fp32 already
+    vec = vector_width(D, W.data_ptr(), W.element_size())
     out = torch.empty(D, device=W.device, dtype=torch.float32)
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = fn(W.data_ptr(), int(W.dtype == torch.bfloat16),
-                 lam.data_ptr(), out.data_ptr(), N, D, stream)
+        err = fn(W.data_ptr(), int(W.dtype == torch.bfloat16), w.data_ptr(),
+                 out.data_ptr(), N, D, vec, stream)
     if err != 0:
         raise RuntimeError(f"weighted_aggregate kernel launch failed: CUDA "
                            f"error {err}")

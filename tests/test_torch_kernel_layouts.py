@@ -1,0 +1,87 @@
+"""What the port's kernel wrappers decide before any launch, on the CPU:
+the weighted aggregate's load width, the bfloat16 flash kernel's TMA
+layout rules, and the refusal of devices that have no kernel. The kernels
+themselves run in ``tests/test_torch_kernels_cuda.py`` (card only)."""
+
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import tma_refusal
+from repro_torch.kernels.weighted_agg import vector_width
+
+
+# (D, base address mod 16, element size, columns a thread loads at once)
+@pytest.mark.parametrize("D,addr,size,want", [
+    (1001, 0, 4, 1), (1001, 0, 2, 1),          # D odd
+    (1002, 0, 4, 2), (1002, 0, 2, 2),          # D = 2 mod 4
+    (1028, 0, 4, 4), (1028, 0, 2, 4),          # D = 4 mod 8
+    (1024, 0, 4, 4), (1024, 0, 2, 8),          # D = 0 mod 8
+    (101_770, 0, 4, 2), (101_770, 0, 2, 2),    # the MLP's D
+    (1024, 8, 4, 2), (1024, 4, 4, 1),          # the base sets the width
+    (1024, 8, 2, 4), (1024, 4, 2, 2), (1024, 2, 2, 1),
+])
+def test_vector_width_choice(D, addr, size, want):
+    assert vector_width(D, 4096 + addr, size) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1001, 1002, 1024, 101_770])
+def test_vector_width_keeps_every_row_aligned(D, dtype):
+    """On real views (the whole tensor, big[1:], one element in) every row
+    start is aligned to the chosen load, and twice the width would not
+    be."""
+    big = torch.zeros(4 * D + 1, dtype=dtype)
+    size = big.element_size()
+    for W in (big[:3 * D].view(3, D), big[:4 * D].view(4, D)[1:],
+              big[1:1 + 3 * D].view(3, D)):
+        v = vector_width(D, W.data_ptr(), size)
+        assert v * size <= 16 and D % v == 0
+        assert all((W[n].data_ptr() % (v * size)) == 0 for n in range(3))
+        if v * size < 16:
+            assert D % (2 * v) or W.data_ptr() % (2 * v * size)
+
+
+def test_tma_refusal_reads_base_and_strides():
+    B, S, H, hd = 2, 40, 4, 32
+    ok = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
+    assert tma_refusal("q", ok) is None
+    # (B, H, S, hd) storage seen through a transpose, and q, k, v slices of
+    # one fused projection: strides in any order, all 16-byte multiples
+    assert tma_refusal("q", ok.transpose(1, 2).contiguous()
+                       .transpose(1, 2)) is None
+    qkv = torch.zeros(B, S, H + 4, hd, dtype=torch.bfloat16)
+    assert all(tma_refusal(n, t) is None
+               for n, t in zip("qkv", qkv.split([H, 2, 2], dim=2)))
+    flat = torch.zeros(B * S * H * hd + 8, dtype=torch.bfloat16)
+    base = flat.data_ptr() % 16 // 2          # elements to a 16-byte base
+    shifted = flat[base + 1:base + 1 + B * S * H * hd].view(B, S, H, hd)
+    assert "address" in tma_refusal("q", shifted)
+    padded = torch.zeros(B, S, H, hd + 4, dtype=torch.bfloat16)[..., :hd]
+    assert "stride 2" in tma_refusal("k", padded)
+    # the stride of a dim of extent 1 is never used
+    single = torch.as_strided(ok, (1, S, H, hd), (3, H * hd, hd, 1))
+    assert tma_refusal("v", single) is None
+
+
+def test_wrappers_refuse_a_device_without_kernels():
+    before = ops.launch_counts()
+    W = torch.ones(4, 8, device="meta")
+    with pytest.raises(ValueError, match="no weighted_aggregate kernel"):
+        ops.weighted_aggregate(W, torch.ones(4, device="meta"))
+    q = torch.ones(1, 8, 2, 16, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        ops.flash_attention(q, q, q)
+    assert ops.launch_counts() == before
+
+
+def test_cpu_aggregate_takes_any_float_weights():
+    """The wrapper casts non-fp32 weights itself; on the CPU the result is
+    the plain version's."""
+    from repro_torch.kernels.ref import weighted_aggregate_ref
+    gen = torch.Generator().manual_seed(0)
+    W = torch.randn(5, 33, generator=gen)
+    w = torch.rand(5, generator=gen, dtype=torch.float64) + 0.5
+    out = ops.weighted_aggregate(W, w)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, weighted_aggregate_ref(W, w))

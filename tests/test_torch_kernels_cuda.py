@@ -15,8 +15,10 @@ bfloat16 rule of tests/test_torch_rwkv6.py (cuBLAS rounds its bfloat16
 products in other places than the CPU); the same rule for the dense
 transformer. Flash attention: the reference's flash tolerances
 (tests/test_kernels.py:141-179), float32 rtol/atol 2e-5 and bfloat16
-2e-2 — both versions compute in float32 and differ only in the order of
-their sums.
+2e-2 — both versions compute scores and softmax in float32 and differ in
+the order of their sums; the bfloat16 kernel also rounds p to bfloat16
+for its P·V product on the tensor cores, which the plain version does
+not.
 """
 
 import pytest
@@ -65,6 +67,60 @@ def test_kernels_match_plain(cuda_device, n, d, dtype):
     assert {k: after[k] - before[k] for k in after} == \
         {"cosine_partials": 1, "weighted_aggregate": 1, "wkv6": 0,
          "flash_attention": 0}
+
+
+def _agg_views(dev, n, d, dtype, view):
+    """W (n, d) as asked: "whole" a tensor of its own, "row" the rows
+    big[1:] of an (n + 1, d) tensor, "elem" a view one element into a flat
+    buffer (its base aligned to one element only)."""
+    gen = torch.Generator(device=dev).manual_seed(n * 7 + d)
+    big = _randn(gen, dev, n * d + d + 1).to(dtype)
+    if view == "whole":
+        W = big[:n * d].clone().view(n, d)
+    elif view == "row":
+        W = big[:(n + 1) * d].view(n + 1, d)[1:]
+    else:
+        W = big[1:1 + n * d].view(n, d)
+    return W, torch.rand(n, generator=gen, device=dev) + 0.5
+
+
+# D odd (1 column a thread), D = 2 mod 4 (2), D = 0 mod 8 (4 fp32, 8 bf16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["whole", "row", "elem"])
+@pytest.mark.parametrize("d", [1001, 1002, 1024])
+@pytest.mark.parametrize("n", [1, 8, 50])
+def test_weighted_aggregate_vector_widths(cuda_device, n, d, view, dtype):
+    from repro_torch.kernels.weighted_agg import vector_width
+    W, w = _agg_views(cuda_device, n, d, dtype, view)
+    assert W.is_contiguous()
+    vec = vector_width(d, W.data_ptr(), W.element_size())
+    if view == "elem":
+        assert vec == 1
+    elif d == 1024:
+        assert vec == 16 // W.element_size()
+    before = ops.launch_counts()["weighted_aggregate"]
+    out = ops.weighted_aggregate(W, w)
+    assert ops.launch_counts()["weighted_aggregate"] == before + 1
+    tol = BF16 if dtype == torch.bfloat16 else FP32
+    torch.testing.assert_close(out, tref.weighted_aggregate_ref(W, w), **tol)
+    assert torch.equal(out, ops.weighted_aggregate(W, w))
+
+
+def test_weighted_aggregate_launches_one_kernel(cuda_device):
+    """λ is normalized in the kernel: with float32 weights the wrapper puts
+    exactly one kernel on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    W = _randn(gen, cuda_device, 8, 101_770)
+    w = torch.rand(8, generator=gen, device=cuda_device) + 0.5
+    ops.weighted_aggregate(W, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.weighted_aggregate(W, w)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "weighted_agg" in kernels[0], kernels
 
 
 def test_kernels_bit_identical_on_repeat(cuda_device):
@@ -246,6 +302,66 @@ def test_flash_matches_plain(cuda_device, B, S, Hq, Hk, hd, dtype, causal,
                                           else FP32))
     again = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert torch.equal(o, again)
+
+
+# bf16 on the tensor cores: every hd, S below, at and above the 64-key
+# tile, G 1 and 8
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("S", [1, 57, 64, 130, 513])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_bf16_tensor_core_shapes(cuda_device, hd, S, G):
+    # G 8 as one batch over one kv head: dims of extent 1 in the tensor map
+    B, Hk = (1, 1) if G == 8 else (2, 2)
+    gen = torch.Generator(device=cuda_device).manual_seed(S * hd + G)
+    q, k, v = _flash_inputs(gen, cuda_device, B, S, Hk * G, Hk, hd,
+                            torch.bfloat16)
+    o = ops.flash_attention(q, k, v)
+    ref = tref.flash_attention_gqa_ref(q, k, v)
+    torch.testing.assert_close(o, ref, **BF16)
+    assert torch.equal(o, ops.flash_attention(q, k, v))
+
+
+# windows shorter and longer than the 64-key tile, and non-causal runs
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("causal,window", [(True, 7), (True, 40),
+                                           (True, 100), (True, 300),
+                                           (False, 0), (False, 50)])
+def test_flash_bf16_windows_and_non_causal(cuda_device, hd, causal,
+                                           window):
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + window)
+    q, k, v = _flash_inputs(gen, cuda_device, 2, 333, 8, 2, hd,
+                            torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    o = ops.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(
+        o, tref.flash_attention_gqa_ref(q, k, v, **kw), **BF16)
+    assert torch.equal(o, ops.flash_attention(q, k, v, **kw))
+
+
+def test_flash_bf16_refuses_what_tma_cannot_read(cuda_device):
+    """A base or a stride that is not a multiple of 16 bytes raises before
+    any launch; fp32 (CUDA cores) takes the same layouts."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    B, S, H, hd = 1, 40, 2, 32
+    flat = _randn(gen, cuda_device, B * S * H * hd + 1).to(torch.bfloat16)
+    shifted = flat[1:].view(B, S, H, hd)                 # base + 2 bytes
+    padded = _randn(gen, cuda_device, B, S, H, hd + 4).to(
+        torch.bfloat16)[..., :hd]                       # rows of 72 bytes
+    ok = _randn(gen, cuda_device, B, S, H, hd).to(torch.bfloat16)
+    before = ops.launch_counts()["flash_attention"]
+    for bad in (shifted, padded):
+        with pytest.raises(ValueError, match="TMA"):
+            ops.flash_attention(bad, ok, ok)
+        with pytest.raises(ValueError, match="TMA"):
+            ops.flash_attention(ok, ok, bad)
+    assert ops.launch_counts()["flash_attention"] == before
+    flat32 = _randn(gen, cuda_device, B * S * H * hd + 1)
+    okf = ok.float()
+    for f in (flat32[1:].view(B, S, H, hd),                 # base + 4 bytes
+              _randn(gen, cuda_device, B, S, H, hd + 3)[..., :hd]):
+        o = ops.flash_attention(f, okf, okf)
+        torch.testing.assert_close(
+            o, tref.flash_attention_gqa_ref(f, okf, okf), **FP32)
 
 
 def test_flash_reads_strided_inputs(cuda_device):
