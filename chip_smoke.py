@@ -14,7 +14,8 @@ CUDA build of PyTorch. It never imports JAX or the reference package
    ``HGMMA`` (wgmma) instructions: its bf16 path is on the tensor cores;
 3. kernels: each ME kernel at (N, D) = (8, 101770) and (50, 101770), in
    float32 and bfloat16, against its plain PyTorch version on the card,
-   twice on the same input (the outputs must be bit-identical), then
+   twice on the same input (the outputs must be bit-identical), one call
+   of the partials putting exactly one kernel on the card, then
    timed with CUDA events over CUDA-graph replays (device time per call,
    median of 50) beside its plain version, a PyTorch library call and
    the card's byte bound;
@@ -31,9 +32,10 @@ CUDA build of PyTorch. It never imports JAX or the reference package
    same leaders as the same run on the CPU (plain versions), with
    similarities and accuracy within tolerance;
 7. wkv6 kernel: the RWKV-6 recurrence at (B, S, H, K) = (8, 1, 32, 64)
-   (decode) and (8, 512, 32, 64) (a forward) in float32, against its
-   plain PyTorch version on the card, bit-identical on repeat, timed
-   beside the plain version and the byte/operation bound;
+   (decode) and (8, 512, 32, 64) (a forward) in float32, with its launch
+   geometry, against its plain PyTorch version on the card with decays in
+   (0.2, 0.99) and down to 1e-30, bit-identical on repeat, timed beside
+   the plain version and the byte/operation bound;
 8. serving: ``Model(get_config("rwkv6-1.6b"))`` at full width (24
    layers, d_model 2048, 32 heads of 64, vocab 65,536; seeded random
    weights on the card) behind ``ServingEngine.generate``: 8 greedy
@@ -93,6 +95,8 @@ SHAPES = ((8, 101_770), (50, 101_770))
 MAIN_ROUNDS = 3
 ME_KERNELS = ("cosine_partials", "weighted_aggregate")
 WKV6_SHAPES = ((8, 1, 32, 64), (8, 512, 32, 64))
+# decays: the timed range, and down to 1e-30 (the model's exp(-exp(.)))
+WKV6_DECAYS = {"mid": (0.2, 0.99), "low": (1e-30, 0.999)}
 # float32, sums over K in another order carried through up to 512 steps
 WKV6_TOL = dict(rtol=1e-5, atol=1e-4)
 N_REQUESTS, NEW_TOKENS = 8, 32
@@ -218,6 +222,19 @@ def entry(name, source, replaces, W, max_err, bit, k_us, p_us, b, lib_us,
             "library_us": lib_us, "call_us": call_us, **extra}
 
 
+def device_kernels(fn) -> list:
+    """Names of the device kernels one ``fn()`` call launches
+    (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def check_partials(W, gw) -> dict:
     import torch
     import torch.nn.functional as F
@@ -226,6 +243,10 @@ def check_partials(W, gw) -> dict:
     out = ops.cosine_partials(W, gw)
     again = ops.cosine_partials(W, gw)
     torch.cuda.synchronize()
+    on_card = device_kernels(lambda: ops.cosine_partials(W, gw))
+    check(len(on_card) == 1 and "cosine_partials" in on_card[0],
+          f"cosine_partials {tuple(W.shape)}: one call put {on_card} on the "
+          f"card, want one cosine_partials kernel")
     ref = cosine_partials_ref(W, gw)
     bit = all(torch.equal(a, b) for a, b in zip(out, again))
     err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
@@ -457,28 +478,53 @@ def wkv6_bound_us(B: int, S: int, H: int, K: int) -> tuple[float, str]:
     return bound_us(n_bytes, 5.0 * B * H * S * K * K)
 
 
-def check_wkv6(gen, dev, B: int, S: int, H: int, K: int) -> dict:
+def wkv6_inputs(gen, dev, B: int, S: int, H: int, K: int, decay: str):
+    """r, k, v, u ~ N(0, 1), s0 ~ 0.1 N(0, 1); w uniform over the "mid"
+    range, or log-uniform over the "low" one."""
+    import math
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import wkv6_recurrence_ref
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
     r, k, v = randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, K)
-    w = 0.2 + 0.79 * torch.rand(B, S, H, K, generator=gen, device=dev)
-    u, s0 = randn(H, K), 0.1 * randn(B, H, K, K)
-    args = (r, k, v, w, u, s0)
+    lo, hi = WKV6_DECAYS[decay]
+    x = torch.rand(B, S, H, K, generator=gen, device=dev)
+    if decay == "mid":
+        w = lo + (hi - lo) * x
+    else:
+        w = torch.exp(math.log(lo) + (math.log(hi) - math.log(lo)) * x)
+    return r, k, v, w, randn(H, K), 0.1 * randn(B, H, K, K)
+
+
+def wkv6_agrees(args, tag: str) -> tuple[float, bool]:
+    """The kernel against its plain version at WKV6_TOL, twice on one
+    input (bit-identical): (max abs err, bit-identical)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import wkv6_recurrence_ref
     out = ops.wkv6_recurrence(*args)
     again = ops.wkv6_recurrence(*args)
     torch.cuda.synchronize()
     ref = wkv6_recurrence_ref(*args)
     bit = all(torch.equal(a, b) for a, b in zip(out, again))
     err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
-    tag = f"wkv6 {(B, S, H, K)}"
     check(bit, f"{tag}: two launches on one input differ")
     check(all(torch.allclose(a, b, **WKV6_TOL) for a, b in zip(out, ref)),
           f"{tag}: disagrees with wkv6_recurrence_ref (max abs err {err})")
+    return err, bit
+
+
+def check_wkv6(gen, dev, B: int, S: int, H: int, K: int) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import wkv6_recurrence_ref
+    from repro_torch.kernels.wkv6 import launch_shape
+    tag = f"wkv6 {(B, S, H, K)}"
+    low_err, _ = wkv6_agrees(wkv6_inputs(gen, dev, B, S, H, K, "low"),
+                             f"{tag} decays {WKV6_DECAYS['low']}")
+    args = wkv6_inputs(gen, dev, B, S, H, K, "mid")
+    err, bit = wkv6_agrees(args, tag)
+    r = args[0]
     # the plain loop is S steps of ~8 launches: fewer graph replays
     plain_reps = dict(reps=2, samples=5) if S > 64 else {}
     return entry(
@@ -488,6 +534,8 @@ def check_wkv6(gen, dev, B: int, S: int, H: int, K: int) -> dict:
         graph_time_us(lambda: wkv6_recurrence_ref(*args), **plain_reps),
         wkv6_bound_us(B, S, H, K), None,
         call_time_us(lambda: ops.wkv6_recurrence(*args)),
+        low_decay_max_abs_err=low_err,
+        geometry=launch_shape(B, H, K)._asdict(),
         library_call="none: no single PyTorch call computes the WKV6 "
                      "recurrence")
 
@@ -498,8 +546,18 @@ def phase_wkv6(dev) -> list:
     rows = []
     for shape in WKV6_SHAPES:
         row = check_wkv6(gen, dev, *shape)
+        geo = row["geometry"]
+        launch = (f"one-step kernel: {geo['step_blocks']} blocks of "
+                  f"{geo['step_threads']} threads" if shape[1] == 1 else
+                  f"{geo['blocks']} blocks of {geo['threads']} threads, "
+                  f"{geo['smem_bytes']} B shared")
+        print(f"wkv6 {shape} launch: {launch}; Jc {geo['jc']}, G {geo['g']}"
+              f", C {geo['c']}, T {geo['t']}, {geo['stages']} stages",
+              flush=True)
         print(f"kernel wkv6 {row['shape']} float32: max_abs_err "
-              f"{row['max_abs_err']:.3e} bit-identical {row['bit_identical']}"
+              f"{row['max_abs_err']:.3e} (decays down to 1e-30: "
+              f"{row['low_decay_max_abs_err']:.3e}) bit-identical "
+              f"{row['bit_identical']}"
               f" | kernel {row['kernel_us']:.2f} us, plain "
               f"{row['plain_us']:.2f} us, bound {row['bound_us']:.2f} us "
               f"({row['bound_by']}), eager call {row['call_us']:.2f} us",

@@ -27,10 +27,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # c_void_p so ctypes never cuts them to 32 bits
 SIGNATURES = {
     "cosine_partials": ("repro_cosine_partials",
-                        [_P, _P, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P]),
+                        [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L,
+                         _P]),
     "weighted_agg": ("repro_weighted_agg", [_P, _I, _P, _P, _I, _L, _I, _P]),
     "wkv6": ("repro_wkv6", [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P]),
+                            *[_I] * 10, _P]),
     "flash_attention": ("repro_flash_attention",
                         [_P, _P, _P, _P, *[_L] * 9, *[_I] * 8, _P]),
 }

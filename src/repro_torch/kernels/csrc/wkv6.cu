@@ -6,119 +6,556 @@
 // value channel j):
 //
 //     o_t[j]   = sum_i r_t[i] * (S[i,j] + u[i] * k_t[i] * v_t[j])
+//              = sum_i r_t[i] * S[i,j] + v_t[j] * a_t,
+//                a_t = sum_i r_t[i] * u[i] * k_t[i]
 //     S[i,j]  <- w_t[i] * S[i,j] + k_t[i] * v_t[j]
 //
-// What bounds it: bytes. At decode (S = 1) the state read from s0 and
-// written back (2 * B*H*K*K*4 bytes) dwarfs r, k, v, w and o. Over a long
-// sequence r, k, v, w and o (5 * 4 bytes per (b, t, h, channel)) outweigh
-// the 5*K^2 fp32 operations per (b, h, t) the function needs (one
-// multiply-add for o, since the bonus term is a scalar per step times
-// v_t, and three for the state update): at K = 64 that is 320
-// operations against 20 bytes per channel, 16 a byte, under the card's
-// fp32 rate of about 20 a byte (67 TFLOP/s over 3.35 TB/s). What keeps this kernel from the bound is that the recurrence is
-// sequential in t: each step is a chain of K dependent multiply-adds.
+// What bounds it: bytes, closely followed by fp32 issue. At decode (S = 1)
+// the state read from s0 and written back (2 * B*H*K*K*4 bytes) dwarfs r,
+// k, v, w and o. Over a long sequence r, k, v, w and o (20 bytes per
+// (b, t, h, channel)) and the 5*K^2 operations per (b, h, t) (one
+// multiply-add for o, a multiply and a multiply-add for S) come out about
+// even on the H100: at K = 64 that is 320 operations against 20 bytes a
+// channel, 16 a byte, under the card's fp32 ridge of about 20.
 //
-// The TPU kernel keeps the state in VMEM across an in-kernel fori_loop
-// over a chunk of t, and across chunks through the sequential minor grid
-// axis. Hopper blocks run in no order and carry nothing between them, so
-// here one block owns one (b, h) and loops over every t itself; there is
-// no chunking, no padding of S and no w = 1 trick. The block has K
-// threads, and thread j keeps column j of S in K registers for the whole
-// sequence, so the state touches device memory twice: read from s0, and
-// written to s_out at the end. Each step the block stages r_t, k_t and
-// w_t in shared memory (double-buffered, so one barrier a step; thread j
-// already has v_t[j] in a register), and thread j sums over i in a fixed
-// order. No atomics: the same input gives bit-identical o and S.
-// r, k, v, w are read in their (B, S, H, K) layout through strides, so
-// the caller needs neither the transpose nor the pad of the TPU wrapper;
-// o is written in (B, S, H, K). The next step's four values are loaded
-// into registers before the current step's sums, to hide their latency.
+// The TPU kernel keeps S in VMEM across an in-kernel fori_loop over a
+// chunk of t and across chunks through the sequential grid axis. Hopper
+// blocks run in no order and carry nothing between them, so a block loops
+// over every t itself. The design:
 //
-// With B*H blocks of K threads (256 blocks of 64 at the model's shapes)
-// the card holds two warps a block and the loop is latency-bound; this
-// is the simple version, not yet a fast one.
+// * Columns across blocks. Column j of S evolves from k, w and v_j alone
+//   and o_t[j] needs only column j, so a (b, h) may be cut into K / JC
+//   column groups that never communicate: B*H*(K/JC) blocks, each reading
+//   r, k and w of its (b, h) whole and v for its JC columns. At K = 64 one
+//   block takes all 64 columns (JC = 64): with JC = 32 the two blocks of a
+//   (b, h) copy r, k, w twice, and that measured slower.
+// * Rows across lanes, a tile of state a thread. Thread (cl, g) =
+//   threadIdx.x / G, % G holds rows g*R .. g*R + R-1 (R = K / G) of the C
+//   columns j0 + cl*C .. + C-1 in registers for the whole sequence. Every
+//   value a lane reads from shared memory (r, k, w of its R rows, v of its
+//   C columns) serves C (or R) state entries: with one column a thread
+//   (C = 1) shared-memory reads, not arithmetic, set the pace (three reads
+//   per three operations; shared memory serves 32 lanes a cycle, fp32
+//   128). Each step a lane sums its R terms of o per column in order, then
+//   the G adjacent lanes of a column group fold with a fixed xor tree,
+//   offsets 1, 2, 4, ..: while a lane still holds more than one column it
+//   sends half of them and keeps half (a reduce-scatter, log2 shuffles
+//   fewer than folding every column), after that it adds its partner's
+//   one. Every column ends with the same tree of sums; the loop-carried
+//   chain is one fmaf per state entry a step.
+// * The bonus term once per step: a_t is folded per chunk with the same
+//   tree (R terms in order, then the xor offsets) into shared memory, and
+//   o_t[j] = fmaf(v_t[j], a_t, folded sum).
+// * A staged time chunk. r, k, w (all K channels) and v (the block's JC
+//   columns) of T steps are copied into shared memory with cp.async (16
+//   bytes a copy where the wrapper finds every address 16-byte aligned, 4
+//   otherwise) into a ring of STAGES chunks: the next chunks' copies are in
+//   flight while this one computes. Every chunk commits one copy group,
+//   empty past the end, so the wait count is the same at the ragged last
+//   chunk, which is masked by its step count and never padded. A lane
+//   copies the same pieces of every step (consecutive lanes, consecutive
+//   16 bytes of a row), so issuing a chunk is a copy and two adds a piece
+//   (computing each piece's addresses anew cost a large share of the
+//   kernel's time). Within a chunk the next step's operands are read
+//   before this step's sums, and step t's fold is issued after step
+//   t + 1's products.
+// * o staged per chunk in shared memory and written back as JC contiguous
+//   floats per step, with 16-byte stores.
+// * The state is read from s0 and written to s_out straight from the
+//   registers: for each of its rows a lane moves its C contiguous columns
+//   (16-byte accesses), the s0 loads issued before the first chunk is
+//   waited for.
+// * Decode (S = 1) runs wkv6_step, a specialisation with the same order
+//   of sums and no staging, whose lane map moves the state in rows of 32
+//   contiguous floats a warp (below); one step through wkv6_fwd measured
+//   slower than the earlier one-column-a-thread kernel.
+// * r, k, w rows in shared memory have 4 floats of padding after every 32,
+//   so the 16-byte reads of row groups g and g + 4 fall on distinct banks.
+//
+// Deterministic, no atomics: the order of every sum (R, G, C, the fold
+// tree, where a_t is added) is a function of K alone (Geo<K> below), never
+// of B, H, S or the card, so the same input gives bit-identical o and S on
+// every run and for every batch it sits in.
+//
+// Why CUDA cores and not tensor cores: the chunked matrix form divides by
+// products of decays, and the model's w = exp(-exp(.)) comes arbitrarily
+// close to 0, so those products underflow; and TF32 cannot meet the
+// rtol 1e-5 / atol 1e-4 held against the plain version.
+//
+// Budget (K = 64): two warps a block, 8 x 8 state entries a lane (64
+// registers of state, at most 255 in all); 55,872 bytes of shared memory
+// a block (3 stages x 16 steps x (3 x 68 + 64) floats, 16 x 64 of o, 16
+// of a_t, 64 of u), so the 256 blocks of (B, H) = (8, 32) fit on 132 SMs
+// at once, two an SM. A lane's tile being the unit of work, that is four
+// warps an SM, one per scheduler: the step loop is unrolled by four so
+// the scheduler finds independent work across steps.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+// Launch geometry, a function of K alone; kernels/wkv6.py: launch_shape
+// mirrors it and passes it back, and a mismatch refuses the launch.
 template <int K>
-__global__ void __launch_bounds__(K)
+struct Geo;
+template <>
+struct Geo<64> {
+  static constexpr int JC = 64, G = 8, C = 8, T = 16, STAGES = 3;
+};
+template <>
+struct Geo<32> {
+  static constexpr int JC = 32, G = 4, C = 4, T = 16, STAGES = 2;
+};
+template <>
+struct Geo<16> {
+  static constexpr int JC = 16, G = 4, C = 2, T = 16, STAGES = 2;
+};
+template <>
+struct Geo<8> {
+  static constexpr int JC = 8, G = 4, C = 1, T = 16, STAGES = 2;
+};
+
+template <int K>
+struct Layout {
+  static constexpr int JC = Geo<K>::JC, G = Geo<K>::G, C = Geo<K>::C,
+                       T = Geo<K>::T, STAGES = Geo<K>::STAGES;
+  static constexpr int R = K / G, NCL = JC / C, NT = NCL * G, NCG = K / JC;
+  static constexpr int ROW = K + ((K - 1) >> 5) * 4;  // padded r/k/w row
+  static constexpr int STAGE = T * (3 * ROW + JC);    // floats a stage
+  // ring, o (T x JC), a_t (T), u (K)
+  static constexpr int FLOATS = STAGES * STAGE + T * JC + T + K;
+  static constexpr int BYTES = FLOATS * 4;
+  static_assert(K % G == 0 && K % JC == 0 && JC % C == 0, "geometry");
+  static_assert(NT % 32 == 0 && 32 % G == 0, "whole warps; a column group "
+                                             "in one warp");
+  static_assert((R % 4 == 0 || R == 2) && 32 % R == 0,
+                "rows read 8 or 16 bytes at a time, inside 32-float runs");
+  static_assert(C == 1 || C == 2 || C % 4 == 0, "column loads");
+  static_assert(STAGES >= 2, "ring");
+};
+
+// shared-memory index of channel i in an r/k/w row: 4 floats of padding
+// after every 32
+__device__ __forceinline__ constexpr int pidx(int i) { return i + (i >> 5) * 4; }
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(BYTES)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// N consecutive floats at p (16-, 8- or 4-byte aligned to suit N), with
+// the widest accesses that fit
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* out) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(p)[q];
+      out[4 * q] = x.x;
+      out[4 * q + 1] = x.y;
+      out[4 * q + 2] = x.z;
+      out[4 * q + 3] = x.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) {
+      const float2 x = reinterpret_cast<const float2*>(p)[q];
+      out[2 * q] = x.x;
+      out[2 * q + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) out[q] = p[q];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float* in) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(in[4 * q], in[4 * q + 1], in[4 * q + 2], in[4 * q + 3]);
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q)
+      reinterpret_cast<float2*>(p)[q] = make_float2(in[2 * q], in[2 * q + 1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) p[q] = in[q];
+  }
+}
+
+// The G lanes of a column group fold their C partial sums with the xor
+// tree, offsets 1, 2, 4, ..; each add is (own + partner's). While a lane
+// holds n > 1 columns it keeps half and sends half; the lane with the
+// offset's bit set keeps the upper half. Afterwards the lane holds the
+// full sums of its columns [col, col + max(1, C / G)) in acc[0..].
+template <int G, int C>
+__device__ __forceinline__ int fold_scatter(float (&acc)[C], int g) {
+  int col = 0;
+#pragma unroll
+  for (int l = 0, off = 1; off < G; ++l, off <<= 1) {
+    const int n = C >> l;  // columns held before this level
+    if (n > 1) {
+      const bool upper = g & off;
+#pragma unroll
+      for (int i = 0; i < n / 2; ++i) {
+        const float send = upper ? acc[i] : acc[i + n / 2];
+        const float keep = upper ? acc[i + n / 2] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+      if (upper) col += n / 2;
+    } else {
+      acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
+    }
+  }
+  return col;
+}
+
+template <int K, int VEC>
+__global__ void __launch_bounds__(Layout<K>::NT)
     wkv6_fwd(const float* __restrict__ r, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ w,
              long long sb, long long ss, long long sh,
              const float* __restrict__ u, const float* __restrict__ s0,
              float* __restrict__ o, float* __restrict__ s_out, int S,
              int H) {
-  __shared__ float sr[2][K], sk[2][K], sw[2][K], su[K];
-  const int j = threadIdx.x;
+  using L = Layout<K>;
+  constexpr int JC = L::JC, G = L::G, C = L::C, T = L::T,
+                STAGES = L::STAGES, R = L::R, NT = L::NT, ROW = L::ROW;
+  constexpr int CF = C >= G ? C / G : 1;  // columns a lane ends a fold with
+  // a lane whose g has a bit set above the split levels holds a copy
+  constexpr int SPLIT_MASK = (C >= G ? G : C) - 1;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* s_o = ring + STAGES * L::STAGE;  // T x JC
+  float* s_a = s_o + T * JC;              // T
+  float* s_u = s_a + T;                   // K
+
+  const int tid = threadIdx.x;
+  const int cl = tid / G;
+  const int g = tid - cl * G;
+  const int bh = blockIdx.x / L::NCG;
+  const int j0 = (blockIdx.x - bh * L::NCG) * JC;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const long long in0 = b * sb + h * sh;
+  const int n_chunks = (S + T - 1) / T;
+  const int row0 = g * R;
+  const int col0 = cl * C;  // the lane's first column within the block's
+
+  // copy chunk c (its steps that exist) into its ring stage. A step's
+  // r, k, w rows and v columns are PER_T pieces of VEC floats; a lane
+  // copies the same pieces q = tid, tid + NT, .. of every step, so
+  // consecutive lanes copy consecutive pieces of a row
+  constexpr int KV = K / VEC, PER_T = 3 * KV + JC / VEC;
+  auto issue_chunk = [&](int c) {
+    float* st = ring + (c % STAGES) * L::STAGE;
+    const int t0 = c * T;
+    const int n = min(T, S - t0);
+#pragma unroll
+    for (int q = tid; q < PER_T; q += NT) {
+      const float* src;
+      float* dst;
+      int step;
+      if (q < 3 * KV) {
+        const int a = q / KV;
+        const int i = (q - a * KV) * VEC;
+        src = (a == 0 ? r : (a == 1 ? k : w)) + in0 + i;
+        dst = st + a * T * ROW + pidx(i);
+        step = ROW;
+      } else {
+        const int jv = (q - 3 * KV) * VEC;
+        src = v + in0 + j0 + jv;
+        dst = st + 3 * T * ROW + jv;
+        step = JC;
+      }
+      src += static_cast<long long>(t0) * ss;
+      for (int tt = 0; tt < n; ++tt, src += ss, dst += step)
+        cp_async<VEC * 4>(dst, src);
+    }
+  };
+
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < n_chunks) issue_chunk(c);
+    cp_async_commit();
+  }
+  // the lane's R x C tile of s0, C contiguous floats a row
+  float st[R][C];
+  const float* s0p = s0 + (static_cast<long long>(bh) * K + row0) * K + j0 +
+                     col0;
+#pragma unroll
+  for (int m = 0; m < R; ++m) load_n<C>(s0p + m * K, st[m]);
+  for (int i = tid; i < K; i += NT) s_u[i] = u[h * K + i];
+
+  for (int c = 0; c < n_chunks; ++c) {
+    // groups committed so far: STAGES - 1 + c; chunk c's is complete
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    // the stage of chunk c - 1 is free: every thread passed the barrier
+    if (c + STAGES - 1 < n_chunks) issue_chunk(c + STAGES - 1);
+    cp_async_commit();
+
+    const float* cr = ring + (c % STAGES) * L::STAGE;
+    const float* ck = cr + T * ROW;
+    const float* cw = ck + T * ROW;
+    const float* cv = cw + T * ROW;
+    const int n = min(T, S - c * T);
+
+    // a_t for the chunk's steps: column lanes cl take steps cl, cl + NCL,
+    // .. (the trip count is the same in every lane, for the shuffles)
+#pragma unroll
+    for (int t_base = 0; t_base < T; t_base += L::NCL) {
+      const int tt = t_base + cl;
+      float a = 0.f;
+      if (tt < n) {
+        float rr[R], kk[R];
+        load_n<R>(cr + tt * ROW + pidx(row0), rr);
+        load_n<R>(ck + tt * ROW + pidx(row0), kk);
+#pragma unroll
+        for (int m = 0; m < R; ++m) a = fmaf(rr[m] * s_u[row0 + m], kk[m], a);
+      }
+#pragma unroll
+      for (int off = 1; off < G; off <<= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (g == 0 && tt < n) s_a[tt] = a;
+    }
+    __syncthreads();
+
+    // step tt's products, then step tt - 1's fold (its shuffles overlap
+    // the products); o_t is written by the lanes that hold its columns
+    auto fold_out = [&](float (&acc)[C], int tt) {
+      const int col = col0 + fold_scatter<G, C>(acc, g);
+      if (C >= G || (g & ~SPLIT_MASK) == 0) {
+        const float at = s_a[tt];
+#pragma unroll
+        for (int i = 0; i < CF; ++i)
+          s_o[tt * JC + col + i] = fmaf(cv[tt * JC + col + i], at, acc[i]);
+      }
+    };
+    float rr[R], kk[R], ww[R], vv[C], prev[C];
+    load_n<R>(cr + pidx(row0), rr);
+    load_n<R>(ck + pidx(row0), kk);
+    load_n<R>(cw + pidx(row0), ww);
+    load_n<C>(cv + col0, vv);
+#pragma unroll 4
+    for (int tt = 0; tt < n; ++tt) {
+      // the next step's operands, read before this step's sums
+      float nr[R], nk[R], nw[R], nv[C];
+      const int tn = tt + 1 < n ? tt + 1 : tt;
+      load_n<R>(cr + tn * ROW + pidx(row0), nr);
+      load_n<R>(ck + tn * ROW + pidx(row0), nk);
+      load_n<R>(cw + tn * ROW + pidx(row0), nw);
+      load_n<C>(cv + tn * JC + col0, nv);
+
+      float acc[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          acc[j] = fmaf(rr[m], st[m][j], acc[j]);
+          st[m][j] = fmaf(ww[m], st[m][j], kk[m] * vv[j]);
+        }
+      }
+      if (tt > 0) fold_out(prev, tt - 1);
+#pragma unroll
+      for (int j = 0; j < C; ++j) prev[j] = acc[j];
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        rr[m] = nr[m];
+        kk[m] = nk[m];
+        ww[m] = nw[m];
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) vv[j] = nv[j];
+    }
+    fold_out(prev, n - 1);
+    __syncthreads();
+
+    // o of the chunk: JC contiguous floats per step, 16 bytes a store
+    float* op = o + ((static_cast<long long>(b) * S + c * T) * H + h) * K + j0;
+    for (int e = tid; e < n * (JC / 4); e += NT) {
+      const int tt = e / (JC / 4);
+      const int q = e - tt * (JC / 4);
+      *reinterpret_cast<float4*>(op + static_cast<long long>(tt) * H * K +
+                                 4 * q) =
+          *reinterpret_cast<const float4*>(s_o + tt * JC + 4 * q);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* sop = s_out + (static_cast<long long>(bh) * K + row0) * K + j0 +
+               col0;
+#pragma unroll
+  for (int m = 0; m < R; ++m) store_n<C>(sop + m * K, st[m]);
+}
+
+// One step (S = 1, decode), with the same order of sums as wkv6_fwd: the
+// R rows of a row group summed in order, the G groups folded with the
+// same pairwise tree (here through shared memory), a_1 the same way, and
+// o = fmaf(v, a, sum). Only the state's bytes are many here, so the lane
+// map is the one that moves them best: block (b, h) has G warps' worth of
+// lanes per column, lane (g, j) = (tid / K, tid % K) holds rows
+// g*R .. g*R + R-1 of column j, and a warp reads and writes rows of 32
+// consecutive floats. r, k, w of a row group are the same for all its
+// lanes (one broadcast load each).
+template <int K, int VEC>
+__global__ void __launch_bounds__(K * Geo<K>::G)
+    wkv6_step(const float* __restrict__ r, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ w,
+              long long sb, long long sh, const float* __restrict__ u,
+              const float* __restrict__ s0, float* __restrict__ o,
+              float* __restrict__ s_out, int H) {
+  constexpr int G = Geo<K>::G, R = K / G;
+  __shared__ float s_p[G][K];
+  __shared__ float s_a[G];
+  const int tid = threadIdx.x;
+  const int g = tid / K;
+  const int j = tid - g * K;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const long long in0 = b * sb + h * sh + j;
-  // o is contiguous (B, S, H, K)
-  const long long out0 = ((long long)b * S * H + h) * K + j;
-  const long long out_step = (long long)H * K;
+  const long long in0 = b * sb + h * sh;
+  const int row0 = g * R;
 
-  su[j] = u[h * K + j];
-  float st[K];
-  const float* s0p = s0 + (long long)bh * K * K;
+  float st[R], rr[R], kk[R], ww[R];
+  const float* s0p = s0 + (static_cast<long long>(bh) * K + row0) * K + j;
 #pragma unroll
-  for (int i = 0; i < K; ++i) st[i] = s0p[i * K + j];
-
-  float nr = r[in0], nk = k[in0], nv = v[in0], nw = w[in0];
-  for (int t = 0; t < S; ++t) {
-    const int buf = t & 1;
-    sr[buf][j] = nr;
-    sk[buf][j] = nk;
-    sw[buf][j] = nw;
-    const float vj = nv;
-    if (t + 1 < S) {
-      const long long off = in0 + (t + 1) * ss;
-      nr = r[off];
-      nk = k[off];
-      nv = v[off];
-      nw = w[off];
-    }
-    // one barrier a step: buffer buf is written again at step t + 2, after
-    // every thread has passed the barrier of step t + 1 and so has finished
-    // reading it at step t
-    __syncthreads();
-    float acc = 0.f;
+  for (int m = 0; m < R; ++m) st[m] = s0p[m * K];
+  if constexpr (VEC == 4) {
+    load_n<R>(r + in0 + row0, rr);
+    load_n<R>(k + in0 + row0, kk);
+    load_n<R>(w + in0 + row0, ww);
+  } else {
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const float kv = sk[buf][i] * vj;
-      acc = fmaf(sr[buf][i], fmaf(su[i], kv, st[i]), acc);
-      st[i] = fmaf(sw[buf][i], st[i], kv);
+    for (int m = 0; m < R; ++m) {
+      rr[m] = r[in0 + row0 + m];
+      kk[m] = k[in0 + row0 + m];
+      ww[m] = w[in0 + row0 + m];
     }
-    o[out0 + t * out_step] = acc;
   }
+  const float vj = v[in0 + j];
 
-  float* sop = s_out + (long long)bh * K * K;
+  float a = 0.f, acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < K; ++i) sop[i * K + j] = st[i];
+  for (int m = 0; m < R; ++m) {
+    a = fmaf(rr[m] * u[h * K + row0 + m], kk[m], a);
+    acc = fmaf(rr[m], st[m], acc);
+    st[m] = fmaf(ww[m], st[m], kk[m] * vj);
+  }
+  s_p[g][j] = acc;
+  if (j == 0) s_a[g] = a;
+  float* sop = s_out + (static_cast<long long>(bh) * K + row0) * K + j;
+#pragma unroll
+  for (int m = 0; m < R; ++m) sop[m * K] = st[m];
+  __syncthreads();
+  if (g == 0) {
+    float p[G], q[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      p[i] = s_p[i][j];
+      q[i] = s_a[i];
+    }
+    // pair (i, i + off) at offsets 1, 2, 4, ..: the xor tree's sums
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < G; i += 2 * off) {
+        p[i] = p[i] + p[i + off];
+        q[i] = q[i] + q[i + off];
+      }
+    }
+    o[(static_cast<long long>(b) * H + h) * K + j] = fmaf(vj, q[0], p[0]);
+  }
+}
+
+template <int K, int VEC>
+int launch(const float* r, const float* k, const float* v, const float* w,
+           long long sb, long long ss, long long sh, const float* u,
+           const float* s0, float* o, float* s_out, int B, int S, int H,
+           cudaStream_t st) {
+  using L = Layout<K>;
+  // the shared-memory attribute is set once per kernel and device
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(configured & bit)) {
+    e = cudaFuncSetAttribute(wkv6_fwd<K, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured |= bit;
+  }
+  const unsigned blocks = static_cast<unsigned>(B) * H * L::NCG;
+  if (S == 1) {
+    wkv6_step<K, VEC><<<static_cast<unsigned>(B) * H, K * L::G, 0, st>>>(
+        r, k, v, w, sb, sh, u, s0, o, s_out, H);
+  } else {
+    wkv6_fwd<K, VEC><<<blocks, L::NT, L::BYTES, st>>>(
+        r, k, v, w, sb, ss, sh, u, s0, o, s_out, S, H);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-void launch(const float* r, const float* k, const float* v, const float* w,
-            long long sb, long long ss, long long sh, const float* u,
-            const float* s0, float* o, float* s_out, int B, int S, int H,
-            cudaStream_t st) {
-  wkv6_fwd<K><<<static_cast<unsigned>(B) * H, K, 0, st>>>(
-      r, k, v, w, sb, ss, sh, u, s0, o, s_out, S, H);
+int dispatch(const float* r, const float* k, const float* v, const float* w,
+             long long sb, long long ss, long long sh, const float* u,
+             const float* s0, float* o, float* s_out, int B, int S, int H,
+             int vec, const int* geo, cudaStream_t st) {
+  using L = Layout<K>;
+  if (geo[0] != L::JC || geo[1] != L::G || geo[2] != L::C || geo[3] != L::T ||
+      geo[4] != L::STAGES)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (vec == 4)
+    return launch<K, 4>(r, k, v, w, sb, ss, sh, u, s0, o, s_out, B, S, H, st);
+  if (vec == 1)
+    return launch<K, 1>(r, k, v, w, sb, ss, sh, u, s0, o, s_out, B, S, H, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // r, k, v, w: (B, S, H, K) fp32 sharing the element strides (sb, ss, sh)
-// and a unit stride over K; u: (H, K) fp32 contiguous; s0, s_out:
-// (B, H, K, K) fp32 contiguous; o: (B, S, H, K) fp32 contiguous.
-// K is 8, 16, 32 or 64. Returns cudaGetLastError() after the launch on
-// `stream`, or cudaErrorInvalidValue for another K.
+// and a unit stride over K; with vec = 4 their bases and strides are
+// multiples of 16 bytes (vec = 1: any). u: (H, K) fp32 contiguous; s0,
+// s_out: (B, H, K, K) fp32 contiguous, 16-byte aligned; o: (B, S, H, K)
+// fp32 contiguous, 16-byte aligned. K is 8, 16, 32 or 64; (jc, g, c, t,
+// stages) must be the kernel's geometry for K. Returns cudaGetLastError()
+// after the launch on `stream`, cudaErrorInvalidValue for another K or vec,
+// cudaErrorInvalidConfiguration for another geometry.
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
                           const void* w, long long sb, long long ss,
                           long long sh, const void* u, const void* s0,
                           void* o, void* s_out, int B, int S, int H, int K,
+                          int vec, int jc, int g, int c, int t, int stages,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* rp = static_cast<const float*>(r);
@@ -129,21 +566,21 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
   const float* s0p = static_cast<const float*>(s0);
   float* op = static_cast<float*>(o);
   float* sp = static_cast<float*>(s_out);
+  const int geo[5] = {jc, g, c, t, stages};
   switch (K) {
     case 8:
-      launch<8>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S, H, st);
-      break;
+      return dispatch<8>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S, H,
+                         vec, geo, st);
     case 16:
-      launch<16>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S, H, st);
-      break;
+      return dispatch<16>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S,
+                          H, vec, geo, st);
     case 32:
-      launch<32>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S, H, st);
-      break;
+      return dispatch<32>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S,
+                          H, vec, geo, st);
     case 64:
-      launch<64>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S, H, st);
-      break;
+      return dispatch<64>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S,
+                          H, vec, geo, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

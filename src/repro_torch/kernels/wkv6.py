@@ -7,14 +7,20 @@ kernel). Per batch b and head h, with a K × K float32 state S:
     S  ← diag(w_t) · S + k_tᵀ v_t
 
 For a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``csrc/wkv6.cu`` (one block per (b, h) looping over t, the state in
-registers, r/k/v/w read in place through their strides — the design note
-is in the source) and counts one launch. For a CPU tensor it runs
+``csrc/wkv6.cu`` (each block one group of Jc state columns of one
+(b, h), each lane a tile of K/G rows by C columns of the state, T time
+steps staged in shared memory a chunk, r/k/v/w read in place through
+their strides; one step (S = 1) in a kernel of its own with the same
+order of sums — the design note is in the source) and counts one launch.
+:func:`launch_shape` is the kernels' geometry, a function of K alone; the
+kernel refuses another. For a CPU tensor it runs
 :func:`repro_torch.kernels.ref.wkv6_recurrence_ref`. Inputs are float32
 only (the model casts to float32 first) and K is 8, 16, 32 or 64.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +30,50 @@ from repro_torch.kernels.ref import wkv6_recurrence_ref
 HEAD_SIZES = (8, 16, 32, 64)
 
 launches = 0     # kernel launches
+
+# K -> (Jc state columns a block, G lanes a column group, C columns a
+# lane, T steps a chunk, ring stages): csrc/wkv6.cu's Geo<K>, which
+# refuses any other
+_GEOMETRY = {64: (64, 8, 8, 16, 3), 32: (32, 4, 4, 16, 2),
+             16: (16, 4, 2, 16, 2), 8: (8, 4, 1, 16, 2)}
+
+
+class LaunchShape(NamedTuple):
+    blocks: int         # B·H·(K / jc)
+    threads: int        # (jc / c)·g
+    jc: int             # state columns a block
+    g: int              # lanes a column group; each holds K / g rows
+    c: int              # columns a lane
+    t: int              # time steps a staged chunk
+    stages: int         # chunks in the copy ring
+    smem_bytes: int     # dynamic shared memory a block
+    step_blocks: int    # S = 1 (decode) kernel: B·H blocks
+    step_threads: int   # of K·G threads, no staging
+
+
+def launch_shape(B: int, H: int, K: int) -> LaunchShape:
+    """The kernels' grids, blocks and shared memory for (B, H, K): the
+    chunked kernel's for S > 1, the one-step kernel's for S = 1. Jc, G, C,
+    T and the stages depend on K alone, and with them the order of every
+    sum (the same in both kernels), so B, H and S change the grid and never
+    the bits of a (b, h)."""
+    if K not in _GEOMETRY:
+        raise ValueError(f"wkv6_recurrence takes K in {HEAD_SIZES}; got {K}")
+    jc, g, c, t, stages = _GEOMETRY[K]
+    row = K + ((K - 1) >> 5) * 4          # r/k/w row, 4 floats pad per 32
+    floats = stages * t * (3 * row + jc) + t * jc + t + K
+    return LaunchShape(B * H * (K // jc), (jc // c) * g, jc, g, c, t, stages,
+                       4 * floats, B * H, K * g)
+
+
+def copy_width(ptrs, strides, shape) -> int:
+    """Floats per cp.async copy of r/k/v/w: 4 (16 bytes) where every base
+    address and every used (b, s, h) stride is a multiple of 16 bytes, else
+    1. The stride of a dim of extent 1 is never used."""
+    used = [st for st, n in zip(strides[:3], shape[:3]) if n > 1]
+    if all(p % 16 == 0 for p in ptrs) and all(st % 4 == 0 for st in used):
+        return 4
+    return 1
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -74,8 +124,12 @@ def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"strides {strides}")
     if not (u.is_contiguous() and s0.is_contiguous()):
         raise ValueError("wkv6 kernel needs contiguous u and s0")
+    if s0.data_ptr() % 16:
+        raise ValueError("wkv6 kernel needs s0 aligned to 16 bytes")
     global launches
     fn = _build.entry_point("wkv6")
+    geo = launch_shape(B, H, K)
+    vec = copy_width([t.data_ptr() for t in (r, k, v, w)], strides, r.shape)
     o = torch.empty((B, S, H, K), device=r.device, dtype=torch.float32)
     s_fin = torch.empty((B, H, K, K), device=r.device, dtype=torch.float32)
     with torch.cuda.device(r.device):
@@ -83,7 +137,7 @@ def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  strides[0], strides[1], strides[2], u.data_ptr(),
                  s0.data_ptr(), o.data_ptr(), s_fin.data_ptr(), B, S, H, K,
-                 stream)
+                 vec, geo.jc, geo.g, geo.c, geo.t, geo.stages, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     launches += 1

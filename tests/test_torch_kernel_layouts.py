@@ -1,12 +1,16 @@
 """What the port's kernel wrappers decide before any launch, on the CPU:
 the weighted aggregate's load width, the bfloat16 flash kernel's TMA
-layout rules, and the refusal of devices that have no kernel. The kernels
-themselves run in ``tests/test_torch_kernels_cuda.py`` (card only)."""
+layout rules, the wkv6 kernel's geometry and copy width, the cosine
+partials' chunking, and the refusal of devices that have no kernel. The
+kernels themselves run in ``tests/test_torch_kernels_cuda.py`` (card
+only)."""
 
 import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import wkv6 as wkv
+from repro_torch.kernels.cosine_sim import chunk_for, splits_for
 from repro_torch.kernels.flash_attention import tma_refusal
 from repro_torch.kernels.weighted_agg import vector_width
 
@@ -85,3 +89,82 @@ def test_cpu_aggregate_takes_any_float_weights():
     out = ops.weighted_aggregate(W, w)
     assert out.dtype == torch.float32
     assert torch.equal(out, weighted_aggregate_ref(W, w))
+
+
+# csrc/wkv6.cu's budget: a lane's state tile in at most 64 registers, and
+# two blocks' shared memory within an SM's 228 KB (the (8, 32) grid has
+# two blocks an SM at K = 64)
+SMEM_PER_SM = 233_472
+BLOCKS_PER_SM = 2
+MAX_STATE_REGISTERS = 64
+
+# K -> (jc, g, c, t, stages, threads, shared bytes): csrc/wkv6.cu's Geo<K>
+WKV6_GEOMETRY = {64: (64, 8, 8, 16, 3, 64, 55_872),
+                 32: (32, 4, 4, 16, 2, 32, 18_624),
+                 16: (16, 4, 2, 16, 2, 32, 9_344),
+                 8: (8, 4, 1, 16, 2, 32, 4_704)}
+
+
+@pytest.mark.parametrize("K", sorted(WKV6_GEOMETRY))
+@pytest.mark.parametrize("B,H", [(8, 32), (1, 1), (3, 5), (64, 40)])
+def test_wkv6_launch_shape_is_pinned(B, H, K):
+    """Jc, G, C, T and the ring depend on K alone (so does the order of
+    every sum); B and H only scale the grid."""
+    shape = wkv.launch_shape(B, H, K)
+    jc, g, c, t, stages, threads, smem = WKV6_GEOMETRY[K]
+    assert (shape.jc, shape.g, shape.c, shape.t, shape.stages) == \
+        (jc, g, c, t, stages)
+    assert shape.threads == threads == (jc // c) * g
+    assert shape.blocks == B * H * (K // jc)
+    assert shape.smem_bytes == smem
+    assert (shape.step_blocks, shape.step_threads) == (B * H, K * g)
+
+
+@pytest.mark.parametrize("K", sorted(WKV6_GEOMETRY))
+def test_wkv6_geometry_fits_the_source_budget(K):
+    """The source's budget: whole warps, a column group's lanes inside one
+    warp, a lane's state tile in at most 64 registers, rows a lane reads
+    with 8- or 16-byte loads inside one 32-float run of the padded row,
+    columns in 4-, 8- or 16-byte pieces, and two blocks' shared memory
+    within an SM's."""
+    s = wkv.launch_shape(8, 32, K)
+    rows = K // s.g
+    assert s.threads % 32 == 0 and 32 % s.g == 0
+    assert K % s.jc == 0 and s.jc % s.c == 0 and s.jc % 4 == 0
+    assert rows * s.c <= MAX_STATE_REGISTERS
+    assert (rows % 4 == 0 or rows == 2) and 32 % rows == 0
+    assert s.c in (1, 2) or s.c % 4 == 0
+    assert BLOCKS_PER_SM * s.smem_bytes <= SMEM_PER_SM
+
+
+def test_wkv6_launch_shape_refuses_other_heads():
+    with pytest.raises(ValueError, match="K in"):
+        wkv.launch_shape(1, 1, 12)
+
+
+# (pointer residues mod 16, strides, shape, floats a copy)
+@pytest.mark.parametrize("ptrs,strides,shape,want", [
+    ((0, 0, 0, 0), (512 * 2048, 2048, 64, 1), (8, 512, 32, 64), 4),
+    ((0, 0, 0, 0), (512 * 8192, 8192, 64, 1), (8, 512, 32, 64), 4),  # fused
+    ((0, 4, 0, 0), (2048, 2048, 64, 1), (1, 4, 32, 64), 1),           # base
+    ((0, 0, 0, 0), (33 * 80, 80, 20, 1), (2, 33, 4, 16), 4),
+    ((0, 0, 0, 0), (33 * 66, 66, 16, 1), (2, 33, 4, 16), 1),          # stride
+    ((0, 0, 0, 0), (3, 66 * 4, 66, 1), (1, 33, 4, 16), 1),            # h 66
+    ((0, 0, 0, 0), (3, 64 * 4, 64, 1), (1, 33, 4, 16), 4),  # b unused
+    ((0, 0, 0, 0), (3, 5, 64, 1), (1, 1, 4, 16), 4),        # s unused too
+])
+def test_wkv6_copy_width(ptrs, strides, shape, want):
+    assert wkv.copy_width([4096 + p for p in ptrs], strides, shape) == want
+
+
+@pytest.mark.parametrize("D", [1, 7, 2047, 2048, 2049, 101_770, 2 ** 21,
+                               2 ** 21 + 1, 10 ** 9, 2 ** 31 - 1])
+def test_cosine_chunking_depends_on_d_only(D):
+    """Whole 2048-element tiles a block, at most 1024 blocks, every element
+    in exactly one chunk; the order of every sum follows from these."""
+    chunk, splits = chunk_for(D), splits_for(D)
+    assert chunk % 2048 == 0 and 1 <= splits <= 1024
+    assert (splits - 1) * chunk < D <= splits * chunk
+    if D <= 2 ** 21:
+        assert chunk == 2048      # one tile: gw read once into registers
+    assert (chunk_for(D), splits_for(D)) == (chunk, splits)

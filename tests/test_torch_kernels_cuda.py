@@ -21,6 +21,8 @@ for its P·V product on the tensor cores, which the plain version does
 not.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -123,6 +125,76 @@ def test_weighted_aggregate_launches_one_kernel(cuda_device):
     assert len(kernels) == 1 and "weighted_agg" in kernels[0], kernels
 
 
+# N rows at 1, 8 (the main path), 50 and 200; D odd, ≡ 2 mod 4 (the MLP's
+# 101,770) and past one 2 Mi-element chunk (two tiles a block); every mix
+# of float32 and bfloat16
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 1001), (8, 101_770), (50, 101_770),
+                                 (200, 4099), (2, 2 ** 21 + 6)])
+def test_cosine_partials_shapes_and_types(cuda_device, n, d, w_dtype,
+                                          g_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(n * 3 + d)
+    W = _randn(gen, cuda_device, n, d).to(w_dtype)
+    gw = _randn(gen, cuda_device, d).to(g_dtype)
+    before = ops.launch_counts()["cosine_partials"]
+    dot, wsq, gsq = ops.cosine_partials(W, gw)
+    assert ops.launch_counts()["cosine_partials"] == before + 1
+    rdot, rwsq, rgsq = tref.cosine_partials_ref(W, gw)
+    torch.testing.assert_close(dot, rdot, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(wsq, rwsq, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gsq, rgsq, rtol=1e-4, atol=0)
+    # a view one element in reads with narrower loads, in the same order
+    big = torch.empty(n * d + 1, device=cuda_device, dtype=w_dtype)
+    Wv = big[1:].view(n, d).copy_(W)
+    assert all(torch.equal(a, b) for a, b in
+               zip(ops.cosine_partials(Wv, gw), (dot, wsq, gsq)))
+
+
+def test_cosine_partials_ticket_resets(cuda_device):
+    """100 back-to-back calls give the same bits: the last block's ticket
+    is back at 0 after every launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    W = _randn(gen, cuda_device, 8, 101_770)
+    gw = _randn(gen, cuda_device, 101_770)
+    first = ops.cosine_partials(W, gw)
+    outs = [ops.cosine_partials(W, gw) for _ in range(100)]
+    assert all(torch.equal(a, b) for o in outs for a, b in zip(first, o))
+
+
+def test_cosine_partials_on_two_streams(cuda_device):
+    """Calls on two streams at once draw tickets of their own."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    W = _randn(gen, cuda_device, 50, 101_770)
+    gw = _randn(gen, cuda_device, 101_770)
+    want = ops.cosine_partials(W, gw)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for _ in range(10):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(ops.cosine_partials(W, gw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for o in outs for a, b in zip(want, o))
+
+
+def test_cosine_partials_launches_one_kernel(cuda_device):
+    """One launch per call: the last block folds the partials."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    W = _randn(gen, cuda_device, 8, 101_770)
+    gw = _randn(gen, cuda_device, 101_770)
+    ops.cosine_partials(W, gw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.cosine_partials(W, gw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "cosine_partials" in kernels[0], kernels
+
+
 def test_kernels_bit_identical_on_repeat(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     W = _randn(gen, cuda_device, 8, 101_770)
@@ -204,6 +276,76 @@ def test_wkv6_matches_plain(cuda_device, B, S, H, K):
     torch.testing.assert_close(sf, rsf, **WKV6)
     again = ops.wkv6_recurrence(*args)
     assert torch.equal(o, again[0]) and torch.equal(sf, again[1])
+
+
+def _low_decay(gen, dev, B, S, H, K):
+    """w log-uniform from 1e-30 up to 0.999: the model's exp(-exp(.)) can
+    come that close to 0."""
+    lo, hi = math.log(1e-30), math.log(0.999)
+    return torch.exp(lo + (hi - lo) * torch.rand(B, S, H, K, generator=gen,
+                                                 device=dev))
+
+
+# every head size; S below, at and past one staged chunk of T steps and
+# past two (the ring's ragged last chunk); B·H = 15, so the grid does not
+# divide the 132 SMs evenly
+@pytest.mark.parametrize("decay", ["mid", "low"])
+@pytest.mark.parametrize("s_of_t", ["1", "T-1", "T", "T+1", "2T+3"])
+@pytest.mark.parametrize("K", [8, 16, 32, 64])
+def test_wkv6_chunks_and_decays(cuda_device, K, s_of_t, decay):
+    from repro_torch.kernels.wkv6 import launch_shape
+    T = launch_shape(3, 5, K).t
+    S = {"1": 1, "T-1": T - 1, "T": T, "T+1": T + 1, "2T+3": 2 * T + 3}[s_of_t]
+    B, H = 3, 5
+    gen = torch.Generator(device=cuda_device).manual_seed(K * 100 + S)
+    r, k, v, w, u, s0 = _wkv6_inputs(gen, cuda_device, B, S, H, K)
+    if decay == "low":
+        w = _low_decay(gen, cuda_device, B, S, H, K)
+    o, sf = ops.wkv6_recurrence(r, k, v, w, u, s0)
+    ro, rsf = tref.wkv6_recurrence_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, ro, **WKV6)
+    torch.testing.assert_close(sf, rsf, **WKV6)
+    again = ops.wkv6_recurrence(r, k, v, w, u, s0)
+    assert torch.equal(o, again[0]) and torch.equal(sf, again[1])
+
+
+def test_wkv6_bits_do_not_depend_on_the_batch(cuda_device):
+    """One (b, h) slice gives the same bits alone (B = 1) as inside B = 5:
+    the grid changes, the order of sums does not."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    B, S, H, K = 5, 45, 4, 64
+    r, k, v, w, u, s0 = _wkv6_inputs(gen, cuda_device, B, S, H, K)
+    o, sf = ops.wkv6_recurrence(r, k, v, w, u, s0)
+    for b in (0, 3):
+        one = [t[b:b + 1].contiguous() for t in (r, k, v, w)]
+        o1, s1 = ops.wkv6_recurrence(*one, u, s0[b:b + 1].contiguous())
+        assert torch.equal(o1[0], o[b]) and torch.equal(s1[0], sf[b])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_wkv6_reads_fused_projection_views(cuda_device, offset):
+    """r, k, v, w as slices of one (B, S, 4·H·K) projection (16-byte copies),
+    or of a buffer one float off (4-byte copies), give the bits of
+    contiguous copies."""
+    from repro_torch.kernels.wkv6 import copy_width
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    B, S, H, K = 2, 37, 4, 64
+    flat = _randn(gen, cuda_device, B * S * 4 * H * K + offset)
+    buf = flat[offset:].view(B, S, 4 * H * K)
+    r, k, v, w = (t.view(B, S, H, K) for t in buf.split(H * K, dim=2))
+    w.copy_(torch.sigmoid(w))
+    u = _randn(gen, cuda_device, H, K)
+    s0 = 0.1 * _randn(gen, cuda_device, B, H, K, K)
+    assert not r.is_contiguous()
+    want = 1 if offset else 4
+    assert copy_width([t.data_ptr() for t in (r, k, v, w)], r.stride(),
+                      r.shape) == want
+    o, sf = ops.wkv6_recurrence(r, k, v, w, u, s0)
+    o2, s2 = ops.wkv6_recurrence(*(t.contiguous() for t in (r, k, v, w)),
+                                 u, s0)
+    assert torch.equal(o, o2) and torch.equal(sf, s2)
+    ro, rsf = tref.wkv6_recurrence_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, ro, **WKV6)
 
 
 def test_wkv6_reads_strided_inputs(cuda_device):

@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Time the port's wkv6 and cosine-partials kernels of two checkouts on one
+card, in turns (A, B, B, A), so two versions are compared inside one run.
+
+    python3 tools/kernel_ab.py ROOT_A ROOT_B [--json FILE]
+
+Each ROOT is the root of a checkout of this repository (for instance the
+parent commit unpacked with ``git archive`` into ``build/parent``). Every
+turn is a fresh process that puts ROOT/src first on the path, builds that
+checkout's kernels from its own sources, and times each kernel with
+``chip_smoke.graph_time_us`` (CUDA events over CUDA-graph replays, median
+of 50) at the shapes ``chip_smoke.py`` uses, beside its largest absolute
+difference from the checkout's plain version. It prints one line per
+kernel and shape with the four values, and the card's ``nvidia-smi``
+line. Needs one CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+COSINE_SHAPES = ((8, 101_770), (50, 101_770))
+
+
+def time_checkout(root: Path) -> dict:
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ref
+    assert Path(_build.__file__).resolve().is_relative_to(root.resolve())
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for B, S, H, K in cs.WKV6_SHAPES:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        args = (randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, K),
+                0.2 + 0.79 * torch.rand(B, S, H, K, generator=gen,
+                                        device=dev),
+                randn(H, K), 0.1 * randn(B, H, K, K))
+        got = ops.wkv6_recurrence(*args)
+        want = ref.wkv6_recurrence_ref(*args)
+        out[f"wkv6 {(B, S, H, K)} max_abs_err"] = max(
+            float((a - b).abs().max()) for a, b in zip(got, want))
+        out[f"wkv6 {(B, S, H, K)}"] = cs.graph_time_us(
+            lambda: ops.wkv6_recurrence(*args))
+    for N, D in COSINE_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            W = torch.randn(N, D, generator=gen, device=dev).to(dt)
+            gw = torch.randn(D, generator=gen, device=dev).to(dt)
+            tag = f"cosine_partials {(N, D)} {str(dt).split('.')[-1]}"
+            got = ops.cosine_partials(W, gw)
+            want = ref.cosine_partials_ref(W, gw)
+            out[f"{tag} max_abs_err"] = max(
+                float((a - b).abs().max()) for a, b in zip(got, want))
+            out[tag] = cs.graph_time_us(lambda: ops.cosine_partials(W, gw))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("roots", nargs="*", type=Path)
+    ap.add_argument("--json", type=Path)
+    ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.one is not None:
+        print(json.dumps(time_checkout(a.one)))
+        return 0
+    if len(a.roots) != 2:
+        ap.error("give two checkout roots, A and B")
+    turns = []
+    for label, root in (("A", a.roots[0]), ("B", a.roots[1]),
+                        ("B", a.roots[1]), ("A", a.roots[0])):
+        res = subprocess.run([sys.executable, __file__, "--one", str(root)],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        turns.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    table = {}
+    for key in turns[0][1]:
+        table[key] = {"A": [t[key] for lab, t in turns if lab == "A"],
+                      "B": [t[key] for lab, t in turns if lab == "B"]}
+        unit = "" if key.endswith("max_abs_err") else " us"
+        print(f"{key}: A {table[key]['A']}{unit}, B {table[key]['B']}{unit}",
+              flush=True)
+    print(smi)
+    if a.json:
+        a.json.parent.mkdir(parents=True, exist_ok=True)
+        a.json.write_text(json.dumps({"card": smi, "A": str(a.roots[0]),
+                                      "B": str(a.roots[1]),
+                                      "times": table}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
