@@ -64,7 +64,33 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     (one flash launch per layer), and a profile of decode steps;
 12. dense serving agreement: phase 9 for the reduced Yi-6B and the
     reduced StarCoder2-3B (GQA and random QKV biases), the prompt through
-    ``prefill`` and the KV cache grown as the engine grows it.
+    ``prefill`` and the KV cache grown as the engine grows it;
+13. wkv6 backward kernel: the training forward (it saves the state every
+    16 steps) and the backward kernels at RWKV-6 1.6B's training shape
+    (8, 512, 32, 64), the tiny LM's (8, 16, 2, 32) and across chunk
+    edges, against the plain backward on the card, bit-identical on
+    repeat, timed beside the plain version and the byte/operation bound;
+14. flash backward kernels: at Yi-6B's (8, 512, 32, 4, 128) in bfloat16
+    and float32, the tiny LM's (8, 16, 2, 2, 32) and a 256-key window,
+    against the plain backward on the card, bit-identical on repeat,
+    timed beside the plain version, the bound and the backward of
+    ``scaled_dot_product_attention`` (the library yardstick);
+15. LM rounds: ``run_bhfl(model="rwkv6")`` and ``run_bhfl(model=
+    "transformer")`` on the card at the defaults (6 nodes x 4 clients, 2
+    FEL iterations, 256 x 16 tokens), 2 rounds each: valid chain of
+    height 2, finite losses, and each model kernel launched once a layer
+    per SGD step forward and backward (forward also once a layer per
+    evaluation);
+16. full-width FedSGD, right after phases 8 and 11 on their weights:
+    ``LMAdapter.local_train`` on one client of 8 rows x 513 tokens,
+    batch 4 (two SGD steps): RWKV-6 1.6B at full depth, Yi-6B at full width and 16 of
+    its 32 layers (its bfloat16 weights come out of the first step in
+    float32, as in the reference, so full depth needs more than the
+    card's 80 GB); finite loss, one forward and one backward launch a
+    layer per step, the peak memory;
+17. card against CPU gradients: ``Model.loss`` gradients of the tiny
+    RWKV-6 (1 layer, d_model 64, 2 heads of 32) and the tiny dense
+    transformer, the same weights on both, within the bfloat16 rule.
 
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
@@ -117,6 +143,24 @@ FLASH_CASES = ((8, 57, 32, 4, 128, "bfloat16", True, 0),
 # (tests/test_kernels.py:19-21, 141-179)
 FLASH_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
              "float32": dict(rtol=2e-5, atol=2e-5)}
+# the backward kernels against the plain backward versions
+# (tests/test_torch_kernels_cuda.py): wkv6 float32 sums over K and the
+# walk in another order; flash float32 the same, bfloat16 one rounding of
+# a float32 result
+WKV6_BWD_SHAPES = ((8, 512, 32, 64), (8, 16, 2, 32), (2, 17, 3, 64),
+                   (2, 33, 3, 16))
+WKV6_GRAD_TOL = dict(rtol=1e-4, atol=1e-3)
+FLASH_BWD_CASES = ((8, 512, 32, 4, 128, "bfloat16", True, 0),
+                   (8, 512, 32, 4, 128, "float32", True, 0),
+                   (8, 16, 2, 2, 32, "bfloat16", True, 0),
+                   (1, 1000, 8, 2, 64, "bfloat16", True, 256))
+FLASH_GRAD_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
+                  "float32": dict(rtol=1e-4, atol=1e-4)}
+LM_ROUNDS = 2
+# full-width FedSGD: (arch, layers trained) on one client of 8 x 513
+# tokens at batch 4
+FEDSGD = {"rwkv6-1.6b": None, "yi-6b": 16}
+FEDSGD_ROWS, FEDSGD_SEQ, FEDSGD_BATCH = 8, 512, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -612,12 +656,13 @@ def n_elements(tree) -> int:
                for v in tree.values())
 
 
-def phase_serving(dev, arch: str, kernel: str) -> dict:
+def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
     """``arch`` at full width behind ``ServingEngine.generate``, twice, the
     launches of ``kernel`` counted in each run; then a forward over
     (8, 512) tokens and a profile of decode steps. A recurrent model
     launches its kernel once per layer in every prompt-replay and decode
-    step; a transformer once per layer in its one prefill."""
+    step; a transformer once per layer in its one prefill. ``then(model,
+    params)``, if given, runs last, on the served weights."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -739,8 +784,11 @@ def phase_serving(dev, arch: str, kernel: str) -> dict:
                "decode_busy_share": share, "decode_top_us": top,
                "first_tokens": runs[0]["tokens"][0][:8]}
     print("serving " + json.dumps(summary), flush=True)
-    return {"launches": runs[0]["counts"][kernel],
-            "forward_launches": fwd_launches}
+    out = {"launches": runs[0]["counts"][kernel],
+           "forward_launches": fwd_launches}
+    if then is not None:
+        out["then"] = then(model, params)
+    return out
 
 
 def teacher_forced(model, params, reqs, forced):
@@ -779,8 +827,8 @@ def teacher_forced(model, params, reqs, forced):
     return torch.stack(out, 1)
 
 
-def to_cpu(tree):
-    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+def tree_to(tree, dev):
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
 
 
@@ -803,7 +851,7 @@ def phase_serving_agreement(dev, arch: str) -> None:
         if b in attn:
             attn[b] = torch.randn(attn[b].shape, generator=gen, device=dev
                                   ).to(attn[b].dtype)
-    cpu_params = to_cpu(params)
+    cpu_params = tree_to(params, "cpu")
     reqs = serving_requests(cfg.vocab_size)
     done = ServingEngine(cpu, cpu_params, device="cpu").generate(reqs)
     forced = np.asarray([c.tokens for c in done], np.int32)
@@ -920,6 +968,364 @@ def phase_flash(dev) -> list:
     return rows
 
 
+
+def wkv6_bwd_bound_us(B: int, S: int, H: int, K: int) -> tuple[float, str]:
+    """Read r, k, v, w, dO, u and dS_T once, write dr, dk, dv, dw, du and
+    ds0 once; 11 float32 operations per state entry and step, the fewest
+    the gradient needs: one multiply-add each for dr, dk, dv and dw, and a
+    multiply and a multiply-add for dS <- w dS + r dO^T."""
+    n_bytes = 4 * (9 * B * S * H * K + 2 * H * K + 2 * B * H * K * K)
+    return bound_us(n_bytes, 11.0 * B * H * S * K * K)
+
+
+def check_wkv6_backward(gen, dev, B: int, S: int, H: int, K: int) -> dict:
+    import torch
+    from repro_torch.kernels import wkv6 as kw
+    from repro_torch.kernels.ref import wkv6_backward_ref
+    tag = f"wkv6 backward {(B, S, H, K)}"
+    args = wkv6_inputs(gen, dev, B, S, H, K, "mid")
+    d_o = torch.randn(B, S, H, K, generator=gen, device=dev)
+    d_state = 0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
+    _, _, ckpt = kw._forward(*args, save=True)
+
+    def kernel():
+        return kw.wkv6_backward(*args, d_o, d_state, ckpt)
+
+    out, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    ref = wkv6_backward_ref(*args, d_o, d_state)
+    bit = all(torch.equal(a, b) for a, b in zip(out, again))
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    check(bit, f"{tag}: two launches on one input differ")
+    check(all(torch.allclose(a, b, **WKV6_GRAD_TOL) for a, b in zip(out, ref)),
+          f"{tag}: disagrees with wkv6_backward_ref (max abs err {err})")
+    plain_reps = dict(reps=1, samples=3) if S > 64 else {}
+    return entry(
+        "wkv6_backward", "src/repro_torch/kernels/csrc/wkv6.cu",
+        "src/repro/models/rwkv6.py:141 (jax.grad of lax.scan; the "
+        "reference has no Pallas backward; forward src/repro/kernels/"
+        "wkv6.py:29)", args[0], err, bit,
+        graph_time_us(kernel),
+        graph_time_us(lambda: wkv6_backward_ref(*args, d_o, d_state),
+                      **plain_reps),
+        wkv6_bwd_bound_us(B, S, H, K), None,
+        call_time_us(kernel),
+        forward_save_us=graph_time_us(lambda: kw._forward(*args, save=True)),
+        library_call="none: no single PyTorch call computes the WKV6 "
+                     "gradient")
+
+
+def phase_wkv6_backward(dev) -> list:
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for shape in WKV6_BWD_SHAPES:
+        row = check_wkv6_backward(gen, dev, *shape)
+        print(f"kernel wkv6_backward {row['shape']} float32: max_abs_err "
+              f"{row['max_abs_err']:.3e} bit-identical "
+              f"{row['bit_identical']} | kernel {row['kernel_us']:.2f} us "
+              f"(training forward {row['forward_save_us']:.2f} us), plain "
+              f"{row['plain_us']:.2f} us, bound {row['bound_us']:.2f} us "
+              f"({row['bound_by']}), eager call {row['call_us']:.2f} us",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def unmasked_pairs(S: int, causal: bool, window: int) -> int:
+    pairs = 0
+    for qpos in range(S):
+        hi = qpos + 1 if causal else S
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo)
+    return pairs
+
+
+def flash_bwd_bound_us(B: int, S: int, Hq: int, Hk: int, hd: int,
+                       size: int, causal: bool, window: int,
+                       flop_per_s: float) -> tuple[float, str]:
+    """Read q, k, v, o, dO and L once, write dq, dk, dv once; 10·hd
+    operations for each unmasked (q, k) pair: five products over hd
+    (Q·Kᵀ again, dO·Vᵀ, dV, dQ, dK), a multiply-add a dim each."""
+    n_bytes = (4 * B * S * Hq * hd + 4 * B * S * Hk * hd) * size \
+        + 4 * B * Hq * S
+    return bound_us(n_bytes, 10.0 * hd * B * Hq *
+                    unmasked_pairs(S, causal, window), flop_per_s)
+
+
+def check_flash_backward(gen, dev, B: int, S: int, Hq: int, Hk: int,
+                         hd: int, dtype_name: str, causal: bool,
+                         window: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_backward_ref
+    dtype = getattr(torch, dtype_name)
+    q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+    d_o = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
+    o, lse = kf._forward(q, k, v, causal, window, want_lse=True)
+    kw = dict(causal=causal, window=window)
+
+    def kernel():
+        return kf.flash_attention_backward(q, k, v, o, lse, d_o, **kw)
+
+    out, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    ref = flash_attention_backward_ref(q, k, v, o, lse, d_o, **kw)
+    bit = all(torch.equal(a, b) for a, b in zip(out, again))
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(out, ref))
+    tag = f"flash backward {(B, S, Hq, Hk, hd)} {dtype_name} causal " \
+          f"{causal} window {window}"
+    check(bit, f"{tag}: two launches on one input differ")
+    check(all(torch.allclose(a.float(), b.float(),
+                             **FLASH_GRAD_TOL[dtype_name])
+              for a, b in zip(out, ref)),
+          f"{tag}: disagrees with flash_attention_backward_ref (max abs err "
+          f"{err})")
+    # the library yardstick: the backward of one SDPA call (its graph
+    # kept), timed eagerly with CUDA events
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    mask = None
+    if window > 0:
+        pos = torch.arange(S, device=dev)
+        mask = pos[None, :] > pos[:, None] - window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+    sdpa_out = F.scaled_dot_product_attention(
+        *leaves, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+    d_ot = d_o.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(sdpa_out, leaves, d_ot, retain_graph=True)
+
+    # the library rounds P and dS to bfloat16 for its products: held to
+    # the plain version by the relative norm of the difference
+    lib_err = max(float(torch.linalg.vector_norm(
+        a.transpose(1, 2).float() - b.float())
+        / torch.linalg.vector_norm(b.float()))
+        for a, b in zip(library(), ref))
+    check(lib_err <= 2e-2,
+          f"{tag}: the SDPA backward yardstick does not compute the same "
+          f"function (relative error {lib_err})")
+    plain_reps = dict(reps=2, samples=5) if S * S * B * Hq > 1 << 24 else {}
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return entry(
+        "flash_attention_backward",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/models/layers.py:79 (jax.grad of blockwise_attention; "
+        "the reference has no Pallas backward; forward src/repro/kernels/"
+        "flash_attention.py:22)", q, err, bit,
+        graph_time_us(kernel),
+        graph_time_us(lambda: flash_attention_backward_ref(
+            q, k, v, o, lse, d_o, **kw), **plain_reps),
+        flash_bwd_bound_us(B, S, Hq, Hk, hd, q.element_size(), causal,
+                           window, peak),
+        call_time_us(library), call_time_us(kernel),
+        kv_heads=Hk, causal=causal, window=window,
+        library_relative_err=lib_err,
+        forward_lse_us=graph_time_us(
+            lambda: kf._forward(q, k, v, causal, window, want_lse=True)),
+        library_call="the backward of torch.nn.functional."
+                     "scaled_dot_product_attention(enable_gqa=True), eager "
+                     "(CUDA events around one call)")
+
+
+def phase_flash_backward(dev) -> list:
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for case in FLASH_BWD_CASES:
+        row = check_flash_backward(gen, dev, *case)
+        print(f"kernel flash_attention_backward {row['shape']} Hk "
+              f"{row['kv_heads']} {row['dtype']} causal {row['causal']} "
+              f"window {row['window']}: max_abs_err {row['max_abs_err']:.3e}"
+              f" bit-identical {row['bit_identical']} | kernel "
+              f"{row['kernel_us']:.2f} us (training forward "
+              f"{row['forward_lse_us']:.2f} us), plain {row['plain_us']:.2f}"
+              f" us, library {row['library_us']:.2f} us, bound "
+              f"{row['bound_us']:.2f} us ({row['bound_by']}), eager call "
+              f"{row['call_us']:.2f} us", flush=True)
+        rows.append(row)
+    return rows
+
+
+def sgd_steps(runtime, batch: int) -> int:
+    """SGD steps of one round: every non-empty client, every FEL
+    iteration, floor(n / min(batch, n)) steps each."""
+    per_iter = sum(c.data_size // min(batch, c.data_size)
+                   for cl in runtime.clusters for c in cl.clients
+                   if c.data_size)
+    return per_iter * runtime.cfg.fel_iterations
+
+
+def phase_lm_rounds(dev) -> dict:
+    """``run_bhfl(model=...)`` for both LM families on the card at the
+    defaults: launch counts, chain and the round's spans."""
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.obs import TraceRecorder, use_recorder
+    out = {}
+    for model, kernel in (("rwkv6", "wkv6"), ("transformer",
+                                              "flash_attention")):
+        rec = TraceRecorder(f"lm_{model}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with use_recorder(rec):
+            run = api.run_bhfl(model=model, rounds=LM_ROUNDS, seed=0,
+                               device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        adapter = run.runtime.adapter
+        layers = adapter.arch.n_layers
+        steps = LM_ROUNDS * sgd_steps(run.runtime, adapter.batch_size)
+        tag = f"LM round {model}"
+        check(run.chain_valid, f"{tag}: chain does not verify")
+        check(run.chain_height == LM_ROUNDS,
+              f"{tag}: chain height {run.chain_height} != {LM_ROUNDS}")
+        check(all(math.isfinite(m.test_loss) for m in run.history),
+              f"{tag}: non-finite test loss")
+        check(counts[kernel + "_backward"] == layers * steps,
+              f"{tag}: {kernel}_backward launched "
+              f"{counts[kernel + '_backward']} times, want {layers} layers x "
+              f"{steps} SGD steps")
+        check(counts[kernel] == layers * (steps + LM_ROUNDS),
+              f"{tag}: {kernel} launched {counts[kernel]} times, want "
+              f"{layers} layers x ({steps} SGD steps + {LM_ROUNDS} "
+              f"evaluations)")
+        per_round = {}
+        for sp in rec.spans:
+            if sp.round is None:
+                continue
+            d = per_round.setdefault(sp.round, {})
+            d[sp.name] = d.get(sp.name, 0.0) + sp.wall_dur * 1e3
+        for k in sorted(per_round):
+            m = run.history[k]
+            print(f"{tag} {k}: wall {per_round[k]['round']:.1f} ms, fel "
+                  f"{per_round[k]['fel']:.1f} ms, consensus "
+                  f"{per_round[k].get('consensus', float('nan')):.1f} ms, "
+                  f"leader {m.leader_id}, loss {m.test_loss:.4f}, acc "
+                  f"{m.test_accuracy:.4f}", flush=True)
+        out[model] = {"wall_s": wall, "launches": counts,
+                      "sgd_steps": steps, "layers": layers,
+                      "leaders": [m.leader_id for m in run.history],
+                      "test_loss": [m.test_loss for m in run.history],
+                      "round_ms": {str(k): v for k, v in per_round.items()}}
+        print(f"{tag}: {LM_ROUNDS} rounds in {wall:.2f} s, {steps} SGD "
+              f"steps, {kernel} {counts[kernel]} and {kernel}_backward "
+              f"{counts[kernel + '_backward']} launches", flush=True)
+    print("lm_rounds " + json.dumps(out), flush=True)
+    return out
+
+
+def fedsgd(arch: str, kernel: str, layers_cut):
+    """The full-width FedSGD phase on the served weights (``phase_serving``
+    hands them over): one client of 8 x 513 tokens, batch 4, two SGD
+    steps; ``layers_cut`` trains the first that many layers only."""
+    def run(model, params):
+        import dataclasses
+        import numpy as np
+        import torch
+        from repro_torch.data.tokens import TokenDataset
+        from repro_torch.fl.adapters import LMAdapter
+        from repro_torch.fl.client import Client
+        from repro_torch.kernels import ops
+        cfg = model.cfg
+        if layers_cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers_cut)
+            params = {**params, "layers": {
+                k: ({n: t[:layers_cut] for n, t in v.items()}
+                    if isinstance(v, dict) else v[:layers_cut])
+                for k, v in params["layers"].items()}}
+        adapter = LMAdapter(cfg, batch_size=FEDSGD_BATCH, device=model.device)
+        rows = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (FEDSGD_ROWS, FEDSGD_SEQ + 1)).astype(np.int32)
+        client = Client(0, TokenDataset(rows, cfg.vocab_size))
+        steps = FEDSGD_ROWS // FEDSGD_BATCH
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, loss = adapter.local_train(params, client, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tag = f"FedSGD {arch} ({cfg.n_layers} layers)"
+        check(math.isfinite(loss), f"{tag}: loss {loss}")
+        check(counts[kernel + "_backward"] == cfg.n_layers * steps,
+              f"{tag}: {kernel}_backward launched "
+              f"{counts[kernel + '_backward']} times, want {cfg.n_layers} x "
+              f"{steps}")
+        check(counts[kernel] == cfg.n_layers * steps,
+              f"{tag}: {kernel} launched {counts[kernel]} times, want "
+              f"{cfg.n_layers} x {steps}")
+        emb = new["embed"]
+        check(emb.dtype == torch.float32 and bool(torch.isfinite(emb).all()),
+              f"{tag}: embed after training is {emb.dtype} or not finite")
+        del new
+        torch.cuda.empty_cache()
+        res = {"arch": arch, "layers": cfg.n_layers, "batch": FEDSGD_BATCH,
+               "seq": FEDSGD_SEQ, "steps": steps, "loss": loss,
+               "wall_s": wall, "step_ms": wall / steps * 1e3,
+               "peak_gb": peak, "launches": counts}
+        print(f"{tag}, batch {FEDSGD_BATCH} x {FEDSGD_SEQ}: {steps} SGD steps"
+              f" in {wall * 1e3:.1f} ms ({wall / steps * 1e3:.1f} ms a step, "
+              f"the first with its set-up), loss {loss:.4f}, peak "
+              f"{peak:.2f} GB, {kernel} {counts[kernel]} and "
+              f"{kernel}_backward {counts[kernel + '_backward']} launches",
+              flush=True)
+        print("fedsgd " + json.dumps(res), flush=True)
+        return res
+    return run
+
+
+def phase_grad_agreement(dev) -> None:
+    """``Model.loss`` gradients through the kernels on the card against
+    the CPU's, the same weights: every parameter gets one, within the
+    bfloat16 rule relative to its scale s = max |g_cpu| (max diff
+    <= 0.125 s, mean <= 0.02 s)."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.adapters import (_flat, _nested, tiny_rwkv6_config,
+                                         tiny_transformer_config)
+    from repro_torch.models.model_api import Model
+    rows = np.random.default_rng(4).integers(0, 256, (4, 17))
+    batch = {"tokens": torch.from_numpy(rows[:, :-1]),
+             "labels": torch.from_numpy(rows[:, 1:])}
+    for cfg in (tiny_rwkv6_config(n_layers=1), tiny_transformer_config()):
+        cpu = Model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        grads = []
+        for model, p, b in ((Model(cfg, device=dev), tree_to(params, dev),
+                             tree_to(batch, dev)), (cpu, params, batch)):
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in _flat(p).items()}
+            loss = model.loss(_nested(leaves), b)
+            grads.append(dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values())))))
+        worst = 0.0
+        for name, gh in grads[1].items():
+            gc = grads[0][name].float().cpu()
+            scale = float(gh.float().abs().max())
+            diff = (gc - gh.float()).abs()
+            check(bool(torch.isfinite(gc).all())
+                  and float(diff.max()) <= 0.125 * scale
+                  and float(diff.mean()) <= 0.02 * scale,
+                  f"gradient agreement {cfg.name}: {name} differs by "
+                  f"{float(diff.max())} (mean {float(diff.mean())}, scale "
+                  f"{scale})")
+            worst = max(worst, float(diff.max()) / max(scale, 1e-30))
+        print(f"gradient agreement {cfg.name}: {len(grads[1])} parameters, "
+              f"worst max diff {worst:.4f} of the gradient's scale",
+              flush=True)
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -954,22 +1360,47 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
     # 7. wkv6 kernel
     wkv_rows = phase_wkv6(dev)
-    # 8. RWKV-6 1.6B serving at full width
-    served = phase_serving(dev, "rwkv6-1.6b", "wkv6")
+    # 8. RWKV-6 1.6B serving at full width, then (16) FedSGD on its weights
+    served = phase_serving(dev, "rwkv6-1.6b", "wkv6",
+                           then=fedsgd("rwkv6-1.6b", "wkv6",
+                                       FEDSGD["rwkv6-1.6b"]))
+    fed = {"wkv6": served.pop("then")}
     for row in wkv_rows:
         row.update(served)
     # 9. the served model on the card against the CPU
     phase_serving_agreement(dev, "rwkv6-1.6b")
     # 10. flash kernel
     flash_rows = phase_flash(dev)
-    # 11. Yi-6B serving at full width
-    served = phase_serving(dev, "yi-6b", "flash_attention")
+    # 11. Yi-6B serving at full width, then (16) FedSGD on its weights
+    served = phase_serving(dev, "yi-6b", "flash_attention",
+                           then=fedsgd("yi-6b", "flash_attention",
+                                       FEDSGD["yi-6b"]))
+    fed["flash_attention"] = served.pop("then")
     for row in flash_rows:
         row.update(served)
     # 12. the dense models on the card against the CPU
     for arch in ("yi-6b", "starcoder2-3b"):
         phase_serving_agreement(dev, arch)
-    print(json.dumps({"kernels": rows + wkv_rows + flash_rows}), flush=True)
+    # 13-14. the backward kernels
+    wkv_bwd_rows = phase_wkv6_backward(dev)
+    flash_bwd_rows = phase_flash_backward(dev)
+    # 15. the LM rounds: the backward kernels' launches are this path's
+    lm = phase_lm_rounds(dev)
+    for bwd_rows, model, kernel in (
+            (wkv_bwd_rows, "rwkv6", "wkv6_backward"),
+            (flash_bwd_rows, "transformer", "flash_attention_backward")):
+        for row in bwd_rows:
+            row["launches"] = lm[model]["launches"][kernel]
+    # 16 ran after 8 and 11: its launches beside the kernels' rows
+    for kernel, bwd_rows in (("wkv6", wkv_bwd_rows),
+                             ("flash_attention", flash_bwd_rows)):
+        for row in bwd_rows:
+            row["fedsgd_launches"] = \
+                fed[kernel]["launches"][kernel + "_backward"]
+    # 17. gradients on the card against the CPU
+    phase_grad_agreement(dev)
+    print(json.dumps({"kernels": rows + wkv_rows + flash_rows + wkv_bwd_rows
+                      + flash_bwd_rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,20 @@
 """``repro_torch.api`` — the facade over the port's BHFL system (§3.1).
 
-Port of ``repro.api.run_bhfl`` for the paper's MNIST MLP in the ideal
-setting (no scenario, no faults, one committee):
+Port of ``repro.api.run_bhfl`` in the ideal setting (no scenario, no
+faults, one committee), for the paper's MNIST MLP and the LM families:
 
     from repro_torch import api
 
     run = api.run_bhfl(model="mlp", n_nodes=8, clients_per_node=5,
                        fel_iterations=3, rounds=3, seed=0)   # on the card
     run.chain_valid, run.chain_height, run.history[-1].test_accuracy
+    api.run_bhfl(model="rwkv6", rounds=2)          # or "transformer"
 
 One call publishes the task, negotiates it (Stackelberg), partitions the
 data into the FEL hierarchy, and runs PoFEL rounds on ``device`` — the
 CUDA card unless the caller passes ``device="cpu"``. The simulator
-(``scenario=``, ``faults=``), the sharded consortium (``committees`` > 1)
-and the LM families are not ported yet and raise ``NotImplementedError``.
+(``scenario=``, ``faults=``) and the sharded consortium (``committees``
+> 1) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ from repro_torch import resolve_device
 from repro_torch.core.btsv import BTSVConfig
 from repro_torch.core.consensus import ConsensusRecord, PoFELConsensus
 from repro_torch.data.synthetic import make_mnist_like
-from repro_torch.fl.adapters import MLPAdapter, params_from_jax
+from repro_torch.data.tokens import TokenDataset, make_token_dataset
+from repro_torch.fl.adapters import (LMAdapter, MLPAdapter, ModelAdapter,
+                                     make_adapter, params_from_jax,
+                                     rwkv6_adapter, transformer_adapter)
 from repro_torch.fl.hfl_runtime import (AllNodesPlagiarizeError, BHFLConfig,
                                         BHFLRuntime, RoundMetrics)
 from repro_torch.fl.hierarchy import build_hierarchy
@@ -41,9 +45,11 @@ __all__ = [
     "run_bhfl", "BHFLRun",
     "LearningTask", "TaskAgreement", "RewardLedger", "negotiate_task",
     "BHFLConfig", "BHFLRuntime", "RoundMetrics", "build_hierarchy",
-    "MLPAdapter", "params_from_jax",
+    "MLPAdapter", "LMAdapter", "ModelAdapter", "make_adapter",
+    "transformer_adapter", "rwkv6_adapter", "params_from_jax",
     "PoFELConsensus", "ConsensusRecord", "BTSVConfig",
-    "AllNodesPlagiarizeError", "make_mnist_like",
+    "AllNodesPlagiarizeError", "make_mnist_like", "make_token_dataset",
+    "TokenDataset",
 ]
 
 
@@ -115,7 +121,7 @@ def _check_overrides(overrides: Dict[str, Any], cfg_given: bool) -> None:
             f"explicit cfg=; set them on the BHFLConfig instead")
 
 
-def _check_ported(model: Any, scenario: Any, faults: Any,
+def _check_ported(scenario: Any, faults: Any,
                   committees: Optional[int]) -> None:
     if scenario is not None or faults is not None:
         raise NotImplementedError(
@@ -125,20 +131,19 @@ def _check_ported(model: Any, scenario: Any, faults: Any,
         raise NotImplementedError(
             "committees > 1 needs the sharded consortium, which is not "
             "ported yet (ROADMAP Queue 1 item 10, consortium)")
-    if isinstance(model, str) and model != "mlp":
-        if model in ("transformer", "rwkv6"):
-            raise NotImplementedError(
-                f"the {model!r} LM family is not ported yet (ROADMAP "
-                f"Queue 1 item 11, LM families)")
-        raise ValueError(f"unknown model {model!r}; the port has 'mlp' "
-                         f"or an MLPAdapter instance")
-    if not isinstance(model, (str, MLPAdapter)):
-        raise TypeError(f"model must be 'mlp' or an MLPAdapter, got "
-                        f"{type(model).__name__}")
+
+
+def _default_data(adapter: ModelAdapter, seed: int) -> Tuple[Any, Any]:
+    """Per-family synthetic (train, test) when the caller brings no data."""
+    if isinstance(adapter, LMAdapter):
+        return make_token_dataset(n_seqs=256, seq_len=16,
+                                  vocab_size=adapter.arch.vocab_size,
+                                  seed=seed)
+    return make_mnist_like(n_train=4000, n_test=600, seed=seed)
 
 
 def run_bhfl(task: Optional[LearningTask] = None,
-             model: "str | MLPAdapter" = "mlp",
+             model: "str | ModelAdapter" = "mlp",
              data: Optional[Tuple[Any, Any]] = None,
              *,
              cfg: Optional[BHFLConfig] = None,
@@ -164,12 +169,16 @@ def run_bhfl(task: Optional[LearningTask] = None,
 
     Arguments follow ``repro.api.run_bhfl``; ``device`` picks where the
     models train and ME runs (``None`` is the CUDA card and raises if
-    there is none; ``"cpu"`` runs on the CPU). ``model`` is ``"mlp"`` or
-    an :class:`MLPAdapter` on ``device``; data defaults to
-    ``make_mnist_like(4000, 600, seed)``.
+    there is none; ``"cpu"`` runs on the CPU). ``model`` is ``"mlp"``
+    (trained with ``cfg``'s §7.1 hyperparameters), ``"transformer"`` or
+    ``"rwkv6"`` (the CPU-scale LM adapters with their own LM defaults and
+    the vocab of the caller's token data), or an adapter on ``device``.
+    Data defaults to ``make_mnist_like(4000, 600, seed)`` for the MLP and
+    ``make_token_dataset(256, 16, vocab, seed)`` for an LM; token data
+    takes the "iid" distribution only.
     """
     _check_overrides(overrides, cfg_given=cfg is not None)
-    _check_ported(model, scenario, faults, committees)
+    _check_ported(scenario, faults, committees)
     device = resolve_device(device)
     if cfg is None:
         cfg = BHFLConfig(n_nodes=n_nodes if n_nodes is not None else 6,
@@ -194,7 +203,25 @@ def run_bhfl(task: Optional[LearningTask] = None,
         cfg = dataclasses.replace(cfg, **overrides)
     n_nodes = cfg.n_nodes
     seed = cfg.seed     # one seed governs data, gamma draws, and init
-    adapter = model if isinstance(model, MLPAdapter) else None
+
+    # resolve the adapter. BHFLConfig's training fields are the paper's
+    # MLP hyperparameters, so they drive the MLP adapter only; named LM
+    # adapters keep their own LM-tuned defaults (customize by passing an
+    # adapter instance) and size their vocab from the caller's token data.
+    if model == "mlp":
+        adapter: ModelAdapter = cfg.default_adapter(device)
+    elif isinstance(model, str):
+        lm_kwargs: Dict[str, Any] = {"device": device}
+        if data is not None and hasattr(data[0], "vocab_size"):
+            lm_kwargs["vocab_size"] = data[0].vocab_size
+        adapter = make_adapter(model, **lm_kwargs)
+    else:
+        adapter = make_adapter(model)
+    if (isinstance(adapter, LMAdapter) and data is not None
+            and getattr(data[0], "vocab_size", 0) > adapter.arch.vocab_size):
+        raise ValueError(
+            f"data vocab_size {data[0].vocab_size} exceeds the adapter's "
+            f"{adapter.arch.vocab_size} — token ids would clamp silently")
 
     max_rounds = rounds if rounds is not None else (
         task.max_rounds if task is not None else 10)
@@ -214,8 +241,13 @@ def run_bhfl(task: Optional[LearningTask] = None,
 
     # 3. hierarchy over (possibly synthesized) data
     if data is None:
-        data = make_mnist_like(n_train=4000, n_test=600, seed=seed)
+        data = _default_data(adapter, seed)
     train, test = data
+    if distribution != "iid" and not hasattr(train, "n_classes"):
+        raise ValueError(
+            f"distribution={distribution!r} needs labelled image data "
+            f"(.y/.n_classes); {type(train).__name__} workloads support "
+            f"'iid' only")
     clusters = build_hierarchy(train, n_nodes, cfg.clients_per_node,
                                distribution, seed=seed)
 

@@ -1,2 +1,3 @@
-"""Synthetic MNIST-like data and client partitioners (numpy copies of
-``repro.data.synthetic`` and ``repro.data.partition``)."""
+"""Synthetic data and client partitioners (numpy copies of
+``repro.data.synthetic``, ``repro.data.partition`` and the dataset part of
+``repro.data.tokens``)."""

@@ -11,14 +11,30 @@ import torch
 
 
 def fedavg(models: Sequence[dict], weights: Sequence[float]) -> dict:
-    """Data-size-weighted average of parameter dicts, on their device."""
+    """Data-size-weighted average of parameter dicts (nested dicts
+    allowed), on their device; each leaf keeps the first model's dtype."""
     first = models[0]
-    device = next(iter(first.values())).device
+    device = next(iter(_leaves(first))).device
     w = torch.tensor([float(x) for x in weights], dtype=torch.float32,
                      device=device)
     w = w / torch.sum(w)
-    out = {}
-    for k, leaf in first.items():
-        stacked = torch.stack([m[k].to(torch.float32) for m in models])
-        out[k] = torch.einsum("n,n...->...", w, stacked).to(leaf.dtype)
-    return out
+
+    def avg(trees: Sequence[dict]) -> dict:
+        out = {}
+        for k, leaf in trees[0].items():
+            if isinstance(leaf, dict):
+                out[k] = avg([t[k] for t in trees])
+                continue
+            stacked = torch.stack([t[k].to(torch.float32) for t in trees])
+            out[k] = torch.einsum("n,n...->...", w, stacked).to(leaf.dtype)
+        return out
+
+    return avg(models)
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v

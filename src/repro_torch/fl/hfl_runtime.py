@@ -10,9 +10,12 @@ round k:
   3. the weighted global aggregate gw(k) (Eq. 1) becomes the next round's
      starting model, and the block is appended to every ledger.
 
-Models live on the runtime's ``device`` (the CUDA card unless the caller
-asks for the CPU); ME runs there through the port's kernels, and gw(k)
-is adopted there without a host roundtrip.
+The runtime is model-agnostic: a ``ModelAdapter`` (``repro_torch.fl.
+adapters``) supplies init / local-train / eval / flatten / unflatten, so
+the same consensus path drives the paper's MNIST MLP, a transformer or an
+RWKV-6 LM. Models live on the runtime's ``device`` (the CUDA card unless
+the caller asks for the CPU); ME runs there through the port's kernels,
+and gw(k) is adopted there without a host roundtrip.
 
 ``engine="auto"`` resolves to the reference engine, as the reference does
 for an adapter without a batched train spec; the batched in-graph engine
@@ -32,7 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.core.btsv import BTSVConfig
 from repro_torch.core.consensus import ConsensusRecord, PoFELConsensus
 from repro_torch.core.serialization import flatten_pytree
-from repro_torch.fl.adapters import MLPAdapter
+from repro_torch.fl.adapters import MLPAdapter, ModelAdapter
 from repro_torch.fl.fedavg import fedavg
 from repro_torch.fl.hierarchy import FELCluster
 from repro_torch.models.mlp import MLPConfig
@@ -83,6 +86,8 @@ class AllNodesPlagiarizeError(RuntimeError):
 class BHFLRuntime:
     """Drives FEL clusters + PoFEL consensus for a full learning task.
 
+    ``adapter`` chooses the model family (default: the paper's MNIST
+    MLP); the clusters' client datasets must match its batch format.
     ``device=None`` runs on the CUDA card and raises if there is none;
     pass ``device="cpu"`` to run on the CPU. A given ``adapter`` must
     live on the same device.
@@ -90,7 +95,7 @@ class BHFLRuntime:
 
     def __init__(self, clusters: List[FELCluster], cfg: BHFLConfig,
                  test_set: Optional[Any] = None,
-                 adapter: Optional[MLPAdapter] = None,
+                 adapter: Optional[ModelAdapter] = None,
                  device: Any = None):
         if len(clusters) != cfg.n_nodes:
             raise ValueError(f"{len(clusters)} clusters for "
@@ -114,8 +119,11 @@ class BHFLRuntime:
                              f"runtime on {self.device}")
         self.consensus = PoFELConsensus(cfg.n_nodes, cfg.btsv,
                                         g_max=cfg.g_max)
+        # the generator lives where the adapter draws its init: an LM on
+        # its device (Model.init refuses another), the MLP on the CPU
+        init_device = getattr(self.adapter, "init_device", self.device)
         self.global_params = self.adapter.init(
-            torch.Generator().manual_seed(cfg.seed))
+            torch.Generator(device=init_device).manual_seed(cfg.seed))
         self._check_adapter_layout()
         self.history: List[RoundMetrics] = []
         # adversaries: plagiarists copy an honest model in FEL, vote hooks

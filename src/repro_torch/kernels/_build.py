@@ -23,19 +23,27 @@ from pathlib import Path
 from typing import Callable, Dict, List
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# source name -> (C entry point, argtypes); pointers and the stream are
-# c_void_p so ctypes never cuts them to 32 bits
+# entry name -> (source, C entry point, argtypes); pointers and the stream
+# are c_void_p so ctypes never cuts them to 32 bits
 SIGNATURES = {
-    "cosine_partials": ("repro_cosine_partials",
+    "cosine_partials": ("cosine_partials", "repro_cosine_partials",
                         [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L,
                          _P]),
-    "weighted_agg": ("repro_weighted_agg", [_P, _I, _P, _P, _I, _L, _I, _P]),
-    "wkv6": ("repro_wkv6", [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P,
-                            *[_I] * 10, _P]),
-    "flash_attention": ("repro_flash_attention",
-                        [_P, _P, _P, _P, *[_L] * 9, *[_I] * 8, _P]),
+    "weighted_agg": ("weighted_agg", "repro_weighted_agg",
+                     [_P, _I, _P, _P, _I, _L, _I, _P]),
+    "wkv6": ("wkv6", "repro_wkv6",
+             [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, *[_I] * 10,
+              _P]),
+    "wkv6_backward": ("wkv6", "repro_wkv6_backward",
+                      [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
+                       *[_P] * 9, *[_I] * 5, _P]),
+    "flash_attention": ("flash_attention", "repro_flash_attention",
+                        [_P, _P, _P, _P, _P, *[_L] * 9, *[_I] * 8, _P]),
+    "flash_attention_backward": (
+        "flash_attention", "repro_flash_attention_backward",
+        [*[_P] * 10, *[_L] * 12, *[_I] * 8, _P]),
 }
-SOURCES = tuple(SIGNATURES)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -118,12 +126,13 @@ def build_log(name: str) -> str:
 
 
 def entry_point(name: str) -> Callable[..., int]:
-    """The C entry point of ``csrc/<name>.cu`` with its argtypes set,
-    built first if needed. It returns the launch's CUDA error code."""
+    """The C entry point ``name`` (a key of :data:`SIGNATURES`) of its
+    source's library, with its argtypes set, built first if needed. It
+    returns the launch's CUDA error code."""
     fn = _FNS.get(name)
     if fn is None:
-        symbol, argtypes = SIGNATURES[name]
-        path = build_dir() / f"lib{name}.so"
+        source, symbol, argtypes = SIGNATURES[name]
+        path = build_dir() / f"lib{source}.so"
         if not path.exists():
             build_all()
         fn = getattr(ctypes.CDLL(str(path)), symbol)

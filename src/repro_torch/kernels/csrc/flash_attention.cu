@@ -344,8 +344,8 @@ __global__ void __launch_bounds__(NWG * NT)
                  const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv, int perm_q,
                  int perm_k, int perm_v, __nv_bfloat16* __restrict__ o,
-                 int S, int Hq, int Hk, int causal, int window,
-                 float scale2) {
+                 float* __restrict__ lse, int S, int Hq, int Hk, int causal,
+                 int window, float scale2) {
   using C = Tc<HD>;
   constexpr int ST = KV_STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -529,6 +529,15 @@ __global__ void __launch_bounds__(NWG * NT)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  // training: L = ln(sum_j exp(s_j)) of each row, for the backward (m is
+  // in the log2 domain of the scaled scores)
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (qpos[i] < S)
+        lse[(static_cast<long long>(b) * Hq + hq) * S + qpos[i]] =
+            (m[i] + log2f(l[i])) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qpos[i] >= S) continue;
@@ -578,7 +587,8 @@ template <int HD>
 __global__ void __launch_bounds__(NT)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  long long qsb, long long qss, long long qsh, long long ksb,
+                  float* __restrict__ lse, long long qsb, long long qss,
+                  long long qsh, long long ksb,
                   long long kss, long long ksh, long long vsb, long long vss,
                   long long vsh, int S, int Hq, int Hk, int causal,
                   int window, float scale) {
@@ -743,6 +753,8 @@ __global__ void __launch_bounds__(NT)
     const int qpos = q0 + rg + 8 * r;
     if (qpos >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && ln == 0)   // training: L = m + ln(l)
+      lse[(static_cast<long long>(b) * Hq + hq) * S + qpos] = m[r] + logf(l[r]);
     float* orow = o + ((static_cast<long long>(b) * S + qpos) * Hq + hq) * HD;
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
@@ -769,8 +781,8 @@ int opt_in(Kernel kernel, int bytes, bool (&done)[64]) {
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const long long* st, int B, int S, int Hq, int Hk, int causal,
-               int window, cudaStream_t stream) {
+               float* lse, const long long* st, int B, int S, int Hq, int Hk,
+               int causal, int window, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * 4;
   static bool opted_in[64] = {};
   const int e = opt_in(flash_fwd_f32<HD>, bytes, opted_in);
@@ -779,7 +791,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   flash_fwd_f32<HD><<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
+      static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], S, Hq, Hk, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -863,8 +875,8 @@ int encode_map(CUtensorMap* map, int* perm, const void* ptr, int H, int S,
 
 template <int HD, int NWG>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              const long long* st, int B, int S, int Hq, int Hk, int causal,
-              int window, cudaStream_t stream) {
+              float* lse, const long long* st, int B, int S, int Hq, int Hk,
+              int causal, int window, cudaStream_t stream) {
   static_assert(TQ == TK, "one box shape serves q, k and v");
   constexpr int bytes = Tc<HD>::template smem<NWG>();
   static bool opted_in[64] = {};
@@ -879,34 +891,836 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + TQ - 1) / TQ, Hq / NWG, B);
   const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
   flash_fwd_tc<HD, NWG><<<grid, NWG * NT, bytes, stream>>>(
-      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), S, Hq, Hk,
-      causal, window, scale2);
+      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), lse, S, Hq,
+      Hk, causal, window, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // two query heads of one kv group a block where G is even
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              const long long* st, int B, int S, int Hq, int Hk, int causal,
-              int window, cudaStream_t stream) {
+              float* lse, const long long* st, int B, int S, int Hq, int Hk,
+              int causal, int window, cudaStream_t stream) {
   if ((Hq / Hk) % 2 == 0)
-    return launch_tc<HD, 2>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
+    return launch_tc<HD, 2>(q, k, v, o, lse, st, B, S, Hq, Hk, causal, window,
                             stream);
-  return launch_tc<HD, 1>(q, k, v, o, st, B, S, Hq, Hk, causal, window,
+  return launch_tc<HD, 1>(q, k, v, o, lse, st, B, S, Hq, Hk, causal, window,
                           stream);
 }
 
 template <bool TC>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                const long long* st, int B, int S, int Hq, int Hk, int hd,
-                int causal, int window, cudaStream_t s) {
+                float* lse, const long long* st, int B, int S, int Hq, int Hk,
+                int hd, int causal, int window, cudaStream_t s) {
+  switch (hd) {
+#define REPRO_HD(N)                                                         \
+  case N:                                                                   \
+    return TC ? launch_tc<N>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,     \
+                             window, s)                                     \
+              : launch_f32<N>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,    \
+                              window, s);
+    REPRO_HD(16)
+    REPRO_HD(32)
+    REPRO_HD(64)
+    REPRO_HD(128)
+#undef REPRO_HD
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------
+// Backward (training). With P
+// recomputed from the forward's L (masked keys give P = 0, as the finite
+// -1e30 does):
+//
+//     P = exp(s - L),  D_i = sum_d dO[i,d] O[i,d],  dV = P^T dO,
+//     dS = P o (dO V^T - D),  dQ = scale dS K,  dK = scale dS^T Q
+//
+// (kernels/ref.py: flash_attention_backward_ref). The reference has no
+// Pallas backward: it differentiates the jnp blockwise attention
+// (src/repro/models/layers.py:79). Per type two kernels, no atomics,
+// every sum in a fixed order, so a repeat is bit-identical:
+//  - dq: a block per (b, query head, 64-query tile) walks the key tiles
+//    the forward walks (the same skips) and writes dQ; first it writes D
+//    of its rows, which the second kernel reads.
+//  - dkdv: a block per (b, kv head, key tile) walks the G query heads of
+//    its kv group in order and, for each, the query tiles that see the
+//    key tile, and writes dK and dV summed over them.
+// What bounds it: operations (10 hd a pair: Q.K^T, dO.V^T, dV, dQ, dK).
+//
+// fp32 (flash_bwd_*_f32), on CUDA cores; 32-key tiles of dkdv. The thread
+// map is the fp32 forward's: 128 threads, thread t owns rows
+// t/16 + 8r of its tile and columns t%16 + 16c of the other; scores and
+// dO.V^T are fp32 dot products over hd from shared memory, P and dS go
+// through shared memory to the products that accumulate in registers.
+
+constexpr int BBQ = 64;   // dq: query rows of a block
+constexpr int BBK = 32;   // dq: keys of a tile; dkdv: keys of a block
+constexpr int BQ2 = 32;   // dkdv: queries of a tile
+
+// rows [s0, s0 + n) of one (b, h) of a (B, S, H, HD) operand (base at
+// that (b, h), sequence stride ss) into shared memory as fp32 rows of
+// HD + 4 floats, zeros past S
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long ss, int s0, int n,
+                                           int S) {
+  for (int idx = threadIdx.x; idx < n * HD; idx += NT) {
+    const int r = idx / HD, d = idx - r * HD;
+    const int pos = s0 + r;
+    dst[r * (HD + 4) + d] = pos < S ? src[pos * ss + d] : 0.f;
+  }
+}
+
+__device__ __forceinline__ bool unmasked(int qpos, int kpos, int S,
+                                         int causal, int window) {
+  bool ok = kpos < S && qpos < S;
+  if (causal) ok = ok && qpos >= kpos;
+  if (window > 0) ok = ok && qpos - kpos < window;
+  return ok;
+}
+
+// a[r][c] += rows(ra + 8r) of A . rows(cb + 16c) of B over HD, and the
+// same for the second pair: two score-like products in one pass
+template <int HD, int RN, int CN>
+__device__ __forceinline__ void dots2(float (&a)[RN][CN], float (&b2)[RN][CN],
+                                      const float* A, const float* Bm,
+                                      const float* A2, const float* B2,
+                                      int ra, int cb) {
+  constexpr int P = HD + 4;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 kb[CN], kb2[CN];
+#pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      kb[c] = *reinterpret_cast<const float4*>(&Bm[(cb + 16 * c) * P + d]);
+      kb2[c] = *reinterpret_cast<const float4*>(&B2[(cb + 16 * c) * P + d]);
+    }
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(&A[(ra + 8 * r) * P + d]);
+      const float4 y =
+          *reinterpret_cast<const float4*>(&A2[(ra + 8 * r) * P + d]);
+#pragma unroll
+      for (int c = 0; c < CN; ++c) {
+        a[r][c] = fmaf(x.x, kb[c].x, a[r][c]);
+        a[r][c] = fmaf(x.y, kb[c].y, a[r][c]);
+        a[r][c] = fmaf(x.z, kb[c].z, a[r][c]);
+        a[r][c] = fmaf(x.w, kb[c].w, a[r][c]);
+        b2[r][c] = fmaf(y.x, kb2[c].x, b2[r][c]);
+        b2[r][c] = fmaf(y.y, kb2[c].y, b2[r][c]);
+        b2[r][c] = fmaf(y.z, kb2[c].z, b2[r][c]);
+        b2[r][c] = fmaf(y.w, kb2[c].w, b2[r][c]);
+      }
+    }
+  }
+}
+
+// acc[r][i] += sum_j W[ra + 8r][j] * X[j][out_dim(ln, i)] over the NJ
+// columns of W (row stride WP) and the rows of X (HD + 4 floats a row)
+template <int HD, int RN, int NJ, int WP>
+__device__ __forceinline__ void accumulate(float (&acc)[RN][HD / 16],
+                                           const float* W, const float* X,
+                                           int ra, int ln) {
+  constexpr int DPT = HD / 16, P = HD + 4;
+#pragma unroll 2
+  for (int j = 0; j < NJ; ++j) {
+    const float* xrow = X + j * P;
+    float xv[DPT];
+    if constexpr (DPT % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < DPT; i += 4) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(xrow + out_dim<HD>(ln, i));
+        xv[i] = t.x;
+        xv[i + 1] = t.y;
+        xv[i + 2] = t.z;
+        xv[i + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) xv[i] = xrow[out_dim<HD>(ln, i)];
+    }
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      const float wv = W[(ra + 8 * r) * WP + j];
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) acc[r][i] = fmaf(wv, xv[i], acc[r][i]);
+    }
+  }
+}
+
+template <int HD>
+constexpr int dq_smem_floats() {
+  // q, dO (BBQ rows), k, v (BBK rows), dS (BBQ x (BBK + 4))
+  return 2 * BBQ * (HD + 4) + 2 * BBK * (HD + 4) + BBQ * (BBK + 4);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ o,
+                 const float* __restrict__ lse, const float* __restrict__ d_o,
+                 float* __restrict__ dq, float* __restrict__ delta, long long qsb,
+                 long long qss, long long qsh, long long ksb, long long kss,
+                 long long ksh, long long vsb, long long vss, long long vsh,
+                 long long dsb, long long dss, long long dsh, int S, int Hq,
+                 int Hk, int causal, int window, float scale) {
+  constexpr int P = HD + 4, DPT = HD / 16, RN = BBQ / 8, CN = BBK / 16;
+  constexpr int WP = BBK + 4;
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sdo = sq + BBQ * P;
+  float* sk = sdo + BBQ * P;
+  float* sv = sk + BBK * P;
+  float* sds = sv + BBK * P;
+
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4, ln = tid & 15;
+  const int q0 = blockIdx.x * BBQ;
+  const int hq = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = hq / (Hq / Hk);
+  const long long row0 = (static_cast<long long>(b) * Hq + hq) * S;
+
+  stage_rows<HD>(sq, q + b * qsb + hq * qsh, qss, q0, BBQ, S);
+  stage_rows<HD>(sdo, d_o + b * dsb + hq * dsh, dss, q0, BBQ, S);
+  __syncthreads();
+
+  // D and L of the thread's rows; D = dO . O over the half-warp's 16
+  // lanes, a butterfly (every lane ends with the same bits)
+  float Lr[RN], Dr[RN];
+#pragma unroll
+  for (int r = 0; r < RN; ++r) {
+    const int pos = q0 + rg + 8 * r;
+    float acc = 0.f;
+    if (pos < S) {
+      const float* orow = o + ((static_cast<long long>(b) * S + pos) * Hq + hq) * HD;
+      for (int d = ln; d < HD; d += 16)
+        acc = fmaf(sdo[(rg + 8 * r) * P + d], orow[d], acc);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    Dr[r] = acc;
+    Lr[r] = pos < S ? lse[row0 + pos] : 0.f;
+    if (pos < S && ln == 0) delta[row0 + pos] = acc;
+  }
+
+  float acc[RN][DPT];
+#pragma unroll
+  for (int r = 0; r < RN; ++r)
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) acc[r][i] = 0.f;
+
+  // the key tiles the forward walks for this query tile
+  const int q_last = min(q0 + BBQ, S) - 1;
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;
+    kt_begin = lo > 0 ? lo / BBK : 0;
+  }
+  const int kt_end = ((causal ? q_last + 1 : S) + BBK - 1) / BBK;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BBK;
+    __syncthreads();  // every thread is done with the previous tile
+    stage_rows<HD>(sk, kb, kss, k0, BBK, S);
+    stage_rows<HD>(sv, vb, vss, k0, BBK, S);
+    __syncthreads();
+    float sc[RN][CN], dp[RN][CN];
+#pragma unroll
+    for (int r = 0; r < RN; ++r)
+#pragma unroll
+      for (int c = 0; c < CN; ++c) sc[r][c] = dp[r][c] = 0.f;
+    dots2<HD, RN, CN>(sc, dp, sq, sk, sdo, sv, rg, ln);
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      const int qpos = q0 + rg + 8 * r;
+#pragma unroll
+      for (int c = 0; c < CN; ++c) {
+        const int kpos = k0 + ln + 16 * c;
+        const float p = unmasked(qpos, kpos, S, causal, window)
+                            ? expf(fmaf(sc[r][c], scale, -Lr[r]))
+                            : 0.f;
+        sds[(rg + 8 * r) * WP + ln + 16 * c] = p * (dp[r][c] - Dr[r]);
+      }
+    }
+    __syncwarp();  // the half-warp's rows of dS are in place
+    accumulate<HD, RN, BBK, WP>(acc, sds, sk, rg, ln);
+  }
+
+#pragma unroll
+  for (int r = 0; r < RN; ++r) {
+    const int qpos = q0 + rg + 8 * r;
+    if (qpos >= S) continue;
+    float* row = dq + ((static_cast<long long>(b) * S + qpos) * Hq + hq) * HD;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i)
+      row[out_dim<HD>(ln, i)] = acc[r][i] * scale;
+  }
+}
+
+template <int HD>
+constexpr int dkdv_smem_floats() {
+  // k, v (BBK rows), q, dO (BQ2 rows), P and dS (BBK x (BQ2 + 4)), L, D
+  return 2 * BBK * (HD + 4) + 2 * BQ2 * (HD + 4) + 2 * BBK * (BQ2 + 4) +
+         2 * BQ2;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const float* __restrict__ d_o,
+                   float* __restrict__ dk, float* __restrict__ dv, long long qsb,
+                   long long qss, long long qsh, long long ksb, long long kss,
+                   long long ksh, long long vsb, long long vss, long long vsh,
+                   long long dsb, long long dss, long long dsh, int S, int Hq,
+                   int Hk, int causal, int window, float scale) {
+  constexpr int P = HD + 4, DPT = HD / 16, RN = BBK / 8, CN = BQ2 / 16;
+  constexpr int WP = BQ2 + 4;
+  extern __shared__ float4 smem4[];
+  float* sk = reinterpret_cast<float*>(smem4);
+  float* sv = sk + BBK * P;
+  float* sq = sv + BBK * P;
+  float* sdo = sq + BQ2 * P;
+  float* sp = sdo + BQ2 * P;
+  float* sds = sp + BBK * WP;
+  float* sL = sds + BBK * WP;
+  float* sD = sL + BQ2;
+
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4, ln = tid & 15;
+  const int k0 = blockIdx.x * BBK;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = Hq / Hk;
+
+  stage_rows<HD>(sk, k + b * ksb + hk * ksh, kss, k0, BBK, S);
+  stage_rows<HD>(sv, v + b * vsb + hk * vsh, vss, k0, BBK, S);
+
+  // the query tiles that see at least one key of this tile
+  const int k_last = min(k0 + BBK, S) - 1;
+  const int qt_begin = causal ? k0 / BQ2 : 0;
+  int q_end = S;  // one past the last query that sees a key here
+  if (window > 0) q_end = min(S, k_last + window);
+  const int qt_end = (q_end + BQ2 - 1) / BQ2;
+
+  float ak[RN][DPT], av[RN][DPT];
+#pragma unroll
+  for (int r = 0; r < RN; ++r)
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) ak[r][i] = av[r][i] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int hq = hk * G + g;
+    const long long row0 = (static_cast<long long>(b) * Hq + hq) * S;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ2;
+      __syncthreads();  // every thread is done with the previous tile
+      stage_rows<HD>(sq, q + b * qsb + hq * qsh, qss, q0, BQ2, S);
+      stage_rows<HD>(sdo, d_o + b * dsb + hq * dsh, dss, q0, BQ2, S);
+      for (int x = tid; x < BQ2; x += NT) {
+        const bool in = q0 + x < S;
+        sL[x] = in ? lse[row0 + q0 + x] : 0.f;
+        sD[x] = in ? delta[row0 + q0 + x] : 0.f;
+      }
+      __syncthreads();
+      // rows: keys; columns: queries
+      float sc[RN][CN], dp[RN][CN];
+#pragma unroll
+      for (int r = 0; r < RN; ++r)
+#pragma unroll
+        for (int c = 0; c < CN; ++c) sc[r][c] = dp[r][c] = 0.f;
+      dots2<HD, RN, CN>(sc, dp, sk, sq, sv, sdo, rg, ln);
+#pragma unroll
+      for (int r = 0; r < RN; ++r) {
+        const int kpos = k0 + rg + 8 * r;
+#pragma unroll
+        for (int c = 0; c < CN; ++c) {
+          const int col = ln + 16 * c;
+          const float p = unmasked(q0 + col, kpos, S, causal, window)
+                              ? expf(fmaf(sc[r][c], scale, -sL[col]))
+                              : 0.f;
+          sp[(rg + 8 * r) * WP + col] = p;
+          sds[(rg + 8 * r) * WP + col] = p * (dp[r][c] - sD[col]);
+        }
+      }
+      __syncwarp();  // the half-warp's rows of P and dS are in place
+      accumulate<HD, RN, BQ2, WP>(av, sp, sdo, rg, ln);
+      accumulate<HD, RN, BQ2, WP>(ak, sds, sq, rg, ln);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RN; ++r) {
+    const int kpos = k0 + rg + 8 * r;
+    if (kpos >= S) continue;
+    const long long at = ((static_cast<long long>(b) * S + kpos) * Hk + hk) * HD;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      dk[at + out_dim<HD>(ln, i)] = ak[r][i] * scale;
+      dv[at + out_dim<HD>(ln, i)] = av[r][i];
+    }
+  }
+}
+
+template <int HD>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+               const float* lse, const void* d_o, void* dq, void* dk,
+               void* dv, float* delta, const long long* st, int B, int S,
+               int Hq, int Hk, int causal, int window, cudaStream_t stream) {
+  constexpr int dq_bytes = dq_smem_floats<HD>() * 4;
+  constexpr int kv_bytes = dkdv_smem_floats<HD>() * 4;
+  static bool dq_in[64] = {}, kv_in[64] = {};
+  int e = opt_in(flash_bwd_dq_f32<HD>, dq_bytes, dq_in);
+  if (e == 0) e = opt_in(flash_bwd_dkdv_f32<HD>, kv_bytes, kv_in);
+  if (e != 0) return e;
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(d_o);
+  flash_bwd_dq_f32<HD><<<dim3((S + BBQ - 1) / BBQ, Hq, B), NT, dq_bytes,
+                        stream>>>(
+      tq, tk, tv, static_cast<const float*>(o), lse, tdo, static_cast<float*>(dq),
+      delta, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], S, Hq, Hk, causal, window, scale);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  flash_bwd_dkdv_f32<HD><<<dim3((S + BBK - 1) / BBK, Hk, B), NT, kv_bytes,
+                          stream>>>(
+      tq, tk, tv, lse, delta, tdo, static_cast<float*>(dk), static_cast<float*>(dv),
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], S, Hq, Hk, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                 const float* lse, const void* d_o, void* dq, void* dk,
+                 void* dv, float* delta, const long long* st, int B, int S,
+                 int Hq, int Hk, int hd, int causal, int window,
+                 cudaStream_t s) {
   switch (hd) {
 #define REPRO_HD(N)                                                        \
   case N:                                                                  \
-    return TC ? launch_tc<N>(q, k, v, o, st, B, S, Hq, Hk, causal, window, \
-                             s)                                            \
-              : launch_f32<N>(q, k, v, o, st, B, S, Hq, Hk, causal,        \
-                              window, s);
+    return launch_bwd_f32<N>(q, k, v, o, lse, d_o, dq, dk, dv, delta, st, B, \
+                             S, Hq, Hk, causal, window, s);
+    REPRO_HD(16)
+    REPRO_HD(32)
+    REPRO_HD(64)
+    REPRO_HD(128)
+#undef REPRO_HD
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 (flash_bwd_*_tc), on the tensor cores: mma.sync m16n8k16 (bf16
+// operands, fp32 sums), operands by ldmatrix from shared memory rows of
+// HD + 8 bf16 (16 bytes of pad: the eight rows of an 8 x 8 matrix fall on
+// distinct banks). A warp owns 16 rows of its block's tile: 16 queries in
+// dq (64 a block, key tiles of 64), 16 keys in dkdv (64 a block, query
+// tiles of 32, so its dK and dV sums and its two score tiles fit the
+// registers). S and dO.V^T come as fp32 fragments; P and dS are made in
+// fp32 and enter the next products as two bf16 parts, hi = bf16(x) and
+// lo = bf16(x - hi), so they keep ~16 bits of mantissa where one bf16
+// part keeps 8 (twice the products, still on the tensor cores). Tiles
+// are copied in 16-byte pieces, so every base and every used stride of
+// q, k, v and dO is a multiple of 16 bytes, as the forward's TMA asks.
+
+constexpr int TBQ = 64;   // dq: queries of a block; keys of a tile
+constexpr int TBK = 64;   // dkdv: keys of a block
+constexpr int TQ2 = 32;   // dkdv: queries of a tile
+
+template <int HD>
+struct Bt {
+  static constexpr int LD = HD + 8;  // bf16 a shared-memory row
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a.b: A 16 x 16 row-major, B 16 x 8 column-major, fp32 d
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [s0, s0 + n) of one (b, h) of a (B, S, H, HD) bf16 operand into
+// shared memory rows of LD bf16, 16 bytes a copy, zeros past S
+template <int HD>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long ss, int s0, int n,
+                                           int S) {
+  constexpr int PR = HD / 8;
+  for (int idx = threadIdx.x; idx < n * PR; idx += NT) {
+    const int r = idx / PR, c = idx - r * PR;
+    const int pos = s0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (pos < S)
+      val = *reinterpret_cast<const uint4*>(src + pos * ss + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * Bt<HD>::LD + c * 8) = val;
+  }
+}
+
+// c[n] += A(16 rows at a, HD columns) . B(8 NT rows at b + 8n)^T: the
+// warp's scores against NT x 8 rows of the other tile
+template <int HD, int NTL>
+__device__ __forceinline__ void scores_tc(float (&c)[NTL][4], uint32_t a,
+                                          uint32_t b, int lane) {
+  constexpr int LD = Bt<HD>::LD;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + ((lane & 15) * LD + kk * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+    for (int n2 = 0; n2 < NTL / 2; ++n2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + ((n2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                       kk * 16 + ((lane >> 3) & 1) * 8) * 2);
+      mma16816(c[2 * n2], af, bf[0], bf[1]);
+      mma16816(c[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the A fragments of a 16 x 16 slice (score tiles 2ks, 2ks + 1 of x) as
+// two bf16 parts: hi = bf16(x), lo = bf16(x - hi)
+template <int NTL>
+__device__ __forceinline__ void split_a(const float (&x)[NTL][4], int ks,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* v = x[2 * ks + (i >> 1)] + 2 * (i & 1);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack2(v[0] - __low2float(h), v[1] - __high2float(h));
+  }
+}
+
+// acc += X(16 x NTL*8, fp32 fragments) . B(NTL*8 rows at b, HD columns):
+// the products that sum over the other tile's rows, X in two bf16 parts
+template <int HD, int NTL>
+__device__ __forceinline__ void accumulate_tc(float (&acc)[HD / 8][4],
+                                              const float (&x)[NTL][4],
+                                              uint32_t b, int lane) {
+  constexpr int LD = Bt<HD>::LD;
+#pragma unroll
+  for (int ks = 0; ks < NTL / 2; ++ks) {
+    uint32_t hi[4], lo[4];
+    split_a<NTL>(x, ks, hi, lo);
+#pragma unroll
+    for (int n2 = 0; n2 < HD / 16; ++n2) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, b + ((ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                         n2 * 16 + (lane >> 4) * 8) * 2);
+      mma16816(acc[2 * n2], hi, bf[0], bf[1]);
+      mma16816(acc[2 * n2 + 1], hi, bf[2], bf[3]);
+      mma16816(acc[2 * n2], lo, bf[0], bf[1]);
+      mma16816(acc[2 * n2 + 1], lo, bf[2], bf[3]);
+    }
+  }
+}
+
+// rows of a warp's 16 x HD fp32 accumulator (row r0 + g, + 8) written as
+// bf16 pairs to (B, S, H, HD) at row index s, head h, times mult
+template <int HD>
+__device__ __forceinline__ void store_rows_tc(__nv_bfloat16* out,
+                                              const float (&acc)[HD / 8][4],
+                                              int b, int s_first, int S,
+                                              int H, int h, int lane,
+                                              float mult) {
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = s_first + g + 8 * half;
+    if (s >= S) continue;
+    __nv_bfloat16* row =
+        out + ((static_cast<long long>(b) * S + s) * H + h) * HD + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8) = __floats2bfloat162_rn(
+          acc[nt][2 * half] * mult, acc[nt][2 * half + 1] * mult);
+  }
+}
+
+template <int HD>
+constexpr int dq_tc_bytes() {
+  return 4 * TBQ * Bt<HD>::LD * 2 + 2 * TBQ * 4;  // q, dO, k, v; L, D
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ o,
+                    const float* __restrict__ lse,
+                    const __nv_bfloat16* __restrict__ d_o,
+                    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                    long long qsb, long long qss, long long qsh,
+                    long long ksb, long long kss, long long ksh,
+                    long long vsb, long long vss, long long vsh,
+                    long long dsb, long long dss, long long dsh, int S,
+                    int Hq, int Hk, int causal, int window, float scale2) {
+  constexpr int LD = Bt<HD>::LD, NTL = TBQ / 8;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* sdo = sq + TBQ * LD;
+  __nv_bfloat16* sk = sdo + TBQ * LD;
+  __nv_bfloat16* sv = sk + TBQ * LD;
+  float* sL = reinterpret_cast<float*>(sv + TBQ * LD);  // L log2 e
+  float* sD = sL + TBQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * TBQ;
+  const int hq = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = hq / (Hq / Hk);
+  const long long row0 = (static_cast<long long>(b) * Hq + hq) * S;
+
+  stage_bf16<HD>(sq, q + b * qsb + hq * qsh, qss, q0, TBQ, S);
+  stage_bf16<HD>(sdo, d_o + b * dsb + hq * dsh, dss, q0, TBQ, S);
+  __syncthreads();
+  // D and L of the block's rows: two threads a row, halves of hd, one
+  // butterfly add (both end with the same bits)
+  {
+    const int r = tid >> 1, pos = q0 + r;
+    float acc = 0.f;
+    if (pos < S) {
+      const __nv_bfloat16* orow =
+          o + ((static_cast<long long>(b) * S + pos) * Hq + hq) * HD;
+      for (int d = (tid & 1) * (HD / 2); d < (tid & 1) * (HD / 2) + HD / 2;
+           ++d)
+        acc = fmaf(__bfloat162float(sdo[r * LD + d]),
+                   __bfloat162float(orow[d]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((tid & 1) == 0) {
+      sD[r] = acc;
+      sL[r] = pos < S ? lse[row0 + pos] * 1.4426950408889634f : 0.f;
+      if (pos < S) delta[row0 + pos] = acc;
+    }
+  }
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int q_last = min(q0 + TBQ, S) - 1;
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window + 1;
+    kt_begin = lo > 0 ? lo / TBQ : 0;
+  }
+  const int kt_end = ((causal ? q_last + 1 : S) + TBQ - 1) / TBQ;
+  const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
+  const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
+  const uint32_t aq = smem_addr(sq + warp * 16 * LD);
+  const uint32_t ado = smem_addr(sdo + warp * 16 * LD);
+  const uint32_t ak = smem_addr(sk), av = smem_addr(sv);
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * TBQ;
+    __syncthreads();  // every warp is done with the previous tile
+    stage_bf16<HD>(sk, kb, kss, k0, TBQ, S);
+    stage_bf16<HD>(sv, vb, vss, k0, TBQ, S);
+    __syncthreads();
+    float sc[NTL][4], dp[NTL][4];
+#pragma unroll
+    for (int i = 0; i < NTL; ++i)
+      sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = dp[i][0] = dp[i][1] =
+          dp[i][2] = dp[i][3] = 0.f;
+    scores_tc<HD, NTL>(sc, aq, ak, lane);
+    scores_tc<HD, NTL>(dp, ado, av, lane);
+    // dS = P (dP - D) into sc; element e of tile nt: row g + 8 (e >= 2),
+    // key nt * 8 + tig * 2 + (e & 1)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = warp * 16 + g + 8 * (e >> 1);
+        const int kpos = k0 + nt * 8 + tig * 2 + (e & 1);
+        const float p = unmasked(q0 + r, kpos, S, causal, window)
+                            ? exp2f(fmaf(sc[nt][e], scale2, -sL[r]))
+                            : 0.f;
+        sc[nt][e] = p * (dp[nt][e] - sD[r]);
+      }
+    accumulate_tc<HD, NTL>(acc, sc, ak, lane);
+  }
+  store_rows_tc<HD>(dq, acc, b, q0 + warp * 16, S, Hq, hq, lane,
+                    scale2 * 0.6931471805599453f);
+}
+
+template <int HD>
+constexpr int dkdv_tc_bytes() {
+  // k, v (TBK rows), q, dO (TQ2 rows); L, D
+  return (2 * TBK + 2 * TQ2) * Bt<HD>::LD * 2 + 2 * TQ2 * 4;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const __nv_bfloat16* __restrict__ d_o,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, long long qsb,
+                      long long qss, long long qsh, long long ksb,
+                      long long kss, long long ksh, long long vsb,
+                      long long vss, long long vsh, long long dsb,
+                      long long dss, long long dsh, int S, int Hq, int Hk,
+                      int causal, int window, float scale2) {
+  constexpr int LD = Bt<HD>::LD, NTL = TQ2 / 8;
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  __nv_bfloat16* sv = sk + TBK * LD;
+  __nv_bfloat16* sq = sv + TBK * LD;
+  __nv_bfloat16* sdo = sq + TQ2 * LD;
+  float* sL = reinterpret_cast<float*>(sdo + TQ2 * LD);  // L log2 e
+  float* sD = sL + TQ2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int k0 = blockIdx.x * TBK;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = Hq / Hk;
+
+  stage_bf16<HD>(sk, k + b * ksb + hk * ksh, kss, k0, TBK, S);
+  stage_bf16<HD>(sv, v + b * vsb + hk * vsh, vss, k0, TBK, S);
+
+  const int k_last = min(k0 + TBK, S) - 1;
+  const int qt_begin = causal ? k0 / TQ2 : 0;
+  int q_end = S;
+  if (window > 0) q_end = min(S, k_last + window);
+  const int qt_end = (q_end + TQ2 - 1) / TQ2;
+
+  float ak[HD / 8][4], av[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[i][e] = av[i][e] = 0.f;
+
+  const uint32_t a_k = smem_addr(sk + warp * 16 * LD);
+  const uint32_t a_v = smem_addr(sv + warp * 16 * LD);
+  const uint32_t a_q = smem_addr(sq), a_do = smem_addr(sdo);
+  for (int gi = 0; gi < G; ++gi) {
+    const int hq = hk * G + gi;
+    const long long row0 = (static_cast<long long>(b) * Hq + hq) * S;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * TQ2;
+      __syncthreads();  // every warp is done with the previous tile
+      stage_bf16<HD>(sq, q + b * qsb + hq * qsh, qss, q0, TQ2, S);
+      stage_bf16<HD>(sdo, d_o + b * dsb + hq * dsh, dss, q0, TQ2, S);
+      for (int x = tid; x < TQ2; x += NT) {
+        const bool in = q0 + x < S;
+        sL[x] = in ? lse[row0 + q0 + x] * 1.4426950408889634f : 0.f;
+        sD[x] = in ? delta[row0 + q0 + x] : 0.f;
+      }
+      __syncthreads();
+      // rows: the warp's 16 keys; columns: the tile's queries
+      float pt[NTL][4], dst[NTL][4];
+#pragma unroll
+      for (int i = 0; i < NTL; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pt[i][e] = dst[i][e] = 0.f;
+      scores_tc<HD, NTL>(pt, a_k, a_q, lane);
+      scores_tc<HD, NTL>(dst, a_v, a_do, lane);
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + warp * 16 + g + 8 * (e >> 1);
+          const int c = nt * 8 + tig * 2 + (e & 1);
+          const float p = unmasked(q0 + c, kpos, S, causal, window)
+                              ? exp2f(fmaf(pt[nt][e], scale2, -sL[c]))
+                              : 0.f;
+          dst[nt][e] = p * (dst[nt][e] - sD[c]);
+          pt[nt][e] = p;
+        }
+      accumulate_tc<HD, NTL>(av, pt, a_do, lane);
+      accumulate_tc<HD, NTL>(ak, dst, a_q, lane);
+    }
+  }
+  store_rows_tc<HD>(dk, ak, b, k0 + warp * 16, S, Hk, hk, lane,
+                    scale2 * 0.6931471805599453f);
+  store_rows_tc<HD>(dv, av, b, k0 + warp * 16, S, Hk, hk, lane, 1.f);
+}
+
+template <int HD>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                  const float* lse, const void* d_o, void* dq, void* dk,
+                  void* dv, float* delta, const long long* st, int B, int S,
+                  int Hq, int Hk, int causal, int window,
+                  cudaStream_t stream) {
+  constexpr int dq_bytes = dq_tc_bytes<HD>();
+  constexpr int kv_bytes = dkdv_tc_bytes<HD>();
+  static bool dq_in[64] = {}, kv_in[64] = {};
+  int e = opt_in(flash_bwd_dq_tc<HD>, dq_bytes, dq_in);
+  if (e == 0) e = opt_in(flash_bwd_dkdv_tc<HD>, kv_bytes, kv_in);
+  if (e != 0) return e;
+  // scores scaled into the log2 domain: P = 2^(s scale2 - L log2 e)
+  const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  using bf = __nv_bfloat16;
+  const bf* tq = static_cast<const bf*>(q);
+  const bf* tk = static_cast<const bf*>(k);
+  const bf* tv = static_cast<const bf*>(v);
+  const bf* tdo = static_cast<const bf*>(d_o);
+  flash_bwd_dq_tc<HD><<<dim3((S + TBQ - 1) / TBQ, Hq, B), NT, dq_bytes,
+                         stream>>>(
+      tq, tk, tv, static_cast<const bf*>(o), lse, tdo, static_cast<bf*>(dq),
+      delta, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], S, Hq, Hk, causal, window, scale2);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  flash_bwd_dkdv_tc<HD><<<dim3((S + TBK - 1) / TBK, Hk, B), NT, kv_bytes,
+                           stream>>>(
+      tq, tk, tv, lse, delta, tdo, static_cast<bf*>(dk), static_cast<bf*>(dv),
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], S, Hq, Hk, causal, window, scale2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_bwd_tc(const void* q, const void* k, const void* v,
+                    const void* o, const float* lse, const void* d_o,
+                    void* dq, void* dk, void* dv, float* delta,
+                    const long long* st, int B, int S, int Hq, int Hk, int hd,
+                    int causal, int window, cudaStream_t s) {
+  switch (hd) {
+#define REPRO_HD(N)                                                          \
+  case N:                                                                    \
+    return launch_bwd_tc<N>(q, k, v, o, lse, d_o, dq, dk, dv, delta, st, B, \
+                            S, Hq, Hk, causal, window, s);
     REPRO_HD(16)
     REPRO_HD(32)
     REPRO_HD(64)
@@ -921,7 +1735,9 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, S, Hq, hd); k, v: (B, S, Hk, hd), Hq a multiple of Hk, each read
 // through its element strides (batch, sequence, head) with a unit stride
-// over hd; o: (B, S, Hq, hd) contiguous. dtype 0 is fp32 (CUDA cores), 1
+// over hd; o: (B, S, Hq, hd) contiguous. lse: null (serving), or (B, Hq,
+// S) fp32, which then receives each row's L = ln(sum_j exp(s_j)) for the
+// backward (training). dtype 0 is fp32 (CUDA cores), 1
 // bf16 (tensor cores: every base 16-byte aligned and every stride of a
 // dim of extent > 1 a multiple of 8 elements); hd is 16, 32, 64 or 128;
 // window 0 means none. Returns cudaGetLastError() after the launch on
@@ -929,17 +1745,48 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
 // if a tensor map cannot be encoded and -1000 if libcuda has no
 // cuTensorMapEncodeTiled.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, long long qsb,
-    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int B, int S, int Hq, int Hk,
-    int hd, int causal, int window, int dtype, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int B, int S,
+    int Hq, int Hk, int hd, int causal, int window, int dtype, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_hd<false>(q, k, v, o, st, B, S, Hq, Hk, hd, causal,
+    return dispatch_hd<false>(q, k, v, o, l, st, B, S, Hq, Hk, hd, causal,
                               window, s);
   if (dtype == 1)
-    return dispatch_hd<true>(q, k, v, o, st, B, S, Hq, Hk, hd, causal,
+    return dispatch_hd<true>(q, k, v, o, l, st, B, S, Hq, Hk, hd, causal,
                              window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of repro_flash_attention (training). q, k, v as given to
+// it (each through its strides, unit over hd), o its output and lse what
+// it wrote; d_o (B, S, Hq, hd) through its strides (dsb, dss, dsh). Writes
+// dq (B, S, Hq, hd), dk and dv (B, S, Hk, hd), contiguous, in the inputs'
+// dtype (0 fp32 on CUDA cores, 1 bf16 on the tensor cores: every base and
+// used stride of q, k, v and d_o a multiple of 16 bytes), and delta
+// (B, Hq, S) fp32 (D = dO . O, scratch).
+// Two launches (dQ, then dK and dV); returns cudaGetLastError() after
+// each, cudaErrorInvalidValue for another dtype or hd.
+extern "C" int repro_flash_attention_backward(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* d_o, void* dq, void* dk, void* dv,
+    void* delta, long long qsb, long long qss, long long qsh, long long ksb,
+    long long kss, long long ksh, long long vsb, long long vss, long long vsh,
+    long long dsb, long long dss, long long dsh, int B, int S, int Hq, int Hk,
+    int hd, int causal, int window, int dtype, void* stream) {
+  const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
+                            vsb, vss, vsh, dsb, dss, dsh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 0)
+    return dispatch_bwd_f32(q, k, v, o, l, d_o, dq, dk, dv, dl, st, B, S, Hq,
+                            Hk, hd, causal, window, s);
+  if (dtype == 1)
+    return dispatch_bwd_tc(q, k, v, o, l, d_o, dq, dk, dv, dl, st, B, S, Hq,
+                           Hk, hd, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -236,14 +236,17 @@ __device__ __forceinline__ int fold_scatter(float (&acc)[C], int g) {
   return col;
 }
 
-template <int K, int VEC>
+// SAVE (training) also writes the state before every chunk, the lane's
+// tile of it, to ckpt (B*H, n_chunks, K, K): the backward recomputes the
+// states inside a chunk from there. The serving launch is SAVE = false.
+template <int K, int VEC, bool SAVE>
 __global__ void __launch_bounds__(Layout<K>::NT)
     wkv6_fwd(const float* __restrict__ r, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ w,
              long long sb, long long ss, long long sh,
              const float* __restrict__ u, const float* __restrict__ s0,
-             float* __restrict__ o, float* __restrict__ s_out, int S,
-             int H) {
+             float* __restrict__ o, float* __restrict__ s_out,
+             float* __restrict__ ckpt, int S, int H) {
   using L = Layout<K>;
   constexpr int JC = L::JC, G = L::G, C = L::C, T = L::T,
                 STAGES = L::STAGES, R = L::R, NT = L::NT, ROW = L::ROW;
@@ -313,6 +316,13 @@ __global__ void __launch_bounds__(Layout<K>::NT)
   for (int i = tid; i < K; i += NT) s_u[i] = u[h * K + i];
 
   for (int c = 0; c < n_chunks; ++c) {
+    if constexpr (SAVE) {
+      float* cp = ckpt +
+                  ((static_cast<long long>(bh) * n_chunks + c) * K + row0) * K +
+                  j0 + col0;
+#pragma unroll
+      for (int m = 0; m < R; ++m) store_n<C>(cp + m * K, st[m]);
+    }
     // groups committed so far: STAGES - 1 + c; chunk c's is complete
     cp_async_wait<STAGES - 2>();
     __syncthreads();
@@ -498,8 +508,8 @@ __global__ void __launch_bounds__(K * Geo<K>::G)
 template <int K, int VEC>
 int launch(const float* r, const float* k, const float* v, const float* w,
            long long sb, long long ss, long long sh, const float* u,
-           const float* s0, float* o, float* s_out, int B, int S, int H,
-           cudaStream_t st) {
+           const float* s0, float* o, float* s_out, float* ckpt, int B, int S,
+           int H, cudaStream_t st) {
   using L = Layout<K>;
   // the shared-memory attribute is set once per kernel and device
   static unsigned long long configured = 0;
@@ -508,19 +518,27 @@ int launch(const float* r, const float* k, const float* v, const float* w,
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(configured & bit)) {
-    e = cudaFuncSetAttribute(wkv6_fwd<K, VEC>,
+    e = cudaFuncSetAttribute(wkv6_fwd<K, VEC, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(wkv6_fwd<K, VEC, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured |= bit;
   }
   const unsigned blocks = static_cast<unsigned>(B) * H * L::NCG;
-  if (S == 1) {
+  if (ckpt != nullptr) {
+    // training: the chunked kernel at every S, saving its chunk states
+    wkv6_fwd<K, VEC, true><<<blocks, L::NT, L::BYTES, st>>>(
+        r, k, v, w, sb, ss, sh, u, s0, o, s_out, ckpt, S, H);
+  } else if (S == 1) {
     wkv6_step<K, VEC><<<static_cast<unsigned>(B) * H, K * L::G, 0, st>>>(
         r, k, v, w, sb, sh, u, s0, o, s_out, H);
   } else {
-    wkv6_fwd<K, VEC><<<blocks, L::NT, L::BYTES, st>>>(
-        r, k, v, w, sb, ss, sh, u, s0, o, s_out, S, H);
+    wkv6_fwd<K, VEC, false><<<blocks, L::NT, L::BYTES, st>>>(
+        r, k, v, w, sb, ss, sh, u, s0, o, s_out, nullptr, S, H);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -528,17 +546,318 @@ int launch(const float* r, const float* k, const float* v, const float* w,
 template <int K>
 int dispatch(const float* r, const float* k, const float* v, const float* w,
              long long sb, long long ss, long long sh, const float* u,
-             const float* s0, float* o, float* s_out, int B, int S, int H,
-             int vec, const int* geo, cudaStream_t st) {
+             const float* s0, float* o, float* s_out, float* ckpt, int B,
+             int S, int H, int vec, const int* geo, cudaStream_t st) {
   using L = Layout<K>;
   if (geo[0] != L::JC || geo[1] != L::G || geo[2] != L::C || geo[3] != L::T ||
       geo[4] != L::STAGES)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (vec == 4)
-    return launch<K, 4>(r, k, v, w, sb, ss, sh, u, s0, o, s_out, B, S, H, st);
+    return launch<K, 4>(r, k, v, w, sb, ss, sh, u, s0, o, s_out, ckpt, B, S,
+                        H, st);
   if (vec == 1)
-    return launch<K, 1>(r, k, v, w, sb, ss, sh, u, s0, o, s_out, B, S, H, st);
+    return launch<K, 1>(r, k, v, w, sb, ss, sh, u, s0, o, s_out, ckpt, B, S,
+                        H, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------
+// Backward (training). Given dO and dS_T, with S_{t-1} the state before
+// step t and dS the gradient of the state after it, walking t downward:
+//
+//     dr_t[i] = sum_j dO_t[j] * (S_{t-1}[i,j] + u[i] k_t[i] v_t[j])
+//     dk_t[i] = sum_j e[i,j] * v_t[j],   e = dS + (u r_t) dO_t^T
+//     dv_t[j] = sum_i k_t[i] * e[i,j]
+//     dw_t[i] = sum_j dS[i,j] * S_{t-1}[i,j]
+//     du[i]  += r_t[i] k_t[i] * sum_j dO_t[j] v_t[j]
+//     dS     <- diag(w_t) dS + r_t^T dO_t,   ds0 = the last dS
+//
+// (kernels/ref.py: wkv6_backward_ref). The reference has no Pallas
+// backward: it differentiates lax.scan (src/repro/models/rwkv6.py:141).
+//
+// Column j of S and of dS evolves from its own v_j, dO_j and the rows'
+// k, w, r alone, so a block takes one (b, h) and a group of JB columns,
+// as the forward takes JC: B*H*(K/JB) blocks, dS of its columns in
+// registers for the whole walk. S_{t-1} never comes from dividing by w
+// (w = exp(-exp(.)) can be ~0): the forward (SAVE) wrote the state before
+// every 16-step chunk, and the block recomputes the chunk's 16 states from
+// there, forward, into shared memory (each lane reads back only its own
+// entries), then walks the chunk downward.
+//
+// Lane (i, p) = (tid / L, tid % L) holds row i, columns p*CT .. +CT of
+// the block's. Row sums (dr, dk, dw and sum_j dO v over the block's
+// columns) are CT terms in order, then a reduce-scatter over the L lanes
+// of the row: each of the four ends in one lane. Column sums (dv) are the
+// warp's rows folded by a reduce-scatter (xor L, 2L, ..), then the warps
+// in order through shared memory. What sums over all K columns (dr, dk,
+// dw, du) leaves a block as a partial of its JB columns; wkv6_bwd_fold
+// adds the K/JB partials in order, and du's over b too. Every order is a
+// function of K alone and no atomics are used: a repeat is bit-identical.
+//
+// What bounds it: like the forward, bytes and fp32 issue (~12 operations
+// a state entry and step: the recomputed update, e, four products into
+// the sums, the dS update). Shared memory at K = 64: the chunk's 16
+// states of 64 x 16 (64 KB) plus its inputs and staged outputs, ~100 KB:
+// two blocks an SM.
+
+template <int K>
+struct Bwd {
+  static constexpr int JB = K >= 16 ? 16 : 8;  // columns a block
+  static constexpr int CT = K >= 16 ? 4 : 2;   // columns a lane
+  static constexpr int L = JB / CT;            // lanes a row
+  static constexpr int NT = K * L;             // threads a block
+  static constexpr int NW = NT / 32;
+  static constexpr int NCB = K / JB;           // column groups of a (b, h)
+  static constexpr int T = 16;                 // the forward's chunk
+  // staged r, k, w (T x K), v, dO (T x JB); the chunk's states (T x K x
+  // JB); the warps' dv partials (T x NW x JB); dr, dk, dw out (3 x T x K)
+  static constexpr int FLOATS =
+      3 * T * K + 2 * T * JB + T * K * JB + T * NW * JB + 3 * T * K;
+  static constexpr int BYTES = FLOATS * 4;
+  static_assert(L == 4, "the row fold scatters four sums over four lanes");
+  static_assert(NT % 32 == 0, "whole warps");
+};
+
+// xor reduce-scatter over the lanes whose ids differ in the bits FIRST,
+// 2*FIRST, .. below END: while a lane holds n > 1 values it keeps half
+// and sends half (the lane with the offset's bit set keeps the upper
+// half), then it adds its partner's one. Returns the index of the value
+// whose full sum the lane ends with in acc[0].
+template <int FIRST, int END, int N>
+__device__ __forceinline__ int xor_scatter(float (&acc)[N], int lane) {
+  int idx = 0;
+#pragma unroll
+  for (int l = 0, off = FIRST; off < END; ++l, off <<= 1) {
+    const int n = N >> l;
+    if (n > 1) {
+      const bool upper = lane & off;
+#pragma unroll
+      for (int i = 0; i < n / 2; ++i) {
+        const float send = upper ? acc[i] : acc[i + n / 2];
+        const float keep = upper ? acc[i + n / 2] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+      if (upper) idx += n / 2;
+    } else {
+      acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
+    }
+  }
+  return idx;
+}
+
+// d_o through its own element strides (dsb, dss, dsh), unit over K.
+// part: (3, NCB, B, S, H, K) partial dr, dk, dw; du_part: (B, H, NCB, K);
+// dv: (B, S, H, K); ds0, d_state: (B, H, K, K); ckpt as the forward's.
+template <int K>
+__global__ void __launch_bounds__(Bwd<K>::NT)
+    wkv6_bwd(const float* __restrict__ r, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ w,
+             long long sb, long long ss, long long sh,
+             const float* __restrict__ u, const float* __restrict__ ckpt,
+             const float* __restrict__ d_o, long long dsb, long long dss,
+             long long dsh, const float* __restrict__ d_state,
+             float* __restrict__ part, float* __restrict__ du_part,
+             float* __restrict__ dv, float* __restrict__ ds0, int B, int S,
+             int H) {
+  using W = Bwd<K>;
+  constexpr int JB = W::JB, CT = W::CT, L = W::L, NT = W::NT, NW = W::NW,
+                T = W::T, NCB = W::NCB;
+  extern __shared__ __align__(16) float smem[];
+  float* s_r = smem;              // T x K
+  float* s_k = s_r + T * K;
+  float* s_w = s_k + T * K;
+  float* s_v = s_w + T * K;       // T x JB
+  float* s_do = s_v + T * JB;     // T x JB
+  float* s_hist = s_do + T * JB;  // T x K x JB
+  float* s_red = s_hist + T * K * JB;  // T x NW x JB
+  float* s_out = s_red + T * NW * JB;  // 3 x T x K
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int i = tid / L;
+  const int p = tid - i * L;
+  const int bh = blockIdx.x / NCB;
+  const int cg = blockIdx.x - bh * NCB;
+  const int j0 = cg * JB;     // the block's first column
+  const int jl = p * CT;      // the lane's first column within the block's
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const long long in0 = b * sb + h * sh;
+  const long long do0 = b * dsb + h * dsh;
+  const int n_chunks = (S + T - 1) / T;
+  const long long n_out = static_cast<long long>(B) * S * H * K;
+
+  float ds[CT];
+  const float* dsp = d_state + (static_cast<long long>(bh) * K + i) * K +
+                     j0 + jl;
+#pragma unroll
+  for (int q = 0; q < CT; ++q) ds[q] = dsp[q];
+  const float ui = u[h * K + i];
+  float du = 0.f;  // r k (dO . v) over t, in the lane that holds dO . v
+
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * T;
+    const int n = min(T, S - t0);
+    __syncthreads();  // the previous chunk's staged data is consumed
+    for (int e = tid; e < n * K; e += NT) {
+      const int tt = e / K, x = e - tt * K;
+      const long long g = in0 + static_cast<long long>(t0 + tt) * ss + x;
+      s_r[e] = r[g];
+      s_k[e] = k[g];
+      s_w[e] = w[g];
+    }
+    for (int e = tid; e < n * JB; e += NT) {
+      const int tt = e / JB, x = e - tt * JB;
+      s_v[e] = v[in0 + static_cast<long long>(t0 + tt) * ss + j0 + x];
+      s_do[e] = d_o[do0 + static_cast<long long>(t0 + tt) * dss + j0 + x];
+    }
+    float st[CT];
+    const float* cp = ckpt +
+                      ((static_cast<long long>(bh) * n_chunks + c) * K + i) *
+                          K + j0 + jl;
+#pragma unroll
+    for (int q = 0; q < CT; ++q) st[q] = cp[q];
+    __syncthreads();
+
+    // the chunk's states, forward, with the forward kernel's update; a
+    // lane's CT columns move as one 8- or 16-byte access
+#pragma unroll 2
+    for (int tt = 0; tt < n; ++tt) {
+      const float wi = s_w[tt * K + i], ki = s_k[tt * K + i];
+      float vv[CT];
+      load_n<CT>(s_v + tt * JB + jl, vv);
+      store_n<CT>(s_hist + (tt * K + i) * JB + jl, st);
+#pragma unroll
+      for (int q = 0; q < CT; ++q) st[q] = fmaf(wi, st[q], ki * vv[q]);
+    }
+
+#pragma unroll 2
+    for (int tt = n - 1; tt >= 0; --tt) {
+      const float ri = s_r[tt * K + i], ki = s_k[tt * K + i],
+                  wi = s_w[tt * K + i];
+      const float ur = ui * ri, uk = ui * ki;
+      float hist[CT], vv[CT], dd[CT];
+      load_n<CT>(s_hist + (tt * K + i) * JB + jl, hist);
+      load_n<CT>(s_v + tt * JB + jl, vv);
+      load_n<CT>(s_do + tt * JB + jl, dd);
+      float rows[4] = {0.f, 0.f, 0.f, 0.f};  // dr, dk, dw, dO . v
+      float dvc[CT];
+#pragma unroll
+      for (int q = 0; q < CT; ++q) {
+        const float prev = hist[q], vj = vv[q], dj = dd[q];
+        const float e = fmaf(ur, dj, ds[q]);
+        rows[0] = fmaf(dj, fmaf(uk, vj, prev), rows[0]);
+        rows[1] = fmaf(e, vj, rows[1]);
+        rows[2] = fmaf(ds[q], prev, rows[2]);
+        rows[3] = fmaf(dj, vj, rows[3]);
+        dvc[q] = ki * e;
+        ds[q] = fmaf(wi, ds[q], ri * dj);
+      }
+      const int which = xor_scatter<1, L, 4>(rows, lane);
+      if (which < 3)
+        s_out[(which * T + tt) * K + i] = rows[0];
+      else
+        du = fmaf(ri * ki, rows[0], du);
+      const int col = xor_scatter<L, 32, CT>(dvc, lane);
+      if (((lane / L) & ~(CT - 1)) == 0)
+        s_red[(tt * NW + warp) * JB + jl + col] = dvc[0];
+    }
+    __syncthreads();
+
+    // dv of the chunk: the warps' partials in order
+    for (int e = tid; e < n * JB; e += NT) {
+      const int tt = e / JB, x = e - tt * JB;
+      float acc = s_red[(tt * NW) * JB + x];
+#pragma unroll
+      for (int q = 1; q < NW; ++q) acc += s_red[(tt * NW + q) * JB + x];
+      dv[((static_cast<long long>(b) * S + t0 + tt) * H + h) * K + j0 + x] =
+          acc;
+    }
+    // dr, dk, dw partials of this column group
+    for (int e = tid; e < 3 * n * K; e += NT) {
+      const int which = e / (n * K);
+      const int rest = e - which * n * K;
+      const int tt = rest / K, x = rest - tt * K;
+      part[(which * NCB + cg) * n_out +
+           ((static_cast<long long>(b) * S + t0 + tt) * H + h) * K + x] =
+          s_out[(which * T + tt) * K + x];
+    }
+  }
+
+  float* dsq = ds0 + (static_cast<long long>(bh) * K + i) * K + j0 + jl;
+#pragma unroll
+  for (int q = 0; q < CT; ++q) dsq[q] = ds[q];
+  // the lane that ended with dO . v holds this column group's du[i]
+  if (p == L - 1) du_part[(static_cast<long long>(bh) * NCB + cg) * K + i] = du;
+}
+
+// dr, dk, dw: the NCB column groups' partials added in order; du: the
+// (b, column group) partials added in order of b, then group.
+template <int K>
+__global__ void wkv6_bwd_fold(const float* __restrict__ part,
+                              const float* __restrict__ du_part,
+                              float* __restrict__ dr, float* __restrict__ dk,
+                              float* __restrict__ dw, float* __restrict__ du,
+                              long long n_out, int B, int H) {
+  constexpr int NCB = Bwd<K>::NCB;
+  const long long x = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (x < n_out) {
+    float* outs[3] = {dr, dk, dw};
+#pragma unroll
+    for (int which = 0; which < 3; ++which) {
+      const float* pp = part + which * NCB * n_out + x;
+      float acc = pp[0];
+#pragma unroll
+      for (int q = 1; q < NCB; ++q) acc += pp[q * n_out];
+      outs[which][x] = acc;
+    }
+  }
+  if (x < static_cast<long long>(H) * K) {
+    const int h = static_cast<int>(x / K), i = static_cast<int>(x % K);
+    float acc = 0.f;
+    for (int bb = 0; bb < B; ++bb)
+#pragma unroll
+      for (int q = 0; q < NCB; ++q)
+        acc += du_part[((static_cast<long long>(bb) * H + h) * NCB + q) * K + i];
+    du[x] = acc;
+  }
+}
+
+template <int K>
+int launch_bwd(const float* r, const float* k, const float* v, const float* w,
+               long long sb, long long ss, long long sh, const float* u,
+               const float* ckpt, const float* d_o, long long dsb,
+               long long dss, long long dsh, const float* d_state,
+               float* part, float* du_part, float* dr, float* dk, float* dv,
+               float* dw, float* du, float* ds0, int B, int S, int H, int jb,
+               cudaStream_t st) {
+  using W = Bwd<K>;
+  if (jb != W::JB) return static_cast<int>(cudaErrorInvalidConfiguration);
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(configured & bit)) {
+    e = cudaFuncSetAttribute(wkv6_bwd<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             W::BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured |= bit;
+  }
+  wkv6_bwd<K><<<static_cast<unsigned>(B) * H * W::NCB, W::NT, W::BYTES,
+                 st>>>(r, k, v, w, sb, ss, sh, u, ckpt, d_o, dsb, dss, dsh,
+                       d_state, part, du_part, dv, ds0, B, S, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n_out = static_cast<long long>(B) * S * H * K;
+  const long long n = n_out > static_cast<long long>(H) * K
+                          ? n_out
+                          : static_cast<long long>(H) * K;
+  wkv6_bwd_fold<K><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      part, du_part, dr, dk, dw, du, n_out, B, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -547,16 +866,19 @@ int dispatch(const float* r, const float* k, const float* v, const float* w,
 // and a unit stride over K; with vec = 4 their bases and strides are
 // multiples of 16 bytes (vec = 1: any). u: (H, K) fp32 contiguous; s0,
 // s_out: (B, H, K, K) fp32 contiguous, 16-byte aligned; o: (B, S, H, K)
-// fp32 contiguous, 16-byte aligned. K is 8, 16, 32 or 64; (jc, g, c, t,
-// stages) must be the kernel's geometry for K. Returns cudaGetLastError()
-// after the launch on `stream`, cudaErrorInvalidValue for another K or vec,
+// fp32 contiguous, 16-byte aligned. ckpt: null (serving), or (B, H,
+// ceil(S / 16), K, K) fp32 contiguous, which then receives the state
+// before every 16-step chunk (training; the chunked kernel runs at every
+// S). K is 8, 16, 32 or 64; (jc, g, c, t, stages) must be the kernel's
+// geometry for K. Returns cudaGetLastError() after the launch on
+// `stream`, cudaErrorInvalidValue for another K or vec,
 // cudaErrorInvalidConfiguration for another geometry.
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
                           const void* w, long long sb, long long ss,
                           long long sh, const void* u, const void* s0,
-                          void* o, void* s_out, int B, int S, int H, int K,
-                          int vec, int jc, int g, int c, int t, int stages,
-                          void* stream) {
+                          void* o, void* s_out, void* ckpt, int B, int S,
+                          int H, int K, int vec, int jc, int g, int c, int t,
+                          int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* rp = static_cast<const float*>(r);
   const float* kp = static_cast<const float*>(k);
@@ -566,21 +888,64 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
   const float* s0p = static_cast<const float*>(s0);
   float* op = static_cast<float*>(o);
   float* sp = static_cast<float*>(s_out);
+  float* cp = static_cast<float*>(ckpt);
   const int geo[5] = {jc, g, c, t, stages};
   switch (K) {
     case 8:
-      return dispatch<8>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S, H,
-                         vec, geo, st);
+      return dispatch<8>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, cp, B,
+                         S, H, vec, geo, st);
     case 16:
-      return dispatch<16>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S,
-                          H, vec, geo, st);
+      return dispatch<16>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, cp, B,
+                          S, H, vec, geo, st);
     case 32:
-      return dispatch<32>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S,
-                          H, vec, geo, st);
+      return dispatch<32>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, cp, B,
+                          S, H, vec, geo, st);
     case 64:
-      return dispatch<64>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, B, S,
-                          H, vec, geo, st);
+      return dispatch<64>(rp, kp, vp, wp, sb, ss, sh, up, s0p, op, sp, cp, B,
+                          S, H, vec, geo, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward of repro_wkv6 (training): r, k, v, w, u as given to it,
+// ckpt as it wrote it; d_o (B, S, H, K) fp32 read through its element
+// strides (dsb, dss, dsh) with a unit stride over K; d_state (B, H, K, K)
+// fp32 contiguous (zeros where the final state has no gradient). Writes
+// dr, dk, dv, dw (B, S, H, K), du (H, K) and ds0 (B, H, K, K), all fp32
+// contiguous; part (3, K / jb, B, S, H, K) and du_part (B, H, K / jb, K)
+// are scratch. jb must be the kernel's column group for K. Two launches
+// (the walk, then the ordered fold); returns cudaGetLastError() after
+// each, cudaErrorInvalidValue for another K.
+extern "C" int repro_wkv6_backward(
+    const void* r, const void* k, const void* v, const void* w, long long sb,
+    long long ss, long long sh, const void* u, const void* ckpt,
+    const void* d_o, long long dsb, long long dss, long long dsh,
+    const void* d_state, void* part, void* du_part, void* dr, void* dk,
+    void* dv, void* dw, void* du, void* ds0, int B, int S, int H, int K,
+    int jb, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_ARGS                                                          \
+  static_cast<const float*>(r), static_cast<const float*>(k),              \
+      static_cast<const float*>(v), static_cast<const float*>(w), sb, ss,  \
+      sh, static_cast<const float*>(u), static_cast<const float*>(ckpt),   \
+      static_cast<const float*>(d_o), dsb, dss, dsh,                       \
+      static_cast<const float*>(d_state), static_cast<float*>(part),       \
+      static_cast<float*>(du_part), static_cast<float*>(dr),               \
+      static_cast<float*>(dk), static_cast<float*>(dv),                    \
+      static_cast<float*>(dw), static_cast<float*>(du),                    \
+      static_cast<float*>(ds0), B, S, H, jb, st
+  switch (K) {
+    case 8:
+      return launch_bwd<8>(REPRO_ARGS);
+    case 16:
+      return launch_bwd<16>(REPRO_ARGS);
+    case 32:
+      return launch_bwd<32>(REPRO_ARGS);
+    case 64:
+      return launch_bwd<64>(REPRO_ARGS);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_ARGS
 }

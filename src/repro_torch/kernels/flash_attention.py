@@ -16,6 +16,17 @@ multiple of 16 bytes (:func:`tma_refusal`). float32 runs on CUDA cores.
 For a CPU tensor it runs
 :func:`repro_torch.kernels.ref.flash_attention_gqa_ref`. Inputs are
 float32 or bfloat16, all three the same, and hd is 16, 32, 64 or 128.
+
+When a gradient is wanted (grad mode on and an input that requires it)
+the op is a ``torch.autograd.Function``: on the card the forward kernel
+also writes each row's logsumexp L, and the backward is a pair of
+kernels (:func:`flash_attention_backward`: dQ, then dK and dV summed
+over each kv head's query heads in order; bfloat16 on the tensor cores
+with ``mma.sync``, the same 16-byte rule for q, k, v and dO as the
+forward's TMA; float32 on CUDA cores), counted in
+``backward_launches``; on the CPU the forward and backward are the plain
+versions (``ref.flash_attention_backward_ref``). Serving never takes that
+route: one launch a layer, no L written.
 """
 
 from __future__ import annotations
@@ -23,7 +34,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_gqa_ref
+from repro_torch.kernels.ref import (flash_attention_backward_ref,
+                                     flash_attention_gqa_ref,
+                                     flash_attention_lse_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,7 +44,8 @@ MAX_GRID_YZ = 65_535         # the kernel's grid is (S / 64, Hq, B)
 TMA_ALIGN = 16               # bytes: TMA's base and stride granule
 NO_ENCODER = -1000           # the C entry's code for a missing libcuda call
 
-launches = 0     # kernel launches
+launches = 0            # forward kernel launches
+backward_launches = 0   # backward calls (each the dQ and the dK/dV kernel)
 
 
 def _check(q, k, v, window) -> None:
@@ -80,16 +94,15 @@ def tma_refusal(name: str, t: torch.Tensor) -> str | None:
     return None
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, S, Hq, hd), k and v (B, S, Hk, hd) with Hq a multiple of Hk →
-    (B, S, Hq, hd) in q's dtype. ``window`` > 0 keeps the keys with
-    q - k < window."""
-    _check(q, k, v, window)
+def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
+    """(o, L (B, Hq, S) float32 or None)."""
     B, S, Hq, hd = q.shape
     Hk = k.shape[2]
     if q.device.type == "cpu":
-        return flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+        o = flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+        return o, (flash_attention_lse_ref(q, k, causal=causal,
+                                           window=window)
+                   if want_lse else None)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -108,9 +121,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     fn = _build.entry_point("flash_attention")
     o = torch.empty((B, S, Hq, hd), device=q.device, dtype=q.dtype)
+    lse = (torch.empty((B, Hq, S), device=q.device, dtype=torch.float32)
+           if want_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 0 if lse is None else lse.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  B, S, Hq, Hk, hd, int(causal), window, DTYPES[q.dtype],
                  stream)
@@ -124,4 +140,91 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return o
+    return o, lse
+
+
+def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
+                             window: int = 0):
+    """The gradient of :func:`flash_attention`: (dq, dk, dv) in q's dtype,
+    from the forward's output ``o`` and row logsumexp ``lse`` (B, Hq, S)
+    and the output gradient ``d_o`` (B, S, Hq, hd)."""
+    B, S, Hq, hd = q.shape
+    Hk = k.shape[2]
+    if q.device.type == "cpu":
+        return flash_attention_backward_ref(q, k, v, o, lse, d_o,
+                                            causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for {q.device}")
+    if d_o.shape != q.shape or d_o.dtype != q.dtype or d_o.stride(3) != 1:
+        raise ValueError(f"flash attention backward kernel needs d_o of "
+                         f"shape {tuple(q.shape)} and dtype {q.dtype} with "
+                         f"a unit stride over hd; got {tuple(d_o.shape)} "
+                         f"{d_o.dtype} strides {d_o.stride()}")
+    if not (o.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash attention backward kernel needs the "
+                         "forward's contiguous o and lse")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash attention kernel needs a unit stride "
+                             f"over hd; {name} has strides {t.stride()}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("d_o", d_o)):
+            why = tma_refusal(name, t)
+            if why is not None:
+                raise ValueError(f"bfloat16 flash attention backward kernel "
+                                 f"copies 16-byte pieces: {why}")
+    global backward_launches
+    fn = _build.entry_point("flash_attention_backward")
+    dq = torch.empty((B, S, Hq, hd), device=q.device, dtype=q.dtype)
+    dk = torch.empty((B, S, Hk, hd), device=q.device, dtype=q.dtype)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, Hq, S), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), d_o.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *d_o.stride()[:3], B, S, Hq, Hk, hd, int(causal), window,
+                 DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    backward_launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The op with a gradient: the kernels on the card, the plain
+    versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = _forward(q, k, v, causal, window, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, d_o):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window = ctx.mask
+        # e.g. the expanded grad of a sum; the bf16 kernel also wants
+        # 16-byte aligned rows, which a fresh copy has
+        if d_o.stride(3) != 1 or (d_o.dtype == torch.bfloat16
+                                  and tma_refusal("d_o", d_o)):
+            d_o = d_o.clone(memory_format=torch.contiguous_format)
+        return (*flash_attention_backward(q, k, v, o, lse, d_o,
+                                          causal=causal, window=window),
+                None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, S, Hq, hd), k and v (B, S, Hk, hd) with Hq a multiple of Hk →
+    (B, S, Hq, hd) in q's dtype. ``window`` > 0 keeps the keys with
+    q - k < window. Differentiable when an input requires grad."""
+    _check(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, want_lse=False)[0]

@@ -2,7 +2,9 @@
 
 Each op runs its hand-written CUDA kernel for a CUDA tensor and its plain
 PyTorch version (``repro_torch.kernels.ref``) for a CPU tensor; there is
-no other route. :func:`launch_counts` reads how many times each kernel
+no other route. ``wkv6_recurrence`` and ``flash_attention`` are
+differentiable: their backward passes are kernels too (on the CPU, the
+plain backward versions). :func:`launch_counts` reads how many times each kernel
 was launched, so a run can show that its main path went through them.
 """
 
@@ -35,10 +37,14 @@ def batched_cosine_similarity(W: torch.Tensor,
 
 
 def launch_counts() -> Dict[str, int]:
+    """Calls that launched each kernel; a backward call launches its
+    kernel pair once."""
     return {"cosine_partials": _cs.launches,
             "weighted_aggregate": _wa.launches,
             "wkv6": _wkv.launches,
-            "flash_attention": _fa.launches}
+            "flash_attention": _fa.launches,
+            "wkv6_backward": _wkv.backward_launches,
+            "flash_attention_backward": _fa.backward_launches}
 
 
 def reset_launch_counts() -> None:
@@ -46,6 +52,8 @@ def reset_launch_counts() -> None:
     _wa.launches = 0
     _wkv.launches = 0
     _fa.launches = 0
+    _wkv.backward_launches = 0
+    _fa.backward_launches = 0
 
 
 __all__ = ["batched_cosine_similarity", "combine_partials", "cosine_partials",

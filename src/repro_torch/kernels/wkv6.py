@@ -1,4 +1,4 @@
-"""WKV6 recurrence — the RWKV-6 time-mixing hot spot (forward only).
+"""WKV6 recurrence — the RWKV-6 time-mixing hot spot, forward and backward.
 
 Port of ``repro.kernels.ops.wkv6_recurrence`` (the Pallas ``wkv6``
 kernel). Per batch b and head h, with a K × K float32 state S:
@@ -16,6 +16,15 @@ order of sums — the design note is in the source) and counts one launch.
 kernel refuses another. For a CPU tensor it runs
 :func:`repro_torch.kernels.ref.wkv6_recurrence_ref`. Inputs are float32
 only (the model casts to float32 first) and K is 8, 16, 32 or 64.
+
+When a gradient is wanted (grad mode on and an input that requires it)
+the op is a ``torch.autograd.Function``: on the card the forward kernel
+also writes the state before every 16-step chunk, and the backward is a
+kernel of its own (:func:`wkv6_backward`: it recomputes each chunk's
+states from there and walks t downward, then an ordered fold), counted
+in ``backward_launches``; on the CPU the forward and backward are the
+plain versions (``ref.wkv6_backward_ref``). Serving never takes that
+route, so its launches and kernels are unchanged.
 """
 
 from __future__ import annotations
@@ -25,11 +34,16 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import wkv6_recurrence_ref
+from repro_torch.kernels.ref import wkv6_backward_ref, wkv6_recurrence_ref
 
 HEAD_SIZES = (8, 16, 32, 64)
+CHUNK = 16       # steps between the states the training forward saves
 
-launches = 0     # kernel launches
+launches = 0            # forward kernel launches
+backward_launches = 0   # backward calls (each the walk and its fold)
+
+# K -> state columns a block of the backward (csrc/wkv6.cu: Bwd<K>::JB)
+BACKWARD_COLUMNS = {64: 16, 32: 16, 16: 16, 8: 8}
 
 # K -> (Jc state columns a block, G lanes a column group, C columns a
 # lane, T steps a chunk, ring stages): csrc/wkv6.cu's Geo<K>, which
@@ -103,16 +117,8 @@ def _check(r, k, v, w, u, s0) -> None:
                              f"{t.device}")
 
 
-def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
-    """r, k, v, w (B, S, H, K), u (H, K), s0 (B, H, K, K), all float32 →
-    (o (B, S, H, K), final state (B, H, K, K)) in float32."""
-    _check(r, k, v, w, u, s0)
-    B, S, H, K = r.shape
-    if r.device.type == "cpu":
-        return wkv6_recurrence_ref(r, k, v, w, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"no wkv6 kernel for {r.device}")
+def _launch_checks(r, k, v, w, u, s0) -> tuple:
+    """The kernels' layout requirements; returns r's strides."""
     strides = r.stride()
     for name, t in (("k", k), ("v", v), ("w", w)):
         if t.stride() != strides:
@@ -126,19 +132,114 @@ def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("wkv6 kernel needs contiguous u and s0")
     if s0.data_ptr() % 16:
         raise ValueError("wkv6 kernel needs s0 aligned to 16 bytes")
+    return strides
+
+
+def _forward(r, k, v, w, u, s0, save: bool):
+    """(o, final state, the saved chunk states or None)."""
+    B, S, H, K = r.shape
+    if r.device.type == "cpu":
+        return (*wkv6_recurrence_ref(r, k, v, w, u, s0), None)
+    if r.device.type != "cuda":
+        raise ValueError(f"no wkv6 kernel for {r.device}")
+    strides = _launch_checks(r, k, v, w, u, s0)
     global launches
     fn = _build.entry_point("wkv6")
     geo = launch_shape(B, H, K)
     vec = copy_width([t.data_ptr() for t in (r, k, v, w)], strides, r.shape)
     o = torch.empty((B, S, H, K), device=r.device, dtype=torch.float32)
     s_fin = torch.empty((B, H, K, K), device=r.device, dtype=torch.float32)
+    ckpt = (torch.empty((B, H, -(-S // CHUNK), K, K), device=r.device,
+                        dtype=torch.float32) if save else None)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  strides[0], strides[1], strides[2], u.data_ptr(),
-                 s0.data_ptr(), o.data_ptr(), s_fin.data_ptr(), B, S, H, K,
+                 s0.data_ptr(), o.data_ptr(), s_fin.data_ptr(),
+                 0 if ckpt is None else ckpt.data_ptr(), B, S, H, K,
                  vec, geo.jc, geo.g, geo.c, geo.t, geo.stages, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     launches += 1
-    return o, s_fin
+    return o, s_fin, ckpt
+
+
+def wkv6_backward(r, k, v, w, u, s0, d_o, d_state, ckpt=None):
+    """The gradient of :func:`wkv6_recurrence`: (dr, dk, dv, dw, du, ds0)
+    in float32 for d_o (B, S, H, K) and d_state (B, H, K, K; None is
+    zeros). On the card ``ckpt`` is what the training forward saved; on
+    the CPU it is not used and the plain version runs."""
+    B, S, H, K = r.shape
+    if r.device.type == "cpu":
+        return wkv6_backward_ref(r, k, v, w, u, s0, d_o, d_state)
+    if r.device.type != "cuda":
+        raise ValueError(f"no wkv6 kernel for {r.device}")
+    strides = _launch_checks(r, k, v, w, u, s0)
+    if ckpt is None or tuple(ckpt.shape) != (B, H, -(-S // CHUNK), K, K):
+        raise ValueError("wkv6 backward kernel needs the chunk states of "
+                         "the training forward")
+    if d_o.shape != r.shape or d_o.dtype != torch.float32 \
+            or d_o.stride(3) != 1:
+        raise ValueError(f"wkv6 backward kernel needs a float32 d_o of "
+                         f"shape {tuple(r.shape)} with a unit stride over "
+                         f"K; got {tuple(d_o.shape)} {d_o.dtype} strides "
+                         f"{d_o.stride()}")
+    dev = r.device
+    d_state = (torch.zeros((B, H, K, K), device=dev, dtype=torch.float32)
+               if d_state is None else
+               d_state.to(torch.float32).contiguous())
+    global backward_launches
+    fn = _build.entry_point("wkv6_backward")
+    jb = BACKWARD_COLUMNS[K]
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    dr, dk, dv, dw = (empty(B, S, H, K) for _ in range(4))
+    du, ds0 = empty(H, K), empty(B, H, K, K)
+    part, du_part = empty(3, K // jb, B, S, H, K), empty(B, H, K // jb, K)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 *strides[:3], u.data_ptr(), ckpt.data_ptr(),
+                 d_o.data_ptr(), *d_o.stride()[:3], d_state.data_ptr(),
+                 part.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+                 ds0.data_ptr(), B, S, H, K, jb, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward kernel launch failed: CUDA "
+                           f"error {err}")
+    backward_launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class _Recurrence(torch.autograd.Function):
+    """The op with a gradient: the kernels on the card, the plain
+    versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        o, s_fin, ckpt = _forward(r, k, v, w, u, s0, save=True)
+        ctx.save_for_backward(r, k, v, w, u, s0, ckpt)
+        return o, s_fin
+
+    @staticmethod
+    def backward(ctx, d_o, d_state):
+        r, k, v, w, u, s0, ckpt = ctx.saved_tensors
+        if d_o is None:
+            d_o = torch.zeros_like(r)
+        elif d_o.stride(3) != 1:     # e.g. the expanded grad of a sum
+            d_o = d_o.contiguous()
+        return wkv6_backward(r, k, v, w, u, s0, d_o, d_state, ckpt)
+
+
+def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """r, k, v, w (B, S, H, K), u (H, K), s0 (B, H, K, K), all float32 →
+    (o (B, S, H, K), final state (B, H, K, K)) in float32,
+    differentiable when an input requires grad."""
+    _check(r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, s0)):
+        return _Recurrence.apply(r, k, v, w, u, s0)
+    return _forward(r, k, v, w, u, s0, save=False)[:2]

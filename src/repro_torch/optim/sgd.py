@@ -31,11 +31,26 @@ def sgd_update(grads: dict, state: SGDState, params: dict,
                decay: float = 5e-4) -> None:
     """Keras-style time-based decay: lr_t = lr / (1 + decay * t);
     m ← μ·m + g; p ← p − lr_t·m. ``params`` and ``state`` are updated in
-    place. lr_t is computed in float32, as the reference does."""
+    place. lr_t is computed in float32, as the reference does.
+
+    Types follow the reference's jnp promotion: μ is taken in m's dtype
+    (a weak Python scalar there), and lr_t is a float32 array, so a
+    bfloat16 leaf's update is float32: its entry in ``params`` is replaced
+    by the float32 result (and a bfloat16 momentum by a float32 one once
+    the gradient is float32). float32 leaves are updated in place."""
     lr_t = np.float32(lr) / (np.float32(1.0)
                              + np.float32(decay) * np.float32(state.step))
     for k, p in params.items():
-        m = state.momentum[k]
-        m.mul_(momentum).add_(grads[k])
-        p.sub_(float(lr_t) * m)
+        m, g = state.momentum[k], grads[k]
+        mu = momentum if m.dtype == torch.float32 else float(
+            torch.tensor(momentum, dtype=m.dtype))
+        if m.dtype == g.dtype:
+            m.mul_(mu).add_(g)
+        else:
+            m = state.momentum[k] = m * mu + g
+        if p.dtype == m.dtype == torch.float32:
+            p.sub_(float(lr_t) * m)
+        else:
+            params[k] = (p.to(torch.float32)
+                         - float(lr_t) * m.to(torch.float32))
     state.step += 1

@@ -147,8 +147,10 @@ def test_run_bhfl_on_cpu():
     (dict(scenario="byzantine_third"), NotImplementedError),
     (dict(faults=object()), NotImplementedError),
     (dict(committees=2), NotImplementedError),
-    (dict(model="rwkv6"), NotImplementedError),
-    (dict(model="transformer"), NotImplementedError),
+    (dict(model="transformer", distribution="label", data=None),
+     ValueError),
+    (dict(model=api.transformer_adapter(vocab_size=32, device="cpu"),
+          data=api.make_token_dataset(16, 8, 64)), ValueError),
     (dict(model="cnn"), ValueError),
     (dict(engine="batched"), ValueError),
     (dict(shape_bucketing=True), TypeError),

@@ -263,7 +263,8 @@ def test_wkv6_cpu_dispatch_is_plain_version_and_launches_nothing():
     assert torch.equal(sf.reshape(B * H, K, K), rsf)
     assert ops.launch_counts() == before
     assert before.keys() == {"cosine_partials", "weighted_aggregate", "wkv6",
-                             "flash_attention"}
+                             "flash_attention", "wkv6_backward",
+                             "flash_attention_backward"}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_size", "shape", "state",

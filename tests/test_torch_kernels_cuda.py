@@ -19,6 +19,19 @@ transformer. Flash attention: the reference's flash tolerances
 the order of their sums; the bfloat16 kernel also rounds p to bfloat16
 for its P·V product on the tensor cores, which the plain version does
 not.
+
+The backward kernels against the plain backward versions: WKV6 rtol 1e-4
+/ atol 1e-3 — float32 sums over K and over up to 513 steps of the walk
+in another order (the plain version's own float32 is within 5e-4 of a
+float64 run at these shapes, du largest: it sums B·S terms); flash
+attention float32 rtol/atol 1e-4 (the forward's sums, then dP - D and
+the products over up to 513 keys or queries in another order) and
+bfloat16 2e-2 (the tensor-core kernel takes P and dS into its products
+as two bfloat16 parts, ~16 bits, the plain version in float32; both
+round the result to bfloat16 once). Model gradients on the card against the
+CPU's: the bfloat16 rule above, taken relative to each parameter's
+gradient scale s = max |g_cpu|: max |g_card - g_cpu| <= 0.125 s and the
+mean <= 0.02 s.
 """
 
 import math
@@ -68,7 +81,8 @@ def test_kernels_match_plain(cuda_device, n, d, dtype):
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == \
         {"cosine_partials": 1, "weighted_aggregate": 1, "wkv6": 0,
-         "flash_attention": 0}
+         "flash_attention": 0, "wkv6_backward": 0,
+         "flash_attention_backward": 0}
 
 
 def _agg_views(dev, n, d, dtype, view):
@@ -248,7 +262,8 @@ def test_run_bhfl_on_card_goes_through_kernels(cuda_device):
     assert run.runtime.global_params["w1"].is_cuda
     assert {k: after[k] - before[k] for k in after} == \
         {"cosine_partials": 2, "weighted_aggregate": 2, "wkv6": 0,
-         "flash_attention": 0}
+         "flash_attention": 0, "wkv6_backward": 0,
+         "flash_attention_backward": 0}
 
 
 WKV6 = dict(rtol=1e-5, atol=1e-4)
@@ -573,3 +588,278 @@ def test_dense_serving_on_card_goes_through_flash(cuda_device):
     diff = (lc.float().cpu() - lh.float()).abs()
     assert torch.isfinite(lc).all()
     assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02
+
+
+# --- backward kernels (training) -------------------------------------------
+
+WKV6_GRAD = dict(rtol=1e-4, atol=1e-3)
+FLASH_GRAD = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+              torch.bfloat16: BF16}
+
+
+def _wkv6_grad_inputs(gen, dev, B, S, H, K, decay):
+    args = list(_wkv6_inputs(gen, dev, B, S, H, K))
+    if decay == "low":
+        args[3] = _low_decay(gen, dev, B, S, H, K)
+    d_o = _randn(gen, dev, B, S, H, K)
+    d_state = 0.1 * _randn(gen, dev, B, H, K, K)
+    return args, d_o, d_state
+
+
+def _wkv6_kernel_grads(args, d_o, d_state):
+    """The training forward (saving its chunk states), then the backward
+    kernels; counts one launch of each."""
+    from repro_torch.kernels import wkv6 as kw
+    before = ops.launch_counts()
+    _, _, ckpt = kw._forward(*args, save=True)
+    grads = kw.wkv6_backward(*args, d_o, d_state, ckpt)
+    after = ops.launch_counts()
+    assert after["wkv6"] - before["wkv6"] == 1
+    assert after["wkv6_backward"] - before["wkv6_backward"] == 1
+    return grads
+
+
+# every head size; S of one step, around one 16-step chunk, several
+# chunks and a ragged last chunk; decays mid and down to 1e-30
+@pytest.mark.parametrize("decay", ["mid", "low"])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 64, 513])
+@pytest.mark.parametrize("K", [8, 16, 32, 64])
+def test_wkv6_backward_matches_plain(cuda_device, K, S, decay):
+    B, H = 2, 3
+    gen = torch.Generator(device=cuda_device).manual_seed(K * 1000 + S)
+    args, d_o, d_state = _wkv6_grad_inputs(gen, cuda_device, B, S, H, K,
+                                           decay)
+    grads = _wkv6_kernel_grads(args, d_o, d_state)
+    want = tref.wkv6_backward_ref(*args, d_o, d_state)
+    for name, got, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"), grads,
+                              want):
+        assert got.shape == ref.shape, name
+        torch.testing.assert_close(got, ref, **WKV6_GRAD, msg=name)
+    again = _wkv6_kernel_grads(args, d_o, d_state)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("S", [1, 17])
+def test_wkv6_training_forward_gives_the_serving_bits(cuda_device, S):
+    """Saving the chunk states changes neither o nor the final state."""
+    from repro_torch.kernels import wkv6 as kw
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    args = _wkv6_inputs(gen, cuda_device, 2, S, 3, 64)
+    o, sf, ckpt = kw._forward(*args, save=True)
+    so, ssf = ops.wkv6_recurrence(*args)
+    assert torch.equal(o, so) and torch.equal(sf, ssf)
+    assert torch.equal(ckpt[:, :, 0], args[5])      # the first is s0
+
+
+def test_wkv6_backward_reads_strided_d_o(cuda_device):
+    B, S, H, K = 2, 40, 3, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    args, d_o, d_state = _wkv6_grad_inputs(gen, cuda_device, B, S, H, K,
+                                           "mid")
+    wide = _randn(gen, cuda_device, B, S, H + 2, K)
+    view = wide[:, :, 1:H + 1]
+    assert not view.is_contiguous()
+    got = _wkv6_kernel_grads(args, view, d_state)
+    want = _wkv6_kernel_grads(args, view.contiguous(), d_state)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_wkv6_autograd_on_card(cuda_device):
+    """The op under autograd: the kernels forward and backward, grads of
+    every input against the plain backward."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    args, d_o, d_state = _wkv6_grad_inputs(gen, cuda_device, 2, 33, 2, 32,
+                                           "mid")
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = ops.launch_counts()
+    o, sf = ops.wkv6_recurrence(*leaves)
+    torch.autograd.backward((o, sf), (d_o, d_state))
+    after = ops.launch_counts()
+    assert after["wkv6"] - before["wkv6"] == 1
+    assert after["wkv6_backward"] - before["wkv6_backward"] == 1
+    want = tref.wkv6_backward_ref(*args, d_o, d_state)
+    for leaf, ref in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, ref, **WKV6_GRAD)
+
+
+@pytest.mark.parametrize("op", ["wkv6", "flash"])
+def test_autograd_takes_the_expanded_grad_of_a_sum(cuda_device, op):
+    """``out.sum().backward()`` hands the backward a d_o whose strides
+    are all 0; the Function copies it, and the gradient is the plain
+    backward's of a ones d_o."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    if op == "wkv6":
+        args = _wkv6_inputs(gen, cuda_device, 2, 19, 2, 32)
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        ops.wkv6_recurrence(*leaves)[0].sum().backward()
+        want = tref.wkv6_backward_ref(*args, torch.ones_like(args[0]))
+        got = [t.grad for t in leaves]
+        tol = WKV6_GRAD
+    else:
+        q, k, v = _flash_inputs(gen, cuda_device, 2, 40, 4, 2, 32,
+                                torch.bfloat16)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ops.flash_attention(*leaves).sum().backward()
+        from repro_torch.kernels import flash_attention as kf
+        o, lse = kf._forward(q, k, v, True, 0, want_lse=True)
+        want = tref.flash_attention_backward_ref(q, k, v, o, lse,
+                                                 torch.ones_like(q))
+        got = [t.grad for t in leaves]
+        tol = BF16
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+def _flash_grads(q, k, v, d_o, causal, window):
+    """(kernel grads, plain grads) from the kernel's forward outputs."""
+    from repro_torch.kernels import flash_attention as kf
+    before = ops.launch_counts()
+    o, lse = kf._forward(q, k, v, causal, window, want_lse=True)
+    got = kf.flash_attention_backward(q, k, v, o, lse, d_o, causal=causal,
+                                      window=window)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert (after["flash_attention_backward"]
+            - before["flash_attention_backward"]) == 1
+    torch.testing.assert_close(
+        lse, tref.flash_attention_lse_ref(q, k, causal=causal,
+                                          window=window),
+        rtol=1e-5, atol=1e-4)
+    want = tref.flash_attention_backward_ref(q, k, v, o, lse, d_o,
+                                             causal=causal, window=window)
+    return got, want
+
+
+# every hd, S around the 32- and 64-row tiles and 513, in both types,
+# GQA G = 4, causal
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 513])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_backward_matches_plain(cuda_device, hd, S, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(hd * 1000 + S)
+    q, k, v = _flash_inputs(gen, cuda_device, 2, S, 8, 2, hd, dtype)
+    d_o = _randn(gen, cuda_device, 2, S, 8, hd).to(dtype)
+    got, want = _flash_grads(q, k, v, d_o, True, 0)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_GRAD[dtype],
+                                   msg=name)
+    again, _ = _flash_grads(q, k, v, d_o, True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("causal,window", [(True, 7), (True, 40),
+                                           (False, 0), (False, 9)])
+def test_flash_backward_masks(cuda_device, causal, window, G, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(G * 100 + window)
+    q, k, v = _flash_inputs(gen, cuda_device, 2, 130, 2 * G, 2, 64, dtype)
+    d_o = _randn(gen, cuda_device, 2, 130, 2 * G, 64).to(dtype)
+    got, want = _flash_grads(q, k, v, d_o, causal, window)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_GRAD[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_reads_strided_d_o(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = _flash_inputs(gen, cuda_device, 2, 70, 4, 2, 32, dtype)
+    wide = _randn(gen, cuda_device, 2, 70, 6, 32).to(dtype)
+    view = wide[:, :, 2:]
+    assert not view.is_contiguous()
+    got, _ = _flash_grads(q, k, v, view, True, 0)
+    want, _ = _flash_grads(q, k, v, view.contiguous(), True, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_backward_bf16_refuses_unaligned_d_o(cuda_device):
+    """The tensor-core backward copies 16-byte pieces of dO; the autograd
+    Function hands it a contiguous copy of anything else."""
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = _flash_inputs(gen, cuda_device, 1, 40, 2, 2, 32,
+                            torch.bfloat16)
+    flat = _randn(gen, cuda_device, 1 * 40 * 2 * 32 + 1).to(torch.bfloat16)
+    d_o = flat[1:].view(1, 40, 2, 32)            # base off by 2 bytes
+    o, lse = kf._forward(q, k, v, True, 0, want_lse=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        kf.flash_attention_backward(q, k, v, o, lse, d_o)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.flash_attention(*leaves).backward(d_o)
+    want = kf.flash_attention_backward(q, k, v, o, lse, d_o.clone())
+    assert all(torch.equal(a.grad, b) for a, b in zip(leaves, want))
+
+
+def _loss_grads(model, params, batch):
+    from repro_torch.fl.adapters import _flat, _nested
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in _flat(params).items()}
+    loss = model.loss(_nested(leaves), batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("family", ["rwkv6", "transformer"])
+def test_model_loss_gradients_on_card_match_cpu(cuda_device, family):
+    """Every parameter gets a gradient through the kernels on the card,
+    and it agrees with the CPU's (the pin of the graphless kernel
+    outputs): the reduced RWKV-6 (1 layer, d_model 64, 2 heads of 32) and
+    the tiny dense transformer."""
+    import numpy as np
+    from repro_torch.fl.adapters import (tiny_rwkv6_config,
+                                         tiny_transformer_config)
+    from repro_torch.models.model_api import Model
+    cfg = (tiny_rwkv6_config(n_layers=1) if family == "rwkv6"
+           else tiny_transformer_config())
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    rows = np.random.default_rng(0).integers(0, min(cfg.vocab_size, 512),
+                                             (4, 17)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(rows[:, :-1]),
+             "labels": torch.from_numpy(rows[:, 1:])}
+    card = Model(cfg, device=cuda_device)
+    before = ops.launch_counts()
+    loss_c, g_card = _loss_grads(card, _tree_to(params, cuda_device),
+                                 _tree_to(batch, cuda_device))
+    after = ops.launch_counts()
+    kernel = "wkv6" if family == "rwkv6" else "flash_attention"
+    assert after[kernel] - before[kernel] == cfg.n_layers
+    assert (after[kernel + "_backward"] - before[kernel + "_backward"]
+            == cfg.n_layers)
+    loss_h, g_cpu = _loss_grads(cpu, params, batch)
+    assert abs(loss_c - loss_h) <= 0.02
+    assert set(g_card) == set(g_cpu)
+    for name, gh in g_cpu.items():
+        gc = g_card[name].float().cpu()
+        assert torch.isfinite(gc).all(), name
+        scale = float(gh.float().abs().max())
+        diff = (gc - gh.float()).abs()
+        assert float(diff.max()) <= 0.125 * scale, name
+        assert float(diff.mean()) <= 0.02 * scale, name
+
+
+@pytest.mark.parametrize("model", ["rwkv6", "transformer"])
+def test_run_bhfl_lm_on_card_goes_through_kernels(cuda_device, model):
+    """An LM round on the card: every SGD step launches the forward and
+    the backward kernel once a layer, every evaluation the forward."""
+    data = api.make_token_dataset(32, 16, 64, seed=1)
+    before = ops.launch_counts()
+    run = api.run_bhfl(model=model, n_nodes=2, clients_per_node=2,
+                       fel_iterations=1, rounds=1, seed=1, data=data)
+    after = ops.launch_counts()
+    assert run.chain_valid and run.chain_height == 1
+    assert all(math.isfinite(m.test_loss) for m in run.history)
+    layers = run.runtime.adapter.arch.n_layers
+    steps = sum(c.data_size // min(8, c.data_size)
+                for cl in run.runtime.clusters for c in cl.clients
+                if c.data_size)
+    kernel = "wkv6" if model == "rwkv6" else "flash_attention"
+    assert after[kernel + "_backward"] - before[kernel + "_backward"] == \
+        layers * steps
+    assert after[kernel] - before[kernel] == layers * (steps + 1)
