@@ -74,7 +74,9 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     and float32, the tiny LM's (8, 16, 2, 2, 32) and a 256-key window,
     against the plain backward on the card, bit-identical on repeat,
     timed beside the plain version, the bound and the backward of
-    ``scaled_dot_product_attention`` (the library yardstick);
+    ``scaled_dot_product_attention`` (the library yardstick, timed eagerly:
+    the kernel's eager call is printed beside it, the pair that decides
+    which is faster);
 15. LM rounds: ``run_bhfl(model="rwkv6")`` and ``run_bhfl(model=
     "transformer")`` on the card at the defaults (6 nodes x 4 clients, 2
     FEL iterations, 256 x 16 tokens), 2 rounds each: valid chain of
@@ -87,7 +89,9 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     its 32 layers (its bfloat16 weights come out of the first step in
     float32, as in the reference, so full depth needs more than the
     card's 80 GB); finite loss, one forward and one backward launch a
-    layer per step, the peak memory;
+    layer per step, the peak memory; then one more step under
+    ``torch.profiler``: device time by kernel name and the two backward
+    kernels' share of it;
 17. card against CPU gradients: ``Model.loss`` gradients of the tiny
     RWKV-6 (1 layer, d_model 64, 2 heads of 32) and the tiny dense
     transformer, the same weights on both, within the bfloat16 rule.
@@ -445,9 +449,9 @@ def phase_main_path(dev):
     return counts, run.runtime, round_ms
 
 
-def device_busy(fn, what: str):
+def device_time(fn, what: str):
     """Run ``fn`` under ``torch.profiler``: (device ops, busy µs — the union
-    of the device's kernel and copy intervals —, top 8 [name, µs])."""
+    of the device's kernel and copy intervals —, {name: µs})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -465,8 +469,34 @@ def device_busy(fn, what: str):
         busy_us += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+    return len(spans), busy_us, by_name
+
+
+def device_busy(fn, what: str):
+    """:func:`device_time` with the top 8 [name, µs] in place of the
+    dict."""
+    n_ops, busy_us, by_name = device_time(fn, what)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return len(spans), busy_us, [[n[:80], round(t, 1)] for n, t in top]
+    return n_ops, busy_us, [[n[:80], round(t, 1)] for n, t in top]
+
+
+# device kernels of the two backward kernels, by name (csrc/*.cu)
+BACKWARD_KERNEL_NAMES = ("wkv6_bwd", "flash_bwd")
+
+
+def step_breakdown(fn, what: str) -> dict:
+    """Device time of one ``fn()`` (an SGD step) by kernel name under
+    ``torch.profiler``: the busy µs, the top 10 [name, µs, share of busy]
+    and the two backward kernels' µs and share."""
+    n_ops, busy_us, by_name = device_time(fn, what)
+    bwd = {k: sum(t for n, t in by_name.items() if k in n)
+           for k in BACKWARD_KERNEL_NAMES}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ops": n_ops, "busy_us": busy_us,
+            "top": [[n[:90], round(t, 1), round(t / busy_us, 4)]
+                    for n, t in top],
+            "backward_us": bwd,
+            "backward_share": sum(bwd.values()) / busy_us}
 
 
 def phase_profile(runtime, round_ms: float) -> None:
@@ -1128,6 +1158,8 @@ def check_flash_backward(gen, dev, B: int, S: int, Hq: int, Hk: int,
         call_time_us(library), call_time_us(kernel),
         kv_heads=Hk, causal=causal, window=window,
         library_relative_err=lib_err,
+        library_footing="eager: one call of each, CUDA events around it; "
+                        "call_us is the kernel's on that footing",
         forward_lse_us=graph_time_us(
             lambda: kf._forward(q, k, v, causal, window, want_lse=True)),
         library_call="the backward of torch.nn.functional."
@@ -1141,15 +1173,17 @@ def phase_flash_backward(dev) -> list:
     rows = []
     for case in FLASH_BWD_CASES:
         row = check_flash_backward(gen, dev, *case)
+        row["eager_vs_library"] = row["call_us"] / row["library_us"]
         print(f"kernel flash_attention_backward {row['shape']} Hk "
               f"{row['kv_heads']} {row['dtype']} causal {row['causal']} "
               f"window {row['window']}: max_abs_err {row['max_abs_err']:.3e}"
               f" bit-identical {row['bit_identical']} | kernel "
               f"{row['kernel_us']:.2f} us (training forward "
               f"{row['forward_lse_us']:.2f} us), plain {row['plain_us']:.2f}"
-              f" us, library {row['library_us']:.2f} us, bound "
-              f"{row['bound_us']:.2f} us ({row['bound_by']}), eager call "
-              f"{row['call_us']:.2f} us", flush=True)
+              f" us, bound {row['bound_us']:.2f} us ({row['bound_by']}) | "
+              f"eager, one call each: kernel {row['call_us']:.2f} us, SDPA "
+              f"backward {row['library_us']:.2f} us "
+              f"({row['eager_vs_library']:.2f}x)", flush=True)
         rows.append(row)
     return rows
 
@@ -1271,10 +1305,22 @@ def fedsgd(arch: str, kernel: str, layers_cut):
               f"{tag}: embed after training is {emb.dtype} or not finite")
         del new
         torch.cuda.empty_cache()
+        # where the device time of a step goes: one more step (a client of
+        # one batch), after the first has done the set-up
+        one = Client(0, TokenDataset(rows[:FEDSGD_BATCH], cfg.vocab_size))
+        prof = step_breakdown(lambda: adapter.local_train(params, one,
+                                                          seed=0),
+                              f"{tag} profile")
+        torch.cuda.empty_cache()
+        print(f"{tag} profiled step: {prof['device_ops']} device ops, busy "
+              f"{prof['busy_us'] / 1e3:.2f} ms; backward kernels "
+              f"{ {k: round(v, 1) for k, v in prof['backward_us'].items()} }"
+              f" us = {prof['backward_share']:.4f} of it; top: "
+              f"{prof['top'][:5]}", flush=True)
         res = {"arch": arch, "layers": cfg.n_layers, "batch": FEDSGD_BATCH,
                "seq": FEDSGD_SEQ, "steps": steps, "loss": loss,
                "wall_s": wall, "step_ms": wall / steps * 1e3,
-               "peak_gb": peak, "launches": counts}
+               "peak_gb": peak, "launches": counts, "profile": prof}
         print(f"{tag}, batch {FEDSGD_BATCH} x {FEDSGD_SEQ}: {steps} SGD steps"
               f" in {wall * 1e3:.1f} ms ({wall / steps * 1e3:.1f} ms a step, "
               f"the first with its set-up), loss {loss:.4f}, peak "

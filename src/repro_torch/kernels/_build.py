@@ -36,7 +36,7 @@ SIGNATURES = {
               _P]),
     "wkv6_backward": ("wkv6", "repro_wkv6_backward",
                       [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
-                       *[_P] * 9, *[_I] * 5, _P]),
+                       *[_P] * 8, *[_I] * 7, _P]),
     "flash_attention": ("flash_attention", "repro_flash_attention",
                         [_P, _P, _P, _P, _P, *[_L] * 9, *[_I] * 8, _P]),
     "flash_attention_backward": (

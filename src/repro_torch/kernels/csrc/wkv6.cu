@@ -1,4 +1,5 @@
-// WKV6 recurrence, the RWKV-6 time-mix hot spot (forward only).
+// WKV6 recurrence, the RWKV-6 time-mix hot spot (the forward here; the
+// backward below the forward's launch code).
 //
 // Replaces the TPU kernel src/repro/kernels/wkv6.py: _wkv6_kernel
 // (pallas_call at :75, wrapper wkv6; ops.wkv6_recurrence). Per batch b
@@ -565,64 +566,110 @@ int dispatch(const float* r, const float* k, const float* v, const float* w,
 // Backward (training). Given dO and dS_T, with S_{t-1} the state before
 // step t and dS the gradient of the state after it, walking t downward:
 //
-//     dr_t[i] = sum_j dO_t[j] * (S_{t-1}[i,j] + u[i] k_t[i] v_t[j])
+//     dr_t[i] = sum_j dO_t[j] * S_{t-1}[i,j] + u[i] k_t[i] * (dO_t . v_t)
 //     dk_t[i] = sum_j e[i,j] * v_t[j],   e = dS + (u r_t) dO_t^T
 //     dv_t[j] = sum_i k_t[i] * e[i,j]
 //     dw_t[i] = sum_j dS[i,j] * S_{t-1}[i,j]
-//     du[i]  += r_t[i] k_t[i] * sum_j dO_t[j] v_t[j]
+//     du[i]  += r_t[i] k_t[i] * (dO_t . v_t)
 //     dS     <- diag(w_t) dS + r_t^T dO_t,   ds0 = the last dS
 //
-// (kernels/ref.py: wkv6_backward_ref). The reference has no Pallas
-// backward: it differentiates lax.scan (src/repro/models/rwkv6.py:141).
+// (kernels/ref.py: wkv6_backward_ref, which sums dO_t[j] (S_{t-1}[i,j] +
+// u[i] k_t[i] v_t[j]) over j for dr: the same terms). The reference has
+// no Pallas backward: it differentiates lax.scan
+// (src/repro/models/rwkv6.py:141).
 //
 // Column j of S and of dS evolves from its own v_j, dO_j and the rows'
-// k, w, r alone, so a block takes one (b, h) and a group of JB columns,
-// as the forward takes JC: B*H*(K/JB) blocks, dS of its columns in
-// registers for the whole walk. S_{t-1} never comes from dividing by w
-// (w = exp(-exp(.)) can be ~0): the forward (SAVE) wrote the state before
-// every 16-step chunk, and the block recomputes the chunk's 16 states from
-// there, forward, into shared memory (each lane reads back only its own
-// entries), then walks the chunk downward.
+// k, w, r alone, so a (b, h) is cut into NCB = K / JB column groups. Its
+// NCB blocks form one thread-block cluster (cluster rank = column group):
+// each keeps dS of its JB columns in registers for the whole walk, and
+// what sums over all K columns -- the row sums dr, dk, dw and dO_t . v_t
+// -- is added across the cluster through distributed shared memory, in
+// rank order, once per 16-step chunk. So dr, dk and dw are written once,
+// at their final values: there is no partial buffer in device memory and
+// no fold launch for them. du sums over t in the walk's order and then
+// over b, which a launch of B*H*K / 256 blocks does in order of b.
 //
-// Lane (i, p) = (tid / L, tid % L) holds row i, columns p*CT .. +CT of
-// the block's. Row sums (dr, dk, dw and sum_j dO v over the block's
-// columns) are CT terms in order, then a reduce-scatter over the L lanes
-// of the row: each of the four ends in one lane. Column sums (dv) are the
-// warp's rows folded by a reduce-scatter (xor L, 2L, ..), then the warps
-// in order through shared memory. What sums over all K columns (dr, dk,
-// dw, du) leaves a block as a partial of its JB columns; wkv6_bwd_fold
-// adds the K/JB partials in order, and du's over b too. Every order is a
-// function of K alone and no atomics are used: a repeat is bit-identical.
+// S_{t-1} never comes from dividing by w (w = exp(-exp(.)) can be ~0):
+// the training forward (SAVE) wrote the state before every 16-step chunk,
+// and the block recomputes the chunk's states from there with the
+// forward's own update (the same bits), keeping every other one in shared
+// memory (lane-private, 8 x K x JB floats); the walk recomputes the one
+// in between from the kept one before it (one multiply-add an entry,
+// every other step).
 //
-// What bounds it: like the forward, bytes and fp32 issue (~12 operations
-// a state entry and step: the recomputed update, e, four products into
-// the sums, the dS update). Shared memory at K = 64: the chunk's 16
-// states of 64 x 16 (64 KB) plus its inputs and staged outputs, ~100 KB:
-// two blocks an SM.
+// Lane (i, p) = (tid / L, tid % L) holds row i and the CT columns p*CT ..
+// of the block's JB (L = 4 lanes a row, 4K threads a block). A step is CT terms in order for each row sum, then
+// an xor reduce-scatter over the L lanes of the row, written to shared
+// memory as this block's partial; the column sums (dv) are the warp's
+// rows folded by a reduce-scatter (xor L, 2L, ..) and the warps added in
+// order through shared memory, all inside the block (it holds every row
+// of its columns). At the end of a chunk, after a cluster barrier, rank q
+// takes rows q*K/NCB .. of every step and adds the NCB partials in rank
+// order (ld.shared::cluster), then the row terms with dO_t . v_t. The
+// partials are double-buffered across chunks, so one cluster barrier a
+// chunk suffices. Every order is a function of K alone and no atomics are
+// used: a repeat is bit-identical.
+//
+// Staging and overlap: r, k, w (all K rows) and v, dO (the block's JB
+// columns) of a chunk arrive by cp.async into a ring of two stages; chunk
+// c - 1 lands while chunk c is walked, and is recomputed between the
+// cluster barrier's arrive and its wait, so the barrier's latency hides
+// behind it. Within the walk the next step's operands are read before
+// this step's sums. The lane's checkpoint entries for the next chunk are
+// loaded into registers a chunk ahead.
+//
+// What bounds it: latency, not operations or bytes. The least work is
+// ~11 fp32 operations a state entry and step (a bound of ~93 us at
+// (8, 512, 32, 64)); by a count of this source a lane issues ~24
+// instructions an entry and step (the operations, its share of the two
+// reduce-scatters, the recompute, the shared-memory reads), and each
+// chunk adds serial phases (the fold, the cluster barrier, du). Shared
+// memory (~95 KB at K = 64: the ring 28 KB, the kept states 32 KB, the
+// double-buffered partials 24 KB, the warps' dv partials 8 KB) and
+// registers (128 a thread) allow two blocks, 16 warps, an SM. Timed on
+// the H100 (tools/time_wkv6_backward.py), four columns a lane beat eight
+// (eight warps an SM, or longer chains at K <= 32), and each of these
+// was slower: the pad slot of the row fold carrying dO . v together with
+// a recompute reading four steps at a time, the written arrays in static
+// shared memory, dv and dk from dS with the u r dO terms added after the
+// sums, and a fold whose lanes take a row's 16 steps (uncoalesced
+// stores).
 
+// JB state columns a block, CT columns a lane: four lanes a row
 template <int K>
 struct Bwd {
-  static constexpr int JB = K >= 16 ? 16 : 8;  // columns a block
-  static constexpr int CT = K >= 16 ? 4 : 2;   // columns a lane
-  static constexpr int L = JB / CT;            // lanes a row
-  static constexpr int NT = K * L;             // threads a block
+  static constexpr int JB = K >= 16 ? 16 : 8, CT = JB / 4;
+};
+
+template <int K>
+struct BwdLayout {
+  static constexpr int JB = Bwd<K>::JB;         // columns a block
+  static constexpr int CT = Bwd<K>::CT;         // columns a lane
+  static constexpr int L = JB / CT;             // lanes a row
+  static constexpr int NT = K * L;              // threads a block
   static constexpr int NW = NT / 32;
-  static constexpr int NCB = K / JB;           // column groups of a (b, h)
-  static constexpr int T = 16;                 // the forward's chunk
-  // staged r, k, w (T x K), v, dO (T x JB); the chunk's states (T x K x
-  // JB); the warps' dv partials (T x NW x JB); dr, dk, dw out (3 x T x K)
+  static constexpr int NCB = K / JB;            // blocks of a cluster
+  static constexpr int ROWS = K / NCB;          // rows a rank folds
+  static constexpr int T = 16;                  // the forward's chunk
+  static constexpr int STAGE = 3 * T * K + 2 * T * JB;  // r, k, w; v, dO
+  static constexpr int HIST = (T / 2) * K * JB;         // kept states
+  static constexpr int PART = 3 * T * K + T;  // dr, dk, dw partials; dO.v
+  static constexpr int RED = T * NW * JB;     // the warps' dv partials
+  // ring, kept states, two partial buffers, dv partials, du terms, u
   static constexpr int FLOATS =
-      3 * T * K + 2 * T * JB + T * K * JB + T * NW * JB + 3 * T * K;
+      2 * STAGE + HIST + 2 * PART + RED + T * ROWS + K;
   static constexpr int BYTES = FLOATS * 4;
-  static_assert(L == 4, "the row fold scatters four sums over four lanes");
-  static_assert(NT % 32 == 0, "whole warps");
+  static_assert(NT % 32 == 0 && 32 % L == 0, "whole warps; a row in one");
+  static_assert(L == 4, "the row fold scatters four sums, one a lane");
+  static_assert(CT % 2 == 0 && K % JB == 0 && NCB <= 8, "geometry");
+  static_assert(NT >= T, "a thread for each step's dO . v");
 };
 
 // xor reduce-scatter over the lanes whose ids differ in the bits FIRST,
 // 2*FIRST, .. below END: while a lane holds n > 1 values it keeps half
 // and sends half (the lane with the offset's bit set keeps the upper
-// half), then it adds its partner's one. Returns the index of the value
-// whose full sum the lane ends with in acc[0].
+// half), then it adds its partner's one. Returns the index of the first
+// value whose full sum the lane ends with in acc[0..].
 template <int FIRST, int END, int N>
 __device__ __forceinline__ int xor_scatter(float (&acc)[N], int lane) {
   int idx = 0;
@@ -645,123 +692,230 @@ __device__ __forceinline__ int xor_scatter(float (&acc)[N], int lane) {
   return idx;
 }
 
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier in two halves: every thread of every block of the
+// cluster arrives, then waits; shared-memory writes before the arrive are
+// visible to reads after the wait, in every block
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of the same shared-memory variable in cluster rank q
+__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned q) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(q));
+  return out;
+}
+
+__device__ __forceinline__ float cluster_ld(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // d_o through its own element strides (dsb, dss, dsh), unit over K.
-// part: (3, NCB, B, S, H, K) partial dr, dk, dw; du_part: (B, H, NCB, K);
-// dv: (B, S, H, K); ds0, d_state: (B, H, K, K); ckpt as the forward's.
-template <int K>
-__global__ void __launch_bounds__(Bwd<K>::NT)
+// du_part: (B, H, K); dr, dk, dv, dw: (B, S, H, K); ds0, d_state:
+// (B, H, K, K); ckpt as the forward's. Launched as clusters of NCB blocks
+// along x: block x is column group x % NCB of (b, h) = x / NCB.
+template <int K, int VEC>
+__global__ void __launch_bounds__(BwdLayout<K>::NT)
     wkv6_bwd(const float* __restrict__ r, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ w,
              long long sb, long long ss, long long sh,
              const float* __restrict__ u, const float* __restrict__ ckpt,
              const float* __restrict__ d_o, long long dsb, long long dss,
              long long dsh, const float* __restrict__ d_state,
-             float* __restrict__ part, float* __restrict__ du_part,
-             float* __restrict__ dv, float* __restrict__ ds0, int B, int S,
+             float* __restrict__ du_part, float* __restrict__ dr,
+             float* __restrict__ dk, float* __restrict__ dv,
+             float* __restrict__ dw, float* __restrict__ ds0, int S,
              int H) {
-  using W = Bwd<K>;
+  using W = BwdLayout<K>;
   constexpr int JB = W::JB, CT = W::CT, L = W::L, NT = W::NT, NW = W::NW,
-                T = W::T, NCB = W::NCB;
+                T = W::T, NCB = W::NCB, ROWS = W::ROWS;
   extern __shared__ __align__(16) float smem[];
-  float* s_r = smem;              // T x K
-  float* s_k = s_r + T * K;
-  float* s_w = s_k + T * K;
-  float* s_v = s_w + T * K;       // T x JB
-  float* s_do = s_v + T * JB;     // T x JB
-  float* s_hist = s_do + T * JB;  // T x K x JB
-  float* s_red = s_hist + T * K * JB;  // T x NW x JB
-  float* s_out = s_red + T * NW * JB;  // 3 x T x K
+  float* ring = smem;                        // 2 x STAGE
+  float* s_hist = ring + 2 * W::STAGE;       // T/2 x K x JB
+  float* s_part = s_hist + W::HIST;          // 2 x PART
+  float* s_red = s_part + 2 * W::PART;       // T x NW x JB
+  float* s_duc = s_red + W::RED;             // T x ROWS
+  float* s_u = s_duc + T * ROWS;             // K
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int i = tid / L;
   const int p = tid - i * L;
+  const unsigned rank = cluster_rank();
   const int bh = blockIdx.x / NCB;
-  const int cg = blockIdx.x - bh * NCB;
-  const int j0 = cg * JB;     // the block's first column
-  const int jl = p * CT;      // the lane's first column within the block's
+  const int j0 = static_cast<int>(rank) * JB;  // the block's first column
+  const int jl = p * CT;    // the lane's first column within the block's
   const int b = bh / H;
   const int h = bh - b * H;
   const long long in0 = b * sb + h * sh;
   const long long do0 = b * dsb + h * dsh;
   const int n_chunks = (S + T - 1) / T;
-  const long long n_out = static_cast<long long>(B) * S * H * K;
 
-  float ds[CT];
-  const float* dsp = d_state + (static_cast<long long>(bh) * K + i) * K +
-                     j0 + jl;
-#pragma unroll
-  for (int q = 0; q < CT; ++q) ds[q] = dsp[q];
-  const float ui = u[h * K + i];
-  float du = 0.f;  // r k (dO . v) over t, in the lane that holds dO . v
-
-  for (int c = n_chunks - 1; c >= 0; --c) {
+  // copy chunk c (its steps that exist) into ring stage `stage`: r, k, w
+  // rows of K and v, dO rows of JB, VEC floats a copy; a lane copies the
+  // same pieces of every step
+  constexpr int KV = K / VEC, JV = JB / VEC, PER_T = 3 * KV + 2 * JV;
+  auto issue_chunk = [&](int c, int stage) {
+    float* st = ring + stage * W::STAGE;
     const int t0 = c * T;
     const int n = min(T, S - t0);
-    __syncthreads();  // the previous chunk's staged data is consumed
-    for (int e = tid; e < n * K; e += NT) {
-      const int tt = e / K, x = e - tt * K;
-      const long long g = in0 + static_cast<long long>(t0 + tt) * ss + x;
-      s_r[e] = r[g];
-      s_k[e] = k[g];
-      s_w[e] = w[g];
+    for (int q = tid; q < PER_T; q += NT) {
+      const float* src;
+      long long step_src;
+      float* dst;
+      int step;
+      if (q < 3 * KV) {
+        const int a = q / KV;
+        const int x = (q - a * KV) * VEC;
+        src = (a == 0 ? r : (a == 1 ? k : w)) + in0 + x;
+        step_src = ss;
+        dst = st + a * T * K + x;
+        step = K;
+      } else {
+        const int a = (q - 3 * KV) / JV;
+        const int x = (q - 3 * KV - a * JV) * VEC;
+        src = (a == 0 ? v + in0 : d_o + do0) + j0 + x;
+        step_src = a == 0 ? ss : dss;
+        dst = st + 3 * T * K + a * T * JB + x;
+        step = JB;
+      }
+      src += static_cast<long long>(t0) * step_src;
+      for (int tt = 0; tt < n; ++tt, src += step_src, dst += step)
+        cp_async<VEC * 4>(dst, src);
     }
-    for (int e = tid; e < n * JB; e += NT) {
-      const int tt = e / JB, x = e - tt * JB;
-      s_v[e] = v[in0 + static_cast<long long>(t0 + tt) * ss + j0 + x];
-      s_do[e] = d_o[do0 + static_cast<long long>(t0 + tt) * dss + j0 + x];
-    }
-    float st[CT];
-    const float* cp = ckpt +
-                      ((static_cast<long long>(bh) * n_chunks + c) * K + i) *
-                          K + j0 + jl;
-#pragma unroll
-    for (int q = 0; q < CT; ++q) st[q] = cp[q];
-    __syncthreads();
+  };
 
-    // the chunk's states, forward, with the forward kernel's update; a
-    // lane's CT columns move as one 8- or 16-byte access
+  float ds[CT], st[CT];
+  load_n<CT>(d_state + (static_cast<long long>(bh) * K + i) * K + j0 + jl,
+             ds);
+  const float* ck = ckpt + (static_cast<long long>(bh) * n_chunks * K + i) *
+                               K + j0 + jl;
+  load_n<CT>(ck + static_cast<long long>(n_chunks - 1) * K * K, st);
+  for (int x = tid; x < K; x += NT) s_u[x] = u[h * K + x];
+  const float ui = u[h * K + i];
+  float du = 0.f;  // of row rank * ROWS + tid (tid < ROWS), over t
+
+  // the chunk's states forward from its checkpoint st, with the forward
+  // kernel's update (the same bits); the state before every even step is
+  // kept. Then st takes the next chunk's checkpoint (loaded early).
+  auto recompute = [&](int c, int stage) {
+    const float* ckk = ring + stage * W::STAGE + T * K;
+    const float* cw = ckk + T * K;
+    const float* cv = cw + T * K;
+    const int n = min(T, S - c * T);
 #pragma unroll 2
     for (int tt = 0; tt < n; ++tt) {
-      const float wi = s_w[tt * K + i], ki = s_k[tt * K + i];
+      if ((tt & 1) == 0)
+        store_n<CT>(s_hist + ((tt >> 1) * K + i) * JB + jl, st);
+      const float wi = cw[tt * K + i], ki = ckk[tt * K + i];
       float vv[CT];
-      load_n<CT>(s_v + tt * JB + jl, vv);
-      store_n<CT>(s_hist + (tt * K + i) * JB + jl, st);
+      load_n<CT>(cv + tt * JB + jl, vv);
 #pragma unroll
       for (int q = 0; q < CT; ++q) st[q] = fmaf(wi, st[q], ki * vv[q]);
     }
+    if (c > 0) load_n<CT>(ck + static_cast<long long>(c - 1) * K * K, st);
+  };
 
+  // chunk n_chunks - 1 into stage 0, then n_chunks - 2 into stage 1 while
+  // the first is recomputed; chunk c is in stage (n_chunks - 1 - c) & 1
+  issue_chunk(n_chunks - 1, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (n_chunks > 1) issue_chunk(n_chunks - 2, 1);
+  cp_async_commit();
+  recompute(n_chunks - 1, 0);
+
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    const int c = n_chunks - 1 - kc;
+    const int t0 = c * T;
+    const int n = min(T, S - t0);
+    const int stage = kc & 1;
+    const float* cr = ring + stage * W::STAGE;
+    const float* ckk = cr + T * K;
+    const float* cw = ckk + T * K;
+    const float* cv = cw + T * K;
+    const float* cdo = cv + T * JB;
+    // dr, dk, dw partials (3 x T x K), then dO . v (T); the other buffer
+    // is the one the cluster may still be reading (chunk c + 1)
+    float* part = s_part + stage * W::PART;
+
+    // this block's dO_t . v_t over its JB columns, in order
+    if (tid < n) {
+      float d = 0.f;
+#pragma unroll
+      for (int x = 0; x < JB; ++x)
+        d = fmaf(cdo[tid * JB + x], cv[tid * JB + x], d);
+      part[3 * T * K + tid] = d;
+    }
+
+    // the walk, t downward; the next step's operands are read before
+    // this step's sums. An odd step's state comes from the kept state of
+    // the even step before it (the next step) by one update.
+    float ri, ki, wi, vv[CT], dd[CT], kept[CT];
+    auto load_step = [&](int tt, float& r_, float& k_, float& w_,
+                         float (&v_)[CT], float (&d_)[CT],
+                         float (&h_)[CT]) {
+      r_ = cr[tt * K + i];
+      k_ = ckk[tt * K + i];
+      w_ = cw[tt * K + i];
+      load_n<CT>(cv + tt * JB + jl, v_);
+      load_n<CT>(cdo + tt * JB + jl, d_);
+      if ((tt & 1) == 0) load_n<CT>(s_hist + ((tt >> 1) * K + i) * JB + jl, h_);
+    };
+    load_step(n - 1, ri, ki, wi, vv, dd, kept);
 #pragma unroll 2
     for (int tt = n - 1; tt >= 0; --tt) {
-      const float ri = s_r[tt * K + i], ki = s_k[tt * K + i],
-                  wi = s_w[tt * K + i];
-      const float ur = ui * ri, uk = ui * ki;
-      float hist[CT], vv[CT], dd[CT];
-      load_n<CT>(s_hist + (tt * K + i) * JB + jl, hist);
-      load_n<CT>(s_v + tt * JB + jl, vv);
-      load_n<CT>(s_do + tt * JB + jl, dd);
-      float rows[4] = {0.f, 0.f, 0.f, 0.f};  // dr, dk, dw, dO . v
+      float nr = 0.f, nk = 0.f, nw = 0.f, nv[CT], nd[CT], nh[CT];
+      if (tt > 0) load_step(tt - 1, nr, nk, nw, nv, nd, nh);
+      float prev[CT];
+#pragma unroll
+      for (int q = 0; q < CT; ++q)
+        prev[q] = (tt & 1) ? fmaf(nw, nh[q], nk * nv[q]) : kept[q];
+      float rows[4] = {0.f, 0.f, 0.f, 0.f};  // dr, dk, dw, (none)
       float dvc[CT];
 #pragma unroll
       for (int q = 0; q < CT; ++q) {
-        const float prev = hist[q], vj = vv[q], dj = dd[q];
-        const float e = fmaf(ur, dj, ds[q]);
-        rows[0] = fmaf(dj, fmaf(uk, vj, prev), rows[0]);
-        rows[1] = fmaf(e, vj, rows[1]);
-        rows[2] = fmaf(ds[q], prev, rows[2]);
-        rows[3] = fmaf(dj, vj, rows[3]);
+        const float rd = ri * dd[q];
+        const float e = fmaf(ui, rd, ds[q]);
+        rows[0] = fmaf(dd[q], prev[q], rows[0]);
+        rows[1] = fmaf(e, vv[q], rows[1]);
+        rows[2] = fmaf(ds[q], prev[q], rows[2]);
         dvc[q] = ki * e;
-        ds[q] = fmaf(wi, ds[q], ri * dj);
+        ds[q] = fmaf(wi, ds[q], rd);
       }
       const int which = xor_scatter<1, L, 4>(rows, lane);
-      if (which < 3)
-        s_out[(which * T + tt) * K + i] = rows[0];
-      else
-        du = fmaf(ri * ki, rows[0], du);
+      if (which < 3) part[(which * T + tt) * K + i] = rows[0];
       const int col = xor_scatter<L, 32, CT>(dvc, lane);
       if (((lane / L) & ~(CT - 1)) == 0)
         s_red[(tt * NW + warp) * JB + jl + col] = dvc[0];
+      ri = nr;
+      ki = nk;
+      wi = nw;
+#pragma unroll
+      for (int q = 0; q < CT; ++q) {
+        vv[q] = nv[q];
+        dd[q] = nd[q];
+        kept[q] = nh[q];
+      }
     }
+    // this block's partials of the chunk are in place; the next chunk is
+    // recomputed while the other blocks get there
+    cluster_arrive();
     __syncthreads();
 
     // dv of the chunk: the warps' partials in order
@@ -773,91 +927,128 @@ __global__ void __launch_bounds__(Bwd<K>::NT)
       dv[((static_cast<long long>(b) * S + t0 + tt) * H + h) * K + j0 + x] =
           acc;
     }
-    // dr, dk, dw partials of this column group
-    for (int e = tid; e < 3 * n * K; e += NT) {
-      const int which = e / (n * K);
-      const int rest = e - which * n * K;
-      const int tt = rest / K, x = rest - tt * K;
-      part[(which * NCB + cg) * n_out +
-           ((static_cast<long long>(b) * S + t0 + tt) * H + h) * K + x] =
-          s_out[(which * T + tt) * K + x];
+    if (c > 0) {
+      cp_async_wait<0>();   // chunk c - 1 has landed
+      __syncthreads();      // and dv has read s_red
+      recompute(c - 1, stage ^ 1);
     }
-  }
-
-  float* dsq = ds0 + (static_cast<long long>(bh) * K + i) * K + j0 + jl;
+    cluster_wait();
+    // this rank's rows: the NCB partials in rank order, then the row terms
+    for (int e = tid; e < n * ROWS; e += NT) {
+      const int tt = e / ROWS, il = e - tt * ROWS;
+      const int ii = static_cast<int>(rank) * ROWS + il;
+      float sums[4];
 #pragma unroll
-  for (int q = 0; q < CT; ++q) dsq[q] = ds[q];
-  // the lane that ended with dO . v holds this column group's du[i]
-  if (p == L - 1) du_part[(static_cast<long long>(bh) * NCB + cg) * K + i] = du;
+      for (int a = 0; a < 4; ++a) {
+        const float* src = a < 3 ? part + (a * T + tt) * K + ii
+                                 : part + 3 * T * K + tt;
+        float acc = cluster_ld(cluster_addr(src, 0));
+#pragma unroll
+        for (int q = 1; q < NCB; ++q)
+          acc += cluster_ld(cluster_addr(src, static_cast<unsigned>(q)));
+        sums[a] = acc;
+      }
+      const float rri = cr[tt * K + ii], kki = ckk[tt * K + ii];
+      const long long at =
+          ((static_cast<long long>(b) * S + t0 + tt) * H + h) * K + ii;
+      dr[at] = fmaf(s_u[ii] * kki, sums[3], sums[0]);
+      dk[at] = sums[1];
+      dw[at] = sums[2];
+      s_duc[tt * ROWS + il] = rri * kki * sums[3];
+    }
+    __syncthreads();
+    if (tid < ROWS) {
+#pragma unroll
+      for (int tt = T - 1; tt >= 0; --tt)
+        if (tt < n) du += s_duc[tt * ROWS + tid];
+    }
+    // chunk c - 2 into the stage chunk c was read from
+    if (c > 1) issue_chunk(c - 2, stage);
+    cp_async_commit();
+  }
+  // no block leaves while another reads its partials
+  cp_async_wait<0>();
+  cluster_arrive();
+  cluster_wait();
+
+  store_n<CT>(ds0 + (static_cast<long long>(bh) * K + i) * K + j0 + jl, ds);
+  if (tid < ROWS)
+    du_part[static_cast<long long>(bh) * K + rank * ROWS + tid] = du;
 }
 
-// dr, dk, dw: the NCB column groups' partials added in order; du: the
-// (b, column group) partials added in order of b, then group.
-template <int K>
-__global__ void wkv6_bwd_fold(const float* __restrict__ part,
-                              const float* __restrict__ du_part,
-                              float* __restrict__ dr, float* __restrict__ dk,
-                              float* __restrict__ dw, float* __restrict__ du,
-                              long long n_out, int B, int H) {
-  constexpr int NCB = Bwd<K>::NCB;
-  const long long x = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (x < n_out) {
-    float* outs[3] = {dr, dk, dw};
-#pragma unroll
-    for (int which = 0; which < 3; ++which) {
-      const float* pp = part + which * NCB * n_out + x;
-      float acc = pp[0];
-#pragma unroll
-      for (int q = 1; q < NCB; ++q) acc += pp[q * n_out];
-      outs[which][x] = acc;
-    }
-  }
-  if (x < static_cast<long long>(H) * K) {
-    const int h = static_cast<int>(x / K), i = static_cast<int>(x % K);
-    float acc = 0.f;
-    for (int bb = 0; bb < B; ++bb)
-#pragma unroll
-      for (int q = 0; q < NCB; ++q)
-        acc += du_part[((static_cast<long long>(bb) * H + h) * NCB + q) * K + i];
-    du[x] = acc;
-  }
+// du: the (b, h) sums added in order of b
+__global__ void wkv6_bwd_du(const float* __restrict__ du_part,
+                            float* __restrict__ du, int B, int HK) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= HK) return;
+  float acc = du_part[x];
+  for (int bb = 1; bb < B; ++bb)
+    acc += du_part[static_cast<long long>(bb) * HK + x];
+  du[x] = acc;
 }
 
-template <int K>
+template <int K, int VEC>
 int launch_bwd(const float* r, const float* k, const float* v, const float* w,
                long long sb, long long ss, long long sh, const float* u,
                const float* ckpt, const float* d_o, long long dsb,
                long long dss, long long dsh, const float* d_state,
-               float* part, float* du_part, float* dr, float* dk, float* dv,
-               float* dw, float* du, float* ds0, int B, int S, int H, int jb,
-               cudaStream_t st) {
-  using W = Bwd<K>;
-  if (jb != W::JB) return static_cast<int>(cudaErrorInvalidConfiguration);
+               float* du_part, float* dr, float* dk, float* dv, float* dw,
+               float* du, float* ds0, int B, int S, int H, cudaStream_t st) {
+  using W = BwdLayout<K>;
   static unsigned long long configured = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(configured & bit)) {
-    e = cudaFuncSetAttribute(wkv6_bwd<K>,
+    e = cudaFuncSetAttribute(wkv6_bwd<K, VEC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              W::BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured |= bit;
   }
-  wkv6_bwd<K><<<static_cast<unsigned>(B) * H * W::NCB, W::NT, W::BYTES,
-                 st>>>(r, k, v, w, sb, ss, sh, u, ckpt, d_o, dsb, dss, dsh,
-                       d_state, part, du_part, dv, ds0, B, S, H);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * H * W::NCB);
+  cfg.blockDim = dim3(W::NT);
+  cfg.dynamicSmemBytes = W::BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = W::NCB;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, wkv6_bwd<K, VEC>, r, k, v, w, sb, ss, sh, u,
+                         ckpt, d_o, dsb, dss, dsh, d_state, du_part, dr, dk,
+                         dv, dw, ds0, S, H);
+  if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long n_out = static_cast<long long>(B) * S * H * K;
-  const long long n = n_out > static_cast<long long>(H) * K
-                          ? n_out
-                          : static_cast<long long>(H) * K;
-  wkv6_bwd_fold<K><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      part, du_part, dr, dk, dw, du, n_out, B, H);
+  const int hk = H * K;
+  wkv6_bwd_du<<<(hk + 255) / 256, 256, 0, st>>>(du_part, du, B, hk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int dispatch_bwd(const float* r, const float* k, const float* v,
+                 const float* w, long long sb, long long ss, long long sh,
+                 const float* u, const float* ckpt, const float* d_o,
+                 long long dsb, long long dss, long long dsh,
+                 const float* d_state, float* du_part, float* dr, float* dk,
+                 float* dv, float* dw, float* du, float* ds0, int B, int S,
+                 int H, int vec, int jb, int ct, cudaStream_t st) {
+  if (jb != Bwd<K>::JB || ct != Bwd<K>::CT)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (vec == 4)
+    return launch_bwd<K, 4>(r, k, v, w, sb, ss, sh, u, ckpt, d_o, dsb, dss,
+                            dsh, d_state, du_part, dr, dk, dv, dw, du, ds0,
+                            B, S, H, st);
+  if (vec == 1)
+    return launch_bwd<K, 1>(r, k, v, w, sb, ss, sh, u, ckpt, d_o, dsb, dss,
+                            dsh, d_state, du_part, dr, dk, dv, dw, du, ds0,
+                            B, S, H, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -911,39 +1102,42 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
 // The backward of repro_wkv6 (training): r, k, v, w, u as given to it,
 // ckpt as it wrote it; d_o (B, S, H, K) fp32 read through its element
 // strides (dsb, dss, dsh) with a unit stride over K; d_state (B, H, K, K)
-// fp32 contiguous (zeros where the final state has no gradient). Writes
-// dr, dk, dv, dw (B, S, H, K), du (H, K) and ds0 (B, H, K, K), all fp32
-// contiguous; part (3, K / jb, B, S, H, K) and du_part (B, H, K / jb, K)
-// are scratch. jb must be the kernel's column group for K. Two launches
-// (the walk, then the ordered fold); returns cudaGetLastError() after
-// each, cudaErrorInvalidValue for another K.
+// fp32 contiguous and 16-byte aligned (zeros where the final state has no
+// gradient). Writes dr, dk, dv, dw (B, S, H, K), du (H, K) and ds0
+// (B, H, K, K), all fp32 contiguous; du_part (B, H, K) is scratch. With
+// vec = 4 every base and used stride of r, k, v, w and d_o is a multiple
+// of 16 bytes (vec = 1: any). (jb, ct) must be the kernel's column group
+// and lane width for K. Two launches (the walk, in clusters of K / jb
+// blocks, then du's ordered fold over b); returns cudaGetLastError() after
+// each, cudaErrorInvalidValue for another K or vec,
+// cudaErrorInvalidConfiguration for another geometry.
 extern "C" int repro_wkv6_backward(
     const void* r, const void* k, const void* v, const void* w, long long sb,
     long long ss, long long sh, const void* u, const void* ckpt,
     const void* d_o, long long dsb, long long dss, long long dsh,
-    const void* d_state, void* part, void* du_part, void* dr, void* dk,
-    void* dv, void* dw, void* du, void* ds0, int B, int S, int H, int K,
-    int jb, void* stream) {
+    const void* d_state, void* du_part, void* dr, void* dk, void* dv,
+    void* dw, void* du, void* ds0, int B, int S, int H, int K, int vec,
+    int jb, int ct, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_ARGS                                                          \
   static_cast<const float*>(r), static_cast<const float*>(k),              \
       static_cast<const float*>(v), static_cast<const float*>(w), sb, ss,  \
       sh, static_cast<const float*>(u), static_cast<const float*>(ckpt),   \
       static_cast<const float*>(d_o), dsb, dss, dsh,                       \
-      static_cast<const float*>(d_state), static_cast<float*>(part),       \
-      static_cast<float*>(du_part), static_cast<float*>(dr),               \
-      static_cast<float*>(dk), static_cast<float*>(dv),                    \
-      static_cast<float*>(dw), static_cast<float*>(du),                    \
-      static_cast<float*>(ds0), B, S, H, jb, st
+      static_cast<const float*>(d_state), static_cast<float*>(du_part),    \
+      static_cast<float*>(dr), static_cast<float*>(dk),                    \
+      static_cast<float*>(dv), static_cast<float*>(dw),                    \
+      static_cast<float*>(du), static_cast<float*>(ds0), B, S, H, vec, jb, \
+      ct, st
   switch (K) {
     case 8:
-      return launch_bwd<8>(REPRO_ARGS);
+      return dispatch_bwd<8>(REPRO_ARGS);
     case 16:
-      return launch_bwd<16>(REPRO_ARGS);
+      return dispatch_bwd<16>(REPRO_ARGS);
     case 32:
-      return launch_bwd<32>(REPRO_ARGS);
+      return dispatch_bwd<32>(REPRO_ARGS);
     case 64:
-      return launch_bwd<64>(REPRO_ARGS);
+      return dispatch_bwd<64>(REPRO_ARGS);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,11 +22,13 @@ the op is a ``torch.autograd.Function``: on the card the forward kernel
 also writes each row's logsumexp L, and the backward is a pair of
 kernels (:func:`flash_attention_backward`: dQ, then dK and dV summed
 over each kv head's query heads in order; bfloat16 on the tensor cores
-with ``mma.sync``, the same 16-byte rule for q, k, v and dO as the
-forward's TMA; float32 on CUDA cores), counted in
-``backward_launches``; on the CPU the forward and backward are the plain
-versions (``ref.flash_attention_backward_ref``). Serving never takes that
-route: one launch a layer, no L written.
+with ``wgmma``, tiles by TMA, the dK/dV work of a key tile shared by the
+blocks of a thread-block cluster (:func:`dkdv_cluster`) and folded in
+rank order, the same 16-byte rule for q, k, v and dO as the forward;
+float32 on CUDA cores), counted in ``backward_launches``; on the CPU
+the forward and backward are the plain versions
+(``ref.flash_attention_backward_ref``). Serving never takes that route:
+one launch a layer, no L written.
 """
 
 from __future__ import annotations
@@ -92,6 +94,31 @@ def tma_refusal(name: str, t: torch.Tensor) -> str | None:
             return (f"{name} has strides {t.stride()}: stride {dim} is not "
                     f"a multiple of {TMA_ALIGN} bytes")
     return None
+
+
+TILE = 64                    # queries and keys of a backward tile
+MAX_CLUSTER = 4              # blocks of a bfloat16 dK/dV cluster
+
+
+def dkdv_cluster(S: int, G: int, causal: bool, window: int) -> int:
+    """Blocks of a cluster of the bfloat16 dK/dV kernel
+    (csrc/flash_attention.cu: dkdv_cluster): the (head, query tile) pairs
+    that see a key tile are cut into this many runs, as many as the
+    longest key tile has pairs, up to :data:`MAX_CLUSTER`."""
+    most = 0
+    for kt in range(-(-S // TILE)):
+        k0 = kt * TILE
+        k_last = min(k0 + TILE, S) - 1
+        qt_begin = k0 // TILE if causal else 0
+        q_end = min(S, k_last + window) if window > 0 else S
+        most = max(most, G * (-(-q_end // TILE) - qt_begin))
+    return MAX_CLUSTER if most >= MAX_CLUSTER else 2 if most >= 2 else 1
+
+
+def backward_scratch_floats(B: int, S: int, Hq: int) -> int:
+    """Floats of the backward's scratch: (L log2 e, D) pairs of every row,
+    S padded to whole tiles (float32 uses the first B·Hq·S for D)."""
+    return 2 * B * Hq * (-(-S // TILE) * TILE)
 
 
 def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
@@ -172,13 +199,15 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
             why = tma_refusal(name, t)
             if why is not None:
                 raise ValueError(f"bfloat16 flash attention backward kernel "
-                                 f"copies 16-byte pieces: {why}")
+                                 f"reads through TMA tensor maps (16-byte "
+                                 f"granules): {why}")
     global backward_launches
     fn = _build.entry_point("flash_attention_backward")
     dq = torch.empty((B, S, Hq, hd), device=q.device, dtype=q.dtype)
     dk = torch.empty((B, S, Hk, hd), device=q.device, dtype=q.dtype)
     dv = torch.empty_like(dk)
-    delta = torch.empty((B, Hq, S), device=q.device, dtype=torch.float32)
+    delta = torch.empty(backward_scratch_floats(B, S, Hq), device=q.device,
+                        dtype=torch.float32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -187,6 +216,12 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *d_o.stride()[:3], B, S, Hq, Hk, hd, int(causal), window,
                  DTYPES[q.dtype], stream)
+    if err == NO_ENCODER:
+        raise RuntimeError("flash attention backward kernel: libcuda has no "
+                           "cuTensorMapEncodeTiled")
+    if err < 0:
+        raise RuntimeError(f"flash attention backward kernel: a tensor map "
+                           f"could not be encoded (CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"CUDA error {err}")

@@ -20,9 +20,12 @@ only (the model casts to float32 first) and K is 8, 16, 32 or 64.
 When a gradient is wanted (grad mode on and an input that requires it)
 the op is a ``torch.autograd.Function``: on the card the forward kernel
 also writes the state before every 16-step chunk, and the backward is a
-kernel of its own (:func:`wkv6_backward`: it recomputes each chunk's
-states from there and walks t downward, then an ordered fold), counted
-in ``backward_launches``; on the CPU the forward and backward are the
+kernel of its own (:func:`wkv6_backward`: a thread-block cluster per
+(b, h), one block per group of state columns, recomputes each chunk's
+states from there and walks t downward, the blocks adding their row sums
+through distributed shared memory in rank order; then du's ordered fold
+over b; :func:`backward_shape` is its geometry), counted in
+``backward_launches``; on the CPU the forward and backward are the
 plain versions (``ref.wkv6_backward_ref``). Serving never takes that
 route, so its launches and kernels are unchanged.
 """
@@ -40,10 +43,12 @@ HEAD_SIZES = (8, 16, 32, 64)
 CHUNK = 16       # steps between the states the training forward saves
 
 launches = 0            # forward kernel launches
-backward_launches = 0   # backward calls (each the walk and its fold)
+backward_launches = 0   # backward calls (each the walk and du's fold)
 
 # K -> state columns a block of the backward (csrc/wkv6.cu: Bwd<K>::JB)
 BACKWARD_COLUMNS = {64: 16, 32: 16, 16: 16, 8: 8}
+# K -> columns a lane of the backward (csrc/wkv6.cu: Bwd<K>::CT)
+BACKWARD_LANE_COLUMNS = {64: 4, 32: 4, 16: 4, 8: 2}
 
 # K -> (Jc state columns a block, G lanes a column group, C columns a
 # lane, T steps a chunk, ring stages): csrc/wkv6.cu's Geo<K>, which
@@ -78,6 +83,31 @@ def launch_shape(B: int, H: int, K: int) -> LaunchShape:
     floats = stages * t * (3 * row + jc) + t * jc + t + K
     return LaunchShape(B * H * (K // jc), (jc // c) * g, jc, g, c, t, stages,
                        4 * floats, B * H, K * g)
+
+
+class BackwardShape(NamedTuple):
+    blocks: int         # B·H·(K / jb)
+    cluster: int        # blocks of a cluster: the K / jb column groups
+    threads: int        # K·(jb / ct): a row's jb / ct lanes
+    jb: int             # state columns a block
+    ct: int             # columns a lane
+    fold_rows: int      # rows whose sums each cluster rank adds up
+    smem_bytes: int     # dynamic shared memory a block
+
+
+def backward_shape(B: int, H: int, K: int) -> BackwardShape:
+    """The backward walk's grid, clusters and shared memory for (B, H, K)
+    (csrc/wkv6.cu: BwdLayout<K>). Its order of sums is a function of K
+    alone; B and H only scale the grid."""
+    if K not in BACKWARD_COLUMNS:
+        raise ValueError(f"wkv6_backward takes K in {HEAD_SIZES}; got {K}")
+    jb, ct = BACKWARD_COLUMNS[K], BACKWARD_LANE_COLUMNS[K]
+    ncb, threads, t = K // jb, K * (jb // ct), CHUNK
+    floats = (2 * (3 * t * K + 2 * t * jb) + (t // 2) * K * jb
+              + 2 * (3 * t * K + t) + t * (threads // 32) * jb
+              + t * (K // ncb) + K)
+    return BackwardShape(B * H * ncb, ncb, threads, jb, ct, K // ncb,
+                         4 * floats)
 
 
 def copy_width(ptrs, strides, shape) -> int:
@@ -188,24 +218,28 @@ def wkv6_backward(r, k, v, w, u, s0, d_o, d_state, ckpt=None):
     d_state = (torch.zeros((B, H, K, K), device=dev, dtype=torch.float32)
                if d_state is None else
                d_state.to(torch.float32).contiguous())
+    if d_state.data_ptr() % 16:
+        d_state = d_state.clone()
     global backward_launches
     fn = _build.entry_point("wkv6_backward")
-    jb = BACKWARD_COLUMNS[K]
+    geo = backward_shape(B, H, K)
+    vec = min(copy_width([t.data_ptr() for t in (r, k, v, w)], strides,
+                         r.shape),
+              copy_width([d_o.data_ptr()], d_o.stride(), d_o.shape))
 
     def empty(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
     dr, dk, dv, dw = (empty(B, S, H, K) for _ in range(4))
-    du, ds0 = empty(H, K), empty(B, H, K, K)
-    part, du_part = empty(3, K // jb, B, S, H, K), empty(B, H, K // jb, K)
+    du, ds0, du_part = empty(H, K), empty(B, H, K, K), empty(B, H, K)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  *strides[:3], u.data_ptr(), ckpt.data_ptr(),
                  d_o.data_ptr(), *d_o.stride()[:3], d_state.data_ptr(),
-                 part.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-                 ds0.data_ptr(), B, S, H, K, jb, stream)
+                 du_part.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+                 B, S, H, K, vec, geo.jb, geo.ct, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 backward kernel launch failed: CUDA "
                            f"error {err}")

@@ -1,7 +1,9 @@
 """What the port's kernel wrappers decide before any launch, on the CPU:
 the weighted aggregate's load width, the bfloat16 flash kernel's TMA
-layout rules, the wkv6 kernel's geometry and copy width, the cosine
-partials' chunking, and the refusal of devices that have no kernel. The
+layout rules, the wkv6 kernel's geometry and copy width, the two backward
+kernels' launch geometry (the wkv6 walk's clusters and blocks, the
+bfloat16 flash dK/dV clusters and the scratch), the cosine partials'
+chunking, and the refusal of devices that have no kernel. The
 kernels themselves run in ``tests/test_torch_kernels_cuda.py`` (card
 only)."""
 
@@ -11,6 +13,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import wkv6 as wkv
 from repro_torch.kernels.cosine_sim import chunk_for, splits_for
+from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels.flash_attention import tma_refusal
 from repro_torch.kernels.weighted_agg import vector_width
 
@@ -140,6 +143,75 @@ def test_wkv6_geometry_fits_the_source_budget(K):
 def test_wkv6_launch_shape_refuses_other_heads():
     with pytest.raises(ValueError, match="K in"):
         wkv.launch_shape(1, 1, 12)
+
+
+# K -> (jb columns a block, ct columns a lane, blocks a cluster, threads,
+# rows a rank folds, shared bytes): csrc/wkv6.cu's Bwd<K> and BwdLayout<K>
+WKV6_BACKWARD = {64: (16, 4, 4, 256, 16, 95_616),
+                 32: (16, 4, 2, 128, 16, 50_432),
+                 16: (16, 4, 1, 64, 16, 27_840),
+                 8: (8, 2, 1, 32, 8, 11_424)}
+MAX_PORTABLE_CLUSTER = 8
+REGISTERS_PER_SM = 65_536
+BACKWARD_REGISTERS = 128   # the walk at K = 64 (nvcc -Xptxas -v on sm_90a)
+
+
+@pytest.mark.parametrize("K", sorted(WKV6_BACKWARD))
+@pytest.mark.parametrize("B,H", [(8, 32), (1, 1), (3, 5), (4, 32)])
+def test_wkv6_backward_shape_is_pinned(B, H, K):
+    """The walk's geometry, and with it the order of every sum, depends on
+    K alone; B and H only scale the grid of clusters."""
+    g = wkv.backward_shape(B, H, K)
+    jb, ct, cluster, threads, rows, smem = WKV6_BACKWARD[K]
+    assert (g.jb, g.ct, g.cluster, g.threads, g.fold_rows, g.smem_bytes) \
+        == (jb, ct, cluster, threads, rows, smem)
+    assert g.blocks == B * H * cluster and cluster == K // jb
+    assert (wkv.BACKWARD_COLUMNS[K], wkv.BACKWARD_LANE_COLUMNS[K]) == (jb, ct)
+
+
+@pytest.mark.parametrize("K", sorted(WKV6_BACKWARD))
+def test_wkv6_backward_fits_the_card(K):
+    """Whole warps, a row's lanes inside one warp, a portable cluster
+    whose ranks tile the K rows, and two blocks an SM by shared memory
+    and, at K = 64, by registers."""
+    g = wkv.backward_shape(8, 32, K)
+    lanes = g.jb // g.ct
+    assert g.threads % 32 == 0 and lanes == 4
+    assert g.cluster <= MAX_PORTABLE_CLUSTER
+    assert g.cluster * g.fold_rows == K and g.cluster * g.jb == K
+    assert g.threads >= wkv.CHUNK
+    assert BLOCKS_PER_SM * (g.smem_bytes + 1024) <= SMEM_PER_SM
+    if K == 64:
+        assert BLOCKS_PER_SM * g.threads * BACKWARD_REGISTERS \
+            <= REGISTERS_PER_SM
+
+
+def test_wkv6_backward_shape_refuses_other_heads():
+    with pytest.raises(ValueError, match="K in"):
+        wkv.backward_shape(1, 1, 12)
+
+
+# (S, G, causal, window) -> blocks of a bfloat16 dK/dV cluster
+@pytest.mark.parametrize("S,G,causal,window,want", [
+    (512, 8, True, 0, 4), (16, 1, True, 0, 1), (1000, 4, True, 256, 4),
+    (65, 1, True, 0, 2), (64, 2, True, 0, 2), (64, 3, True, 0, 2),
+    (130, 1, False, 0, 2), (200, 1, True, 7, 2), (1, 8, True, 0, 4),
+    (513, 1, True, 0, 4)])
+def test_flash_dkdv_cluster_is_pinned(S, G, causal, window, want):
+    """As many blocks as the longest key tile has (head, query tile)
+    pairs, up to four: the pairs are cut into that many runs."""
+    assert kf.dkdv_cluster(S, G, causal, window) == want <= kf.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("B,S,Hq", [(8, 512, 32), (1, 1000, 8), (8, 16, 2),
+                                    (2, 1, 3), (1, 65, 4)])
+def test_flash_backward_scratch_is_pinned(B, S, Hq):
+    """(L log2 e, D) pairs of every row, S padded to whole 64-row tiles
+    (each dK/dV tile's pairs are one aligned 512-byte copy)."""
+    n = kf.backward_scratch_floats(B, S, Hq)
+    assert n == 2 * B * Hq * (-(-S // 64) * 64)
+    assert n >= B * Hq * S                 # float32 keeps D in its front
+    assert (2 * 64 * 4) % 16 == 0
 
 
 # (pointer residues mod 16, strides, shape, floats a copy)

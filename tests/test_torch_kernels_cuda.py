@@ -26,9 +26,9 @@ in another order (the plain version's own float32 is within 5e-4 of a
 float64 run at these shapes, du largest: it sums B·S terms); flash
 attention float32 rtol/atol 1e-4 (the forward's sums, then dP - D and
 the products over up to 513 keys or queries in another order) and
-bfloat16 2e-2 (the tensor-core kernel takes P and dS into its products
-as two bfloat16 parts, ~16 bits, the plain version in float32; both
-round the result to bfloat16 once). Model gradients on the card against the
+bfloat16 2e-2 (the tensor-core kernels take P and dS into their wgmma
+products as two bfloat16 parts, ~16 bits, the plain version in float32;
+both round the result to bfloat16 once). Model gradients on the card against the
 CPU's: the bfloat16 rule above, taken relative to each parameter's
 gradient scale s = max |g_cpu|: max |g_card - g_cpu| <= 0.125 s and the
 mean <= 0.02 s.
@@ -639,6 +639,46 @@ def test_wkv6_backward_matches_plain(cuda_device, K, S, decay):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+# grids smaller than one wave of clusters (B·H of 1 and 2), over several
+# chunks and a ragged last one, decays down to 1e-30
+@pytest.mark.parametrize("B,H", [(1, 1), (1, 2)])
+@pytest.mark.parametrize("K", [8, 16, 32, 64])
+def test_wkv6_backward_small_grids(cuda_device, B, H, K):
+    S = 513
+    gen = torch.Generator(device=cuda_device).manual_seed(K + 10 * H)
+    args, d_o, d_state = _wkv6_grad_inputs(gen, cuda_device, B, S, H, K,
+                                           "low")
+    grads = _wkv6_kernel_grads(args, d_o, d_state)
+    want = tref.wkv6_backward_ref(*args, d_o, d_state)
+    for name, got, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"), grads,
+                              want):
+        torch.testing.assert_close(got, ref, **WKV6_GRAD, msg=name)
+    again = _wkv6_kernel_grads(args, d_o, d_state)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_wkv6_backward_takes_unaligned_inputs(cuda_device):
+    """Bases 4 bytes off a 16-byte boundary: the chunks are copied 4 bytes
+    at a time, and the order of sums, so the bits, are those of aligned
+    copies of the same values."""
+    B, S, H, K = 2, 40, 3, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    args, d_o, d_state = _wkv6_grad_inputs(gen, cuda_device, B, S, H, K,
+                                           "mid")
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda_device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16
+        return out
+
+    moved = [shifted(a) for a in args[:4]] + list(args[4:])
+    got = _wkv6_kernel_grads(moved, shifted(d_o), d_state)
+    want = _wkv6_kernel_grads(args, d_o, d_state)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("S", [1, 17])
 def test_wkv6_training_forward_gives_the_serving_bits(cuda_device, S):
     """Saving the chunk states changes neither o nor the final state."""
@@ -759,6 +799,25 @@ def test_flash_backward_masks(cuda_device, causal, window, G, dtype):
     got, want = _flash_grads(q, k, v, d_o, causal, window)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), **FLASH_GRAD[dtype])
+
+
+# the bfloat16 backward's edges: G = 1, 3, 4 and 8 (at G = 3 the cluster's
+# cut of a key tile's (head, query tile) pairs falls inside a head); S off
+# the 64-row tile; causal, a window shorter than a tile, and one longer
+@pytest.mark.parametrize("S", [1, 63, 65, 513])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_flash_backward_bf16_cluster_edges(cuda_device, G, S):
+    gen = torch.Generator(device=cuda_device).manual_seed(G * 1000 + S)
+    q, k, v = _flash_inputs(gen, cuda_device, 2, S, 2 * G, 2, 64,
+                            torch.bfloat16)
+    d_o = _randn(gen, cuda_device, 2, S, 2 * G, 64).to(torch.bfloat16)
+    for causal, window in ((True, 0), (True, 9), (True, 100)):
+        got, want = _flash_grads(q, k, v, d_o, causal, window)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a.float(), b.float(), **BF16,
+                                       msg=f"{name} window {window}")
+        again, _ = _flash_grads(q, k, v, d_o, causal, window)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

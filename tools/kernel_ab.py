@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's wkv6 and cosine-partials kernels of two checkouts on one
-card, in turns (A, B, B, A), so two versions are compared inside one run.
+"""Time the port's wkv6 and cosine-partials kernels and the two backward
+kernels (wkv6, flash attention) of two checkouts on one card, in turns
+(A, B, B, A), so two versions are compared inside one run.
 
     python3 tools/kernel_ab.py ROOT_A ROOT_B [--json FILE]
 
@@ -9,10 +10,13 @@ parent commit unpacked with ``git archive`` into ``build/parent``). Every
 turn is a fresh process that puts ROOT/src first on the path, builds that
 checkout's kernels from its own sources, and times each kernel with
 ``chip_smoke.graph_time_us`` (CUDA events over CUDA-graph replays, median
-of 50) at the shapes ``chip_smoke.py`` uses, beside its largest absolute
-difference from the checkout's plain version. It prints one line per
-kernel and shape with the four values, and the card's ``nvidia-smi``
-line. Needs one CUDA card; imports no JAX.
+of 50) at the shapes ``chip_smoke.py`` uses (``WKV6_SHAPES``,
+``WKV6_BWD_SHAPES``, ``FLASH_BWD_CASES``), beside its largest absolute
+difference from the checkout's plain version; the backward kernels also
+with ``chip_smoke.call_time_us`` (one eager call, CUDA events), the
+footing of the library's time. It prints one line per kernel and shape
+with the four values, and the card's ``nvidia-smi`` line. Needs one CUDA
+card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -40,18 +44,49 @@ def time_checkout(root: Path) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for B, S, H, K in cs.WKV6_SHAPES:
-        def randn(*shape):
-            return torch.randn(*shape, generator=gen, device=dev)
-        args = (randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, K),
-                0.2 + 0.79 * torch.rand(B, S, H, K, generator=gen,
-                                        device=dev),
-                randn(H, K), 0.1 * randn(B, H, K, K))
+        args = cs.wkv6_inputs(gen, dev, B, S, H, K, "mid")
         got = ops.wkv6_recurrence(*args)
         want = ref.wkv6_recurrence_ref(*args)
         out[f"wkv6 {(B, S, H, K)} max_abs_err"] = max(
             float((a - b).abs().max()) for a, b in zip(got, want))
         out[f"wkv6 {(B, S, H, K)}"] = cs.graph_time_us(
             lambda: ops.wkv6_recurrence(*args))
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import wkv6 as kw
+    for B, S, H, K in cs.WKV6_BWD_SHAPES:
+        args = cs.wkv6_inputs(gen, dev, B, S, H, K, "mid")
+        d_o = torch.randn(B, S, H, K, generator=gen, device=dev)
+        d_state = 0.1 * torch.randn(B, H, K, K, generator=gen, device=dev)
+        _, _, ckpt = kw._forward(*args, save=True)
+
+        def bwd():
+            return kw.wkv6_backward(*args, d_o, d_state, ckpt)
+        tag = f"wkv6_backward {(B, S, H, K)}"
+        want = ref.wkv6_backward_ref(*args, d_o, d_state)
+        out[f"{tag} max_abs_err"] = max(
+            float((a - b).abs().max()) for a, b in zip(bwd(), want))
+        out[tag] = cs.graph_time_us(bwd)
+        out[f"{tag} eager"] = cs.call_time_us(bwd)
+    for B, S, Hq, Hk, hd, dt, causal, window in cs.FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+        d_o = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
+        o, lse = kf._forward(q, k, v, causal, window, want_lse=True)
+        kwa = dict(causal=causal, window=window)
+
+        def fbwd():
+            return kf.flash_attention_backward(q, k, v, o, lse, d_o, **kwa)
+        tag = (f"flash_attention_backward {(B, S, Hq, Hk, hd)} {dt} causal "
+               f"{causal} window {window}")
+        want = ref.flash_attention_backward_ref(q, k, v, o, lse, d_o, **kwa)
+        out[f"{tag} max_abs_err"] = max(
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(fbwd(), want))
+        del want
+        out[tag] = cs.graph_time_us(fbwd)
+        out[f"{tag} eager"] = cs.call_time_us(fbwd)
     for N, D in COSINE_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             W = torch.randn(N, D, generator=gen, device=dev).to(dt)
