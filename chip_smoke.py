@@ -94,7 +94,29 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     kernels' share of it;
 17. card against CPU gradients: ``Model.loss`` gradients of the tiny
     RWKV-6 (1 layer, d_model 64, 2 heads of 32) and the tiny dense
-    transformer, the same weights on both, within the bfloat16 rule.
+    transformer, the same weights on both, within the bfloat16 rule;
+18. batched main path: phase 4's ``run_bhfl`` with ``engine="batched"``
+    (every client of every cluster in one ``torch.func.vmap``-ed SGD
+    step): the chain, finite losses, each ME kernel once a round, phase
+    4's leaders and its final global model within BATCHED_W_TOL; the
+    ``round`` and ``fel`` spans beside phase 4's;
+19. batched profile: one more batched round under ``torch.profiler``
+    (busy share), the device ops of one FEL phase, batched beside the
+    reference loop's, and the batched phase's host time beside that of
+    its batch plan and its dropout draws;
+20. batched LM rounds: phase 15's runs with ``engine="batched"``: valid
+    chain, finite losses, each model kernel launched forward and
+    backward once a layer per vmapped SGD step (2 a round at the
+    defaults, against phase 15's 48);
+21. vmap rules: the wkv6 forward and backward at (V, B, S, H, K) =
+    VMAP_WKV6 and bf16 flash forward and backward at VMAP_FLASH under
+    ``torch.func.vmap``: one launch each, bit-identical to V separate
+    launches and within the kernel's tolerance of the plain version at
+    the folded shape, the folded call timed beside the V calls, the
+    plain version, the bound and (flash) SDPA;
+22. sharded ME: ``ShardedModelEvaluation(4)`` on a batched round's W
+    against the dense ME phase: gw bit-identical, similarities within
+    rtol 1e-5, the same vote, two kernel launches a shard.
 
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
@@ -165,6 +187,15 @@ LM_ROUNDS = 2
 # tokens at batch 4
 FEDSGD = {"rwkv6-1.6b": None, "yi-6b": 16}
 FEDSGD_ROWS, FEDSGD_SEQ, FEDSGD_BATCH = 8, 512, 4
+# the batched engine's final global model against phase 4's: float32,
+# cuBLAS's batched and single products may round differently
+# (tests/test_batched_fel.py's ragged-shard tolerance)
+BATCHED_W_TOL = dict(rtol=1e-5, atol=1e-6)
+# the vmap rules at the batched LM rounds' shapes: (V, B, S, H, K) with
+# V = 6 x 4 clients; flash (V, B, S, Hq, Hk, hd) there and at Yi-6B's heads
+VMAP_WKV6 = (24, 8, 16, 2, 32)
+VMAP_FLASH = ((24, 8, 16, 2, 2, 32), (4, 2, 512, 32, 4, 128))
+ME_SHARDS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -272,15 +303,36 @@ def entry(name, source, replaces, W, max_err, bit, k_us, p_us, b, lib_us,
 
 def device_kernels(fn) -> list:
     """Names of the device kernels one ``fn()`` call launches
-    (``torch.profiler``)."""
+    (``torch.profiler``). A session that records no device activity at
+    all is taken again once: the profiler, not ``fn``, came back empty
+    (``fn`` is a kernel call whose outputs are checked apart)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(2):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        print("device_kernels: the profiler recorded no device activity; "
+              "profiling the call again", flush=True)
+    return names
+
+
+def warm_profiler(dev) -> None:
+    """One throwaway CUDA ``torch.profiler`` session, so that no measured
+    session is a process's first (a first session can come back without
+    device records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        (x + 1).sum()
+        torch.cuda.synchronize()
 
 
 def check_partials(W, gw) -> dict:
@@ -446,7 +498,15 @@ def phase_main_path(dev):
                "round_ms": {str(k): v for k, v in per_round.items()}}
     print("main_path " + json.dumps(summary), flush=True)
     round_ms = statistics.median(per_round[k]["round"] for k in per_round)
-    return counts, run.runtime, round_ms
+    # what the batched phase is held to: phase 4's leaders, similarities
+    # and final global model (taken before phase 5 runs a fourth round)
+    import numpy as np
+    from repro_torch.core.serialization import flatten_pytree
+    ref = {"leaders": summary["leaders"], "per_round": per_round,
+           "sims": [np.asarray(m.consensus.similarities, np.float64)
+                    for m in run.history],
+           "global": flatten_pytree(run.runtime.global_params).clone()}
+    return counts, run.runtime, round_ms, ref
 
 
 def device_time(fn, what: str):
@@ -499,18 +559,19 @@ def step_breakdown(fn, what: str) -> dict:
             "backward_share": sum(bwd.values()) / busy_us}
 
 
-def phase_profile(runtime, round_ms: float) -> None:
+def phase_profile(runtime, round_ms: float, tag: str = "profile") -> dict:
     """Device busy share of one round: the union of the device's kernel
     and copy intervals in a profiled round, over the median wall time of
     the unprofiled rounds (the profiler slows the host, not the device)."""
-    n_ops, busy_us, top = device_busy(runtime.run_round, "profile")
+    n_ops, busy_us, top = device_busy(runtime.run_round, tag)
     share = busy_us / (round_ms * 1e3)
-    print(f"profile: {n_ops} device ops, busy {busy_us:.0f} us in a "
+    print(f"{tag}: {n_ops} device ops, busy {busy_us:.0f} us in a "
           f"{round_ms:.1f} ms round: busy share {share:.4f}, idle share "
           f"{1 - share:.4f}", flush=True)
-    print("profile " + json.dumps({
-        "device_ops": n_ops, "busy_us": busy_us, "round_ms": round_ms,
-        "busy_share": share, "top_us": top}), flush=True)
+    out = {"device_ops": n_ops, "busy_us": busy_us, "round_ms": round_ms,
+           "busy_share": share, "top_us": top}
+    print(f"{tag} " + json.dumps(out), flush=True)
+    return out
 
 
 def phase_agreement(dev) -> None:
@@ -1372,6 +1433,516 @@ def phase_grad_agreement(dev) -> None:
               f"worst max diff {worst:.4f} of the gradient's scale",
               flush=True)
 
+# -- slice 8: the batched FEL engine, the vmap rules, sharded ME ------------
+
+def spans_by_round(rec) -> dict:
+    """{round: {span name: summed wall ms}} of a recorder's spans."""
+    per_round: dict = {}
+    for sp in rec.spans:
+        if sp.round is None:
+            continue
+        d = per_round.setdefault(sp.round, {})
+        d[sp.name] = d.get(sp.name, 0.0) + sp.wall_dur * 1e3
+    return per_round
+
+
+def top2_margin(sims) -> float:
+    top = sorted(float(x) for x in sims)[-2:]
+    return top[1] - top[0] if len(top) == 2 else float("inf")
+
+
+def phase_batched_main(dev, ref) -> dict:
+    """Phase 4's run with ``engine="batched"``: the same chain checks,
+    each ME kernel once a round, phase 4's leaders and its final global
+    model within BATCHED_W_TOL (dropout on: the engine draws the loop's
+    masks; cuBLAS may round a batched product and a single one
+    differently)."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.obs import TraceRecorder, use_recorder
+    rec = TraceRecorder("batched")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with use_recorder(rec):
+        run = api.run_bhfl(model="mlp", n_nodes=8, clients_per_node=5,
+                           fel_iterations=3, rounds=MAIN_ROUNDS, seed=0,
+                           engine="batched", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rt = run.runtime
+    tag = "batched main path"
+    check(rt.engine == "batched", f"{tag}: engine is {rt.engine}")
+    check(run.chain_valid, f"{tag}: chain does not verify")
+    check(run.chain_height == MAIN_ROUNDS,
+          f"{tag}: chain height {run.chain_height} != {MAIN_ROUNDS}")
+    check(all(math.isfinite(m.test_loss) and math.isfinite(m.test_accuracy)
+              for m in run.history), f"{tag}: non-finite loss/accuracy")
+    for name in ME_KERNELS:
+        check(counts[name] == MAIN_ROUNDS,
+              f"{tag}: {name} launched {counts[name]} times in "
+              f"{MAIN_ROUNDS} rounds (want one per round)")
+    leaders = [m.leader_id for m in run.history]
+    check(leaders == ref["leaders"],
+          f"{tag}: leaders {leaders}, the reference engine's "
+          f"{ref['leaders']}")
+    gw, gw_ref = rt._global_flat, ref["global"]
+    gw_err = float((gw - gw_ref).abs().max())
+    check(torch.allclose(gw, gw_ref, **BATCHED_W_TOL),
+          f"{tag}: final global model differs from phase 4's by {gw_err}")
+    per_round = spans_by_round(rec)
+    # the engine's dispatch span, one a round (it carries no round tag)
+    dispatch = [sp.wall_dur * 1e3 for sp in rec.spans
+                if sp.name == "fel.dispatch"]
+    check(len(dispatch) == MAIN_ROUNDS,
+          f"{tag}: {len(dispatch)} fel.dispatch spans in {MAIN_ROUNDS} rounds")
+    for k in sorted(per_round):
+        m, r4 = run.history[k], ref["per_round"][k]
+        sims = np.asarray(m.consensus.similarities, np.float64)
+        print(f"batched round {k}: wall {per_round[k]['round']:.1f} ms "
+              f"(reference engine {r4['round']:.1f}), fel "
+              f"{per_round[k]['fel']:.1f} ms (reference {r4['fel']:.1f}; "
+              f"fel.dispatch {dispatch[k]:.1f}), "
+              f"leader {m.leader_id}, top-2 margin {top2_margin(sims):.3e}, "
+              f"similarities max diff "
+              f"{float(np.abs(sims - ref['sims'][k]).max()):.3e}, acc "
+              f"{m.test_accuracy:.4f}, loss {m.test_loss:.4f}", flush=True)
+    round_ms = statistics.median(per_round[k]["round"] for k in per_round)
+    fel_ms = statistics.median(per_round[k]["fel"] for k in per_round)
+    ref_round = statistics.median(v["round"] for v in ref["per_round"].values())
+    ref_fel = statistics.median(v["fel"] for v in ref["per_round"].values())
+    summary = {"wall_s": wall, "launches": counts, "leaders": leaders,
+               "global_max_abs_diff": gw_err, "round_ms_median": round_ms,
+               "fel_ms_median": fel_ms, "reference_round_ms_median": ref_round,
+               "reference_fel_ms_median": ref_fel,
+               "steps_per_round": rt._engine.fel_iterations
+               * rt._engine.steps_per_iteration, "fel_dispatch_ms": dispatch,
+               "round_ms": {str(k): v for k, v in per_round.items()}}
+    print(f"{tag}: median round {round_ms:.1f} ms (reference engine "
+          f"{ref_round:.1f}), fel {fel_ms:.1f} ms (reference {ref_fel:.1f}) "
+          f"= {fel_ms / round_ms:.4f} of the round; "
+          f"{summary['steps_per_round']} vmapped SGD steps a round; final "
+          f"global model max abs diff {gw_err:.3e}", flush=True)
+    print("batched_main " + json.dumps(summary), flush=True)
+    return {"counts": counts, "runtime": rt, "round_ms": round_ms}
+
+
+def phase_fel_kernels(batched_rt, ref_rt) -> dict:
+    """The device ops one FEL phase puts on the card, batched against the
+    reference loop, from one round's global model each; and the host
+    clock of the batched phase's parts (median of 5, synchronized): the
+    batch plan (numpy), the dropout draws, the whole phase."""
+    import torch
+    eng = batched_rt._engine
+    seed = batched_rt.cfg.seed + batched_rt.consensus.round + 1
+    n_bat, busy_bat, _ = device_time(
+        lambda: eng.run_round(batched_rt._global_flat, seed),
+        "batched FEL phase")
+    n_ref, busy_ref, _ = device_time(
+        lambda: ref_rt._fel_models_reference(seed), "reference FEL phase")
+    seeds = eng._batch_plan(seed)[1]
+    parts = {"plan": lambda: eng._batch_plan(seed),
+             "draws": lambda: eng._draws(seeds),
+             "phase": lambda: eng.run_round(batched_rt._global_flat, seed)}
+    host_ms = {}
+    for name, fn in parts.items():
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        host_ms[name] = statistics.median(ms)
+    out = {"batched_device_ops": n_bat, "batched_busy_us": busy_bat,
+           "reference_device_ops": n_ref, "reference_busy_us": busy_ref,
+           "batched_host_ms": host_ms}
+    print(f"FEL phase on the card: batched {n_bat} device ops, busy "
+          f"{busy_bat:.0f} us; reference loop {n_ref} device ops, busy "
+          f"{busy_ref:.0f} us; batched phase {host_ms['phase']:.1f} ms "
+          f"synchronized, of it the batch plan {host_ms['plan']:.1f} ms and "
+          f"the dropout draws {host_ms['draws']:.1f} ms", flush=True)
+    print("fel_kernels " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_batched_lm(dev, lm_ref) -> dict:
+    """Phase 15's LM rounds with ``engine="batched"``: valid chain, finite
+    losses, and each model kernel launched forward and backward once a
+    layer per vmapped SGD step for all the round's clients (the forward
+    also once a layer per evaluation)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.obs import TraceRecorder, use_recorder
+    out = {}
+    for model, kernel in (("rwkv6", "wkv6"),
+                          ("transformer", "flash_attention")):
+        rec = TraceRecorder(f"batched_{model}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with use_recorder(rec):
+            run = api.run_bhfl(model=model, rounds=LM_ROUNDS, seed=0,
+                               device=dev, engine="batched")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rt = run.runtime
+        layers = rt.adapter.arch.n_layers
+        steps = LM_ROUNDS * rt._engine.fel_iterations \
+            * rt._engine.steps_per_iteration
+        tag = f"batched LM round {model}"
+        check(rt.engine == "batched", f"{tag}: engine is {rt.engine}")
+        check(run.chain_valid, f"{tag}: chain does not verify")
+        check(run.chain_height == LM_ROUNDS,
+              f"{tag}: chain height {run.chain_height} != {LM_ROUNDS}")
+        check(all(math.isfinite(m.test_loss) for m in run.history),
+              f"{tag}: non-finite test loss")
+        check(counts[kernel + "_backward"] == layers * steps,
+              f"{tag}: {kernel}_backward launched "
+              f"{counts[kernel + '_backward']} times, want {layers} layers x "
+              f"{steps} vmapped SGD steps")
+        check(counts[kernel] == layers * (steps + LM_ROUNDS),
+              f"{tag}: {kernel} launched {counts[kernel]} times, want "
+              f"{layers} layers x ({steps} vmapped SGD steps + {LM_ROUNDS} "
+              f"evaluations)")
+        per_round = spans_by_round(rec)
+        for k in sorted(per_round):
+            m = run.history[k]
+            r15 = lm_ref[model]["round_ms"][str(k)]
+            print(f"{tag} {k}: wall {per_round[k]['round']:.1f} ms "
+                  f"(reference engine {r15['round']:.1f}), fel "
+                  f"{per_round[k]['fel']:.1f} ms (reference "
+                  f"{r15['fel']:.1f}), leader {m.leader_id}, loss "
+                  f"{m.test_loss:.4f}", flush=True)
+        out[model] = {"wall_s": wall, "launches": counts,
+                      "vmapped_steps": steps, "layers": layers,
+                      "reference_sgd_steps": lm_ref[model]["sgd_steps"],
+                      "leaders": [m.leader_id for m in run.history],
+                      "test_loss": [m.test_loss for m in run.history],
+                      "round_ms": {str(k): v for k, v in per_round.items()}}
+        print(f"{tag}: {LM_ROUNDS} rounds in {wall:.2f} s, {steps} vmapped "
+              f"SGD steps (reference engine: {lm_ref[model]['sgd_steps']} "
+              f"SGD steps), {kernel} {counts[kernel]} and "
+              f"{kernel}_backward {counts[kernel + '_backward']} launches "
+              f"(reference engine {lm_ref[model]['launches'][kernel]} and "
+              f"{lm_ref[model]['launches'][kernel + '_backward']})",
+              flush=True)
+    print("batched_lm_rounds " + json.dumps(out), flush=True)
+    return out
+
+
+def fold_row(name, replaces, shape, dtype, call_fn, v_calls_fn, plain_fn,
+             bound, library_us, launches_key, err, plain_err,
+             **extra) -> dict:
+    """A kernels-line row of one folded (vmapped) call: its device time,
+    the same work as V separate calls, the plain version at the folded
+    shape, the bound; ``plain_err`` its max abs error against the plain
+    version, ``err`` against the V separate launches."""
+    plain_reps = extra.pop("plain_reps", {})
+    k_us = graph_time_us(call_fn)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{'wkv6' if 'wkv6' in name else 'flash_attention'}.cu",
+            "replaces": replaces, "launches": None,
+            "launches_key": launches_key, "shape": list(shape),
+            "dtype": dtype, "max_abs_err": plain_err,
+            "v_launches_max_abs_diff": err, "bit_identical": err == 0.0,
+            "ms": k_us / 1e3, "plain_ms": graph_time_us(plain_fn,
+                                                        **plain_reps) / 1e3,
+            "bound_ms": bound[0] / 1e3, "bound_by": bound[1],
+            "library_ms": None if library_us is None else library_us / 1e3,
+            "v_calls_ms": graph_time_us(v_calls_fn) / 1e3,
+            "call": "vmapped (folded) call, fold copies included", **extra}
+
+
+def max_diff(a, b) -> float:
+    if a.numel() == 0 and b.numel() == 0:
+        return 0.0
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase_vmap_wkv6(dev) -> list:
+    """wkv6 forward (training: it saves the chunk states) and backward
+    under ``torch.func.vmap`` at (V, B, S, H, K) = VMAP_WKV6 with s0
+    unbatched, as the batched RWKV-6 round calls them: one launch each,
+    bit-identical to V separate launches, within WKV6_TOL and
+    WKV6_GRAD_TOL of the plain versions, timed beside them."""
+    import torch
+    from torch.func import vmap
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as kw
+    from repro_torch.kernels.ref import wkv6_backward_ref, wkv6_recurrence_ref
+    V, B, S, H, K = VMAP_WKV6
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    r, k, v, d_o = (randn(V, B, S, H, K) for _ in range(4))
+    w = 0.2 + 0.79 * torch.rand(V, B, S, H, K, generator=gen, device=dev)
+    u, s0 = randn(V, H, K), torch.zeros(B, H, K, K, device=dev)
+    fwd = vmap(kw._Recurrence.apply, in_dims=(0, 0, 0, 0, 0, None, None))
+    bwd = vmap(kw._RecurrenceBackward.apply,
+               in_dims=(0, 0, 0, 0, 0, None, 0, None, 0))
+    ops.reset_launch_counts()
+    o, s_fin, ckpt = fwd(r, k, v, w, u, s0, True)
+    grads = bwd(r, k, v, w, u, s0, d_o, None, ckpt)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    tag = f"wkv6 vmap {VMAP_WKV6}"
+    check(counts["wkv6"] == 1 and counts["wkv6_backward"] == 1,
+          f"{tag}: the folded calls launched {counts}, want one forward "
+          f"and one backward")
+    f_err = b_err = 0.0
+    for i in range(V):
+        oi, si, ci = kw._forward(r[i], k[i], v[i], w[i], u[i], s0, save=True)
+        f_err = max(f_err, max_diff(o[i], oi), max_diff(s_fin[i], si),
+                    max_diff(ckpt[i], ci))
+        gi = kw.wkv6_backward(r[i], k[i], v[i], w[i], u[i], s0, d_o[i],
+                              None, ci)
+        b_err = max([b_err] + [max_diff(a[i], b) for a, b in zip(grads, gi)])
+    check(f_err == 0.0 and b_err == 0.0,
+          f"{tag}: the folded launch differs from {V} separate launches "
+          f"(forward {f_err}, backward {b_err})")
+    # the plain versions at the folded shape (B, S, V·H, K), at the
+    # kernels' tolerances
+    folded = [kw._fold(t, 0, V) for t in (r, k, v, w)]
+    uf, s0f = u.reshape(V * H, K), kw._fold_state(s0, None, V)
+    dof = kw._fold(d_o, 0, V)
+    ro, rs = wkv6_recurrence_ref(*folded, uf, s0f)
+    ref_f = (kw._unfold(ro, V), kw._unfold_state(rs, V))
+    rg = wkv6_backward_ref(*folded, uf, s0f, dof, None)
+    ref_b = (*(kw._unfold(t, V) for t in rg[:4]),
+             rg[4].reshape(V, H, K), kw._unfold_state(rg[5], V))
+    pf_err = max(max_diff(a, b) for a, b in zip((o, s_fin), ref_f))
+    pb_err = max(max_diff(a, b) for a, b in zip(grads, ref_b))
+    check(all(torch.allclose(a, b, **WKV6_TOL)
+              for a, b in zip((o, s_fin), ref_f)),
+          f"{tag}: the folded forward disagrees with the plain version "
+          f"(max abs err {pf_err})")
+    check(all(torch.allclose(a, b, **WKV6_GRAD_TOL)
+              for a, b in zip(grads, ref_b)),
+          f"{tag}: the folded backward disagrees with the plain version "
+          f"(max abs err {pb_err})")
+    rows = [
+        fold_row("wkv6", "src/repro/kernels/wkv6.py:29", (V, B, S, H, K),
+                 "float32", lambda: fwd(r, k, v, w, u, s0, True),
+                 lambda: [kw._forward(r[i], k[i], v[i], w[i], u[i], s0,
+                                      save=True) for i in range(V)],
+                 lambda: wkv6_recurrence_ref(*folded, uf, s0f),
+                 wkv6_bound_us(B, S, V * H, K), None, "wkv6", f_err, pf_err,
+                 folded_shape=[B, S, V * H, K]),
+        fold_row("wkv6_backward",
+                 "src/repro/models/rwkv6.py:141 (jax.grad of lax.scan; the "
+                 "reference has no Pallas backward)", (V, B, S, H, K),
+                 "float32", lambda: bwd(r, k, v, w, u, s0, d_o, None, ckpt),
+                 lambda: [kw.wkv6_backward(r[i], k[i], v[i], w[i], u[i], s0,
+                                           d_o[i], None, ckpt[i])
+                          for i in range(V)],
+                 lambda: wkv6_backward_ref(*folded, uf, s0f, dof, None),
+                 wkv6_bwd_bound_us(B, S, V * H, K), None, "wkv6_backward",
+                 b_err, pb_err, folded_shape=[B, S, V * H, K])]
+    for row in rows:
+        print(f"vmap {row['name']} V x (B, S, H, K) = {tuple(row['shape'])}"
+              f" folded to {tuple(row['folded_shape'])}: one launch, "
+              f"bit-identical to {V} launches {row['bit_identical']}, "
+              f"max_abs_err {row['max_abs_err']:.3e} against the plain "
+              f"version | folded call {row['ms'] * 1e3:.2f} us, {V} calls "
+              f"{row['v_calls_ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})",
+              flush=True)
+    return rows
+
+
+def phase_vmap_flash(dev) -> list:
+    """bf16 flash forward (with L, as training calls it) and backward under
+    ``torch.func.vmap`` at each of VMAP_FLASH, causal: one launch each,
+    bit-identical to V separate launches, within the bfloat16 FLASH_TOL
+    and FLASH_GRAD_TOL of the plain versions, timed beside them."""
+    import torch
+    import torch.nn.functional as F
+    from torch.func import vmap
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_backward_ref,
+                                         flash_attention_gqa_ref)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fwd = vmap(kf._Attention.apply, in_dims=(0, 0, 0, None, None, None))
+    bwd = vmap(kf._AttentionBackward.apply,
+               in_dims=(0, 0, 0, 0, 0, 0, None, None))
+    rows = []
+    for V, B, S, Hq, Hk, hd in VMAP_FLASH:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        q, d_o = randn(V, B, S, Hq, hd), randn(V, B, S, Hq, hd)
+        k, v = randn(V, B, S, Hk, hd), randn(V, B, S, Hk, hd)
+        ops.reset_launch_counts()
+        o, lse = fwd(q, k, v, True, 0, True)
+        grads = bwd(q, k, v, o, lse, d_o, True, 0)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        tag = f"flash vmap {(V, B, S, Hq, Hk, hd)}"
+        check(counts["flash_attention"] == 1
+              and counts["flash_attention_backward"] == 1,
+              f"{tag}: the folded calls launched {counts}, want one forward "
+              f"and one backward")
+        f_err = b_err = 0.0
+        for i in range(V):
+            oi, li = kf._forward(q[i], k[i], v[i], True, 0, want_lse=True)
+            f_err = max(f_err, max_diff(o[i], oi), max_diff(lse[i], li))
+            gi = kf.flash_attention_backward(q[i], k[i], v[i], oi, li,
+                                             d_o[i])
+            b_err = max([b_err] + [max_diff(a[i], b)
+                                   for a, b in zip(grads, gi)])
+        check(f_err == 0.0 and b_err == 0.0,
+              f"{tag}: the folded launch differs from {V} separate launches "
+              f"(forward {f_err}, backward {b_err})")
+        qf, kf_, vf, of, dof = (t.reshape(V * B, *t.shape[2:])
+                                for t in (q, k, v, o, d_o))
+        lf = lse.reshape(V * B, Hq, S)
+        # the plain versions at the folded shape, at the kernels' tolerances
+        ref_o = flash_attention_gqa_ref(qf, kf_, vf).reshape(o.shape)
+        ref_g = [g.reshape(t.shape) for g, t in zip(
+            flash_attention_backward_ref(qf, kf_, vf, of, lf, dof), grads)]
+        pf_err = max_diff(o, ref_o)
+        pb_err = max(max_diff(a, b) for a, b in zip(grads, ref_g))
+        check(torch.allclose(o.float(), ref_o.float(),
+                             **FLASH_TOL["bfloat16"]),
+              f"{tag}: the folded forward disagrees with the plain version "
+              f"(max abs err {pf_err})")
+        check(all(torch.allclose(a.float(), b.float(),
+                                 **FLASH_GRAD_TOL["bfloat16"])
+                  for a, b in zip(grads, ref_g)),
+              f"{tag}: the folded backward disagrees with the plain version "
+              f"(max abs err {pb_err})")
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (qf, kf_, vf)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                qf.transpose(1, 2), kf_.transpose(1, 2), vf.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, leaves, dof.transpose(1, 2),
+                                       retain_graph=True)
+
+        big = dict(plain_reps=dict(reps=2, samples=10)) if S > 64 else {}
+        shape = (V, B, S, Hq, Hk, hd)
+        pair = [
+            fold_row("flash_attention", "src/repro/kernels/flash_attention.py"
+                     ":22", shape, "bfloat16",
+                     lambda: fwd(q, k, v, True, 0, True),
+                     lambda: [kf._forward(q[i], k[i], v[i], True, 0,
+                                          want_lse=True) for i in range(V)],
+                     lambda: flash_attention_gqa_ref(qf, kf_, vf),
+                     flash_bound_us(V * B, S, Hq, Hk, hd, 2, True, 0,
+                                    BF16_FLOP_PER_S),
+                     graph_time_us(sdpa_fwd), "flash_attention", f_err,
+                     pf_err, folded_shape=[V * B, S, Hq, Hk, hd],
+                     library_call="torch.nn.functional."
+                                  "scaled_dot_product_attention(enable_gqa="
+                                  "True) at the folded shape", **big),
+            fold_row("flash_attention_backward",
+                     "src/repro/models/layers.py:79 (jax.grad of "
+                     "blockwise_attention; the reference has no Pallas "
+                     "backward)", shape, "bfloat16",
+                     lambda: bwd(q, k, v, o, lse, d_o, True, 0),
+                     lambda: [kf.flash_attention_backward(
+                         q[i], k[i], v[i], o[i], lse[i], d_o[i])
+                         for i in range(V)],
+                     lambda: flash_attention_backward_ref(qf, kf_, vf, of,
+                                                          lf, dof),
+                     flash_bwd_bound_us(V * B, S, Hq, Hk, hd, 2, True, 0,
+                                        BF16_FLOP_PER_S),
+                     call_time_us(sdpa_bwd), "flash_attention_backward",
+                     b_err, pb_err, folded_shape=[V * B, S, Hq, Hk, hd],
+                     library_call="the backward of torch.nn.functional."
+                                  "scaled_dot_product_attention at the "
+                                  "folded shape, eager (CUDA events around "
+                                  "one call)", **big)]
+        for row in pair:
+            print(f"vmap {row['name']} V x (B, S, Hq, Hk, hd) = {shape} "
+                  f"folded to {tuple(row['folded_shape'])}: one launch, "
+                  f"bit-identical to {V} launches {row['bit_identical']}, "
+                  f"max_abs_err {row['max_abs_err']:.3e} against the plain "
+                  f"version | folded call {row['ms'] * 1e3:.2f} us, {V} calls "
+                  f"{row['v_calls_ms'] * 1e3:.2f} us, plain "
+                  f"{row['plain_ms'] * 1e3:.2f} us, library "
+                  f"{row['library_ms'] * 1e3:.2f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})",
+                  flush=True)
+        rows += pair
+    return rows
+
+
+def phase_sharded_me(batched_rt) -> dict:
+    """``ShardedModelEvaluation(ME_SHARDS)`` on a batched round's W
+    against the dense ME phase: gw bit-identical, similarities within
+    rtol 1e-5, the same vote, two kernel launches a shard."""
+    import torch
+    from repro_torch.core.phases import ModelEvaluation, RoundContext
+    from repro_torch.fl.sharded_consensus import ShardedModelEvaluation
+    from repro_torch.kernels import ops
+    rt = batched_rt
+    W = rt._engine.run_round(rt._global_flat,
+                             rt.cfg.seed + rt.consensus.round + 1)
+    sizes = [float(c.data_size) for c in rt.clusters]
+
+    def context():
+        return RoundContext(round=0, models=list(W), data_sizes=sizes,
+                            n_nodes=W.shape[0])
+
+    dense, sharded = context(), context()
+    ModelEvaluation().run(dense)
+    ops.reset_launch_counts()
+    ShardedModelEvaluation(ME_SHARDS).run(sharded)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    d, s = dense.evaluation, sharded.evaluation
+    tag = f"sharded ME ({ME_SHARDS} shards of {tuple(W.shape)})"
+    check(counts["weighted_aggregate"] == ME_SHARDS
+          and counts["cosine_partials"] == ME_SHARDS,
+          f"{tag}: launches {counts}, want two a shard")
+    check(torch.equal(s.global_model, d.global_model),
+          f"{tag}: gw differs from the dense ME's by "
+          f"{max_diff(s.global_model, d.global_model)}")
+    sim_err = max_diff(s.similarities, d.similarities)
+    check(torch.allclose(s.similarities, d.similarities, rtol=1e-5, atol=0),
+          f"{tag}: similarities differ from the dense ME's by {sim_err}")
+    check(int(s.vote) == int(d.vote),
+          f"{tag}: vote {int(s.vote)}, the dense ME's {int(d.vote)}")
+    times = {}
+    for name, phase in (("dense", ModelEvaluation()),
+                        ("sharded", ShardedModelEvaluation(ME_SHARDS))):
+        ms = []
+        for _ in range(25):
+            ctx = context()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phase.run(ctx)
+            ctx.evaluation.similarities.cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(ms[5:])
+    out = {"n_shards": ME_SHARDS, "launches": counts,
+           "similarities_max_abs_diff": sim_err, "vote": int(s.vote),
+           "phase_ms": times}
+    print(f"{tag}: gw bit-identical to dense ME, similarities within "
+          f"{sim_err:.3e}, vote {int(s.vote)} in both, {counts['cosine_partials']}"
+          f" + {counts['weighted_aggregate']} launches; phase synchronized "
+          f"dense {times['dense']:.3f} ms, sharded {times['sharded']:.3f} ms",
+          flush=True)
+    print("sharded_me " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1394,10 +1965,11 @@ def main() -> int:
         print(f"--- nvcc {name}.cu ---\n{_build.build_log(name).strip()}",
               flush=True)
     print(f"tensor cores: {check_tensor_cores()}", flush=True)
+    warm_profiler(dev)
     # 3. ME kernels
     rows = phase_kernels(dev)
     # 4. main path
-    counts, runtime, round_ms = phase_main_path(dev)
+    counts, runtime, round_ms, main_ref = phase_main_path(dev)
     # 5. where the device time goes
     phase_profile(runtime, round_ms)
     # 6. the card against the CPU
@@ -1445,8 +2017,29 @@ def main() -> int:
                 fed[kernel]["launches"][kernel + "_backward"]
     # 17. gradients on the card against the CPU
     phase_grad_agreement(dev)
+    # 18. the batched FEL engine on phase 4's setting, then (19) one
+    # profiled round and the device ops of one FEL phase beside the loop's
+    batched = phase_batched_main(dev, main_ref)
+    phase_profile(batched["runtime"], batched["round_ms"], "batched profile")
+    phase_fel_kernels(batched["runtime"], runtime)
+    # 20. the batched LM rounds: one launch a layer per vmapped step
+    blm = phase_batched_lm(dev, lm)
+    # 21. the vmap rules: folded launches against V separate ones
+    fold_rows = phase_vmap_wkv6(dev) + phase_vmap_flash(dev)
+    # 22. sharded ME on a batched round's W
+    sharded = phase_sharded_me(batched["runtime"])
+    for row in rows:
+        row["batched_launches"] = batched["counts"][row["name"]]
+        row["sharded_me_launches"] = sharded["launches"][row["name"]]
+    lm_counts = {**blm["rwkv6"]["launches"],
+                 **{k: v for k, v in blm["transformer"]["launches"].items()
+                    if k.startswith("flash")}}
+    for row in wkv_rows + flash_rows + wkv_bwd_rows + flash_bwd_rows:
+        row["batched_lm_launches"] = lm_counts[row["name"]]
+    for row in fold_rows:
+        row["launches"] = lm_counts[row.pop("launches_key")]
     print(json.dumps({"kernels": rows + wkv_rows + flash_rows + wkv_bwd_rows
-                      + flash_bwd_rows}), flush=True)
+                      + flash_bwd_rows + fold_rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,16 @@ faults, one committee), for the paper's MNIST MLP and the LM families:
                        fel_iterations=3, rounds=3, seed=0)   # on the card
     run.chain_valid, run.chain_height, run.history[-1].test_accuracy
     api.run_bhfl(model="rwkv6", rounds=2)          # or "transformer"
+    api.run_bhfl(engine="batched")       # every client in one vmapped step
 
 One call publishes the task, negotiates it (Stackelberg), partitions the
 data into the FEL hierarchy, and runs PoFEL rounds on ``device`` — the
-CUDA card unless the caller passes ``device="cpu"``. The simulator
+CUDA card unless the caller passes ``device="cpu"``. ``engine`` picks the
+FEL engine: ``"reference"`` (the default, one client's SGD step at a
+time), ``"batched"`` (``fl.batched_fel``: every client of every cluster
+in one ``torch.func.vmap``-ed step, the LM kernels launched once a layer
+for all of them) or ``"auto"`` (batched where the adapter has a batched
+train spec). The simulator
 (``scenario=``, ``faults=``) and the sharded consortium (``committees``
 > 1) are not ported yet and raise ``NotImplementedError``.
 """
@@ -34,9 +40,11 @@ from repro_torch.data.tokens import TokenDataset, make_token_dataset
 from repro_torch.fl.adapters import (LMAdapter, MLPAdapter, ModelAdapter,
                                      make_adapter, params_from_jax,
                                      rwkv6_adapter, transformer_adapter)
+from repro_torch.fl.batched_fel import BatchedFELEngine, BatchedTrainSpec
 from repro_torch.fl.hfl_runtime import (AllNodesPlagiarizeError, BHFLConfig,
                                         BHFLRuntime, RoundMetrics)
 from repro_torch.fl.hierarchy import build_hierarchy
+from repro_torch.fl.sharded_consensus import ShardedModelEvaluation
 from repro_torch.fl.task import (LearningTask, RewardLedger, TaskAgreement,
                                  negotiate_task)
 from repro_torch.obs import get_recorder
@@ -49,7 +57,8 @@ __all__ = [
     "transformer_adapter", "rwkv6_adapter", "params_from_jax",
     "PoFELConsensus", "ConsensusRecord", "BTSVConfig",
     "AllNodesPlagiarizeError", "make_mnist_like", "make_token_dataset",
-    "TokenDataset",
+    "TokenDataset", "ShardedModelEvaluation", "BatchedFELEngine",
+    "BatchedTrainSpec",
 ]
 
 
@@ -175,7 +184,8 @@ def run_bhfl(task: Optional[LearningTask] = None,
     the vocab of the caller's token data), or an adapter on ``device``.
     Data defaults to ``make_mnist_like(4000, 600, seed)`` for the MLP and
     ``make_token_dataset(256, 16, vocab, seed)`` for an LM; token data
-    takes the "iid" distribution only.
+    takes the "iid" distribution only. ``engine`` is ``"reference"`` (the
+    default), ``"batched"`` or ``"auto"`` (module doc).
     """
     _check_overrides(overrides, cfg_given=cfg is not None)
     _check_ported(scenario, faults, committees)

@@ -7,8 +7,8 @@ CPU-scale :func:`transformer_adapter` and :func:`rwkv6_adapter` that
 needs init / local-train / eval / flatten / unflatten from an adapter,
 and flatten/unflatten must use the canonical sorted-keypath layout of
 ``core.serialization``, the order HCDS commits to and ME aggregates in.
-The batched FEL engine's train specs are not ported yet (ROADMAP Queue 1
-item 8).
+Both adapters also give the batched FEL engine (``fl.batched_fel``) its
+train spec (``batched_train_spec``).
 
 :func:`params_from_jax` loads the reference's MLP parameters into the
 port, so both packages can start from one init (``jax.random`` draws
@@ -30,8 +30,9 @@ from repro_torch import resolve_device
 from repro_torch.core.serialization import flatten_pytree, unflatten_pytree
 from repro_torch.fl.client import Client, local_train
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.mlp import (MLPConfig, mlp_accuracy, mlp_init,
-                                    mlp_loss)
+from repro_torch.models.mlp import (MLPConfig, dropout_mask, mlp_accuracy,
+                                    mlp_init, mlp_loss, mlp_per_example_loss,
+                                    step_generator)
 from repro_torch.models.model_api import (DEFAULT_AUX_WEIGHT, Model,
                                           _token_ce_loss)
 from repro_torch.optim.sgd import sgd_init, sgd_update
@@ -113,6 +114,36 @@ class MLPAdapter(_SerializationFlatten):
         return EvalResult(
             float(mlp_accuracy(params, x, y, cfg=self.cfg)),
             float(mlp_loss(params, x, y, cfg=self.cfg)))
+
+    def batched_train_spec(self):
+        """The batched FEL engine's spec (``fl.batched_fel``): the shard
+        as (x, y) arrays, the loop's dropout mask of each step
+        (``step_generator(seed, step)`` at the client's batch width)
+        drawn beforehand, and the per-sample CE. Memoized per adapter,
+        as in the reference."""
+        if getattr(self, "_batched_spec", None) is not None:
+            return self._batched_spec
+        from repro_torch.fl.batched_fel import BatchedTrainSpec
+        cfg = self.cfg
+
+        def stack(dataset):
+            return {"x": np.asarray(dataset.x, np.float32),
+                    "y": np.asarray(dataset.y, np.int32)}
+
+        def draw(seed, step, bs, device):
+            if cfg.dropout <= 0.0:
+                return None
+            return dropout_mask(step_generator(seed, step, device),
+                                1.0 - cfg.dropout, (bs, cfg.hidden), device)
+
+        def per_example(params, batch, rand):
+            return mlp_per_example_loss(params, batch["x"], batch["y"],
+                                        cfg=cfg, train=True, mask=rand)
+
+        self._batched_spec = BatchedTrainSpec(
+            stack, draw, per_example, self.local_epochs, self.batch_size,
+            self.lr, self.momentum, self.decay)
+        return self._batched_spec
 
 
 def _flat(tree: dict, prefix: str = "") -> dict:
@@ -200,6 +231,37 @@ class LMAdapter(_SerializationFlatten):
                     v.requires_grad_(True)
         return (_nested({k: v.detach() for k, v in flat.items()}),
                 float(loss.detach()))
+
+    def batched_train_spec(self):
+        """The batched FEL engine's spec (``fl.batched_fel``): token rows
+        stack densely; the per-example loss is the per-row mean token CE
+        plus ``DEFAULT_AUX_WEIGHT`` times the (batch-global) aux term, so
+        for the dense and RWKV-6 families (aux ≡ 0) the masked mean is
+        ``Model.loss``. Nothing is drawn. Memoized per adapter."""
+        if getattr(self, "_batched_spec", None) is not None:
+            return self._batched_spec
+        from repro_torch.fl.batched_fel import BatchedTrainSpec
+        model = self.model
+
+        def stack(dataset):
+            return {"rows": np.asarray(dataset.tokens, np.int32)}
+
+        def per_example(params, batch, rand):
+            rows = batch["rows"]
+            b = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+            logits, aux = model.forward(params, b)
+            logits = logits.to(torch.float32)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                b["labels"].long()[..., None])[..., 0]
+            return torch.mean(lse - gold, dim=-1) + DEFAULT_AUX_WEIGHT * aux
+
+        self._batched_spec = BatchedTrainSpec(
+            stack, lambda seed, step, bs, device: None, per_example,
+            self.local_epochs, self.batch_size, self.lr, self.momentum,
+            self.decay)
+        return self._batched_spec
+
 
     @torch.no_grad()
     def evaluate(self, params: dict, dataset: Any) -> EvalResult:

@@ -1,7 +1,6 @@
 """BHFL runtime — the paper-faithful end-to-end loop (paper §3.1).
 
-Port of ``repro.fl.hfl_runtime`` with the reference FEL engine. Per BCFL
-round k:
+Port of ``repro.fl.hfl_runtime``. Per BCFL round k:
   1. every cluster runs `fel_iterations` of FEL (clients local-train,
      edge FedAvg) starting from the current global model,
   2. the N resulting intermediate models W(k) go through one PoFEL
@@ -17,10 +16,12 @@ RWKV-6 LM. Models live on the runtime's ``device`` (the CUDA card unless
 the caller asks for the CPU); ME runs there through the port's kernels,
 and gw(k) is adopted there without a host roundtrip.
 
-``engine="auto"`` resolves to the reference engine, as the reference does
-for an adapter without a batched train spec; the batched in-graph engine
-is not ported yet (ROADMAP Queue 1 item 8), so ``engine="batched"``
-raises.
+FEL runs on one of two engines (``BHFLConfig.engine``): ``"reference"``,
+the paper-faithful loop of one client's SGD step at a time, or
+``"batched"`` (``fl.batched_fel``), every client of every cluster in one
+vmapped step, with the models kept as the stacked flat (N, D) W(k) that
+ME takes. ``"auto"`` picks the batched engine when the adapter has a
+batched train spec and the hierarchy has data, else the loop.
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.btsv import BTSVConfig
 from repro_torch.core.consensus import ConsensusRecord, PoFELConsensus
-from repro_torch.core.serialization import flatten_pytree
+from repro_torch.core.serialization import flatten_pytree, unflatten_pytree
 from repro_torch.fl.adapters import MLPAdapter, ModelAdapter
+from repro_torch.fl.batched_fel import engine_for
 from repro_torch.fl.fedavg import fedavg
 from repro_torch.fl.hierarchy import FELCluster
 from repro_torch.models.mlp import MLPConfig
@@ -58,7 +60,11 @@ class BHFLConfig:
     btsv: BTSVConfig = field(default_factory=BTSVConfig)
     g_max: float = 0.99
     seed: int = 0
-    engine: str = "reference"       # "reference" | "auto" ("batched" raises)
+    engine: str = "reference"       # "reference" | "batched" | "auto"
+    # pad the batched engine's client/sample/step/batch dims to the next
+    # power of two (bit-exact padding; repro_torch.fl.batched_fel module
+    # doc); costs masked device compute per round, so it is opt-in
+    shape_bucketing: bool = False
 
     def default_adapter(self, device: torch.device) -> MLPAdapter:
         """The paper's workload: the MNIST MLP with §7.1 hyperparameters."""
@@ -103,11 +109,6 @@ class BHFLRuntime:
         if cfg.engine not in ENGINES:
             raise ValueError(f"unknown engine {cfg.engine!r}; "
                              f"choose from {ENGINES}")
-        if cfg.engine == "batched":
-            raise ValueError(
-                "engine='batched' needs the batched in-graph FEL engine, "
-                "which is not ported yet (ROADMAP Queue 1 item 8); use "
-                "engine='reference' or 'auto'")
         self.device = resolve_device(device)
         self.clusters = clusters
         self.cfg = cfg
@@ -130,11 +131,48 @@ class BHFLRuntime:
         # act at consensus time
         self.plagiarists: set[int] = set()
         self.vote_hook: Optional[Callable] = None
+        # -- FEL engine selection -------------------------------------------
+        self._engine = None
+        self._global_flat: Optional[torch.Tensor] = None
+        if cfg.engine in ("batched", "auto"):
+            try:
+                self._engine = engine_for(self.adapter, clusters,
+                                          cfg.fel_iterations,
+                                          self.global_params,
+                                          bucket=cfg.shape_bucketing)
+            except ValueError:
+                # degenerate hierarchy (e.g. every shard empty): 'auto'
+                # falls back to the reference loop, 'batched' surfaces it
+                if cfg.engine == "batched":
+                    raise
+                self._engine = None
+            if self._engine is None and cfg.engine == "batched":
+                raise ValueError(
+                    f"engine='batched' requires the adapter to provide "
+                    f"batched_train_spec(); "
+                    f"{getattr(self.adapter, 'name', type(self.adapter).__name__)!r} "
+                    f"does not — use engine='auto' to fall back")
+            if self._engine is not None:
+                # models live in stacked flat form on the device across
+                # rounds
+                self._global_flat = flatten_pytree(self.global_params)
 
     @property
     def engine(self) -> str:
-        """Which FEL engine actually runs."""
-        return "reference"
+        """Which FEL engine actually runs ('reference' or 'batched')."""
+        return "batched" if self._engine is not None else "reference"
+
+    @property
+    def global_params(self) -> Any:
+        return self._global_params
+
+    @global_params.setter
+    def global_params(self, value: Any) -> None:
+        # keep the batched engine's flat state in sync so external
+        # warm-starts (rt.global_params = ...) take effect there
+        self._global_params = value
+        if getattr(self, "_engine", None) is not None:
+            self._global_flat = flatten_pytree(value)
 
     def _check_adapter_layout(self) -> None:
         """ME produces gw(k) in the canonical sorted-keypath layout and the
@@ -171,7 +209,8 @@ class BHFLRuntime:
             params = fedavg(locals_, sizes)
         return params
 
-    def _fel_models(self, round_seed: int) -> List[Any]:
+    # -- W(k) production, per engine ----------------------------------------
+    def _fel_models_reference(self, round_seed: int) -> List[Any]:
         models: List[Any] = []
         for cluster in self.clusters:
             if cluster.node_id in self.plagiarists:
@@ -182,6 +221,15 @@ class BHFLRuntime:
         # plagiarists copy the first honest model they "received"
         victim = next(i for i, m in enumerate(models) if m is not None)
         return [dict(models[victim]) if m is None else m for m in models]
+
+    def _fel_models_batched(self, round_seed: int) -> List[Any]:
+        """The batched engine's stacked (N, D) W(k); its rows go to
+        consensus as they are (a flat vector is itself a model tree), a
+        plagiarist's row a copy of the first honest one."""
+        W = self._engine.run_round(self._global_flat, round_seed)
+        flags = [c.node_id in self.plagiarists for c in self.clusters]
+        victim = flags.index(False)
+        return [W[victim] if f else W[i] for i, f in enumerate(flags)]
 
     # -- one BCFL round ------------------------------------------------------
     def run_round(self) -> RoundMetrics:
@@ -200,8 +248,11 @@ class BHFLRuntime:
         round_seed = cfg.seed + k + 1
         sizes = [float(c.data_size) for c in self.clusters]
         try:
-            with rec.span("fel", round=k, engine="reference"):
-                models = self._fel_models(round_seed)
+            with rec.span("fel", round=k, engine=self.engine):
+                if self._engine is not None:
+                    models = self._fel_models_batched(round_seed)
+                else:
+                    models = self._fel_models_reference(round_seed)
             record = self.consensus.run_round(models, sizes,
                                               vote_hook=self.vote_hook)
         except BaseException as e:
@@ -210,8 +261,15 @@ class BHFLRuntime:
 
         # adopt gw(k) as the next global model (it stays on the device)
         with rec.span("adopt_global", round=k):
-            self.global_params = self.adapter.unflatten(
-                record.global_model, self.global_params)
+            if self._engine is not None:
+                # the flat form is the batched engine's round state (set
+                # both here, past the syncing setter)
+                self._global_flat = record.global_model
+                self._global_params = unflatten_pytree(self._global_flat,
+                                                       self.global_params)
+            else:
+                self.global_params = self.adapter.unflatten(
+                    record.global_model, self.global_params)
 
         acc, loss = float("nan"), float("nan")
         if self.test_set is not None:

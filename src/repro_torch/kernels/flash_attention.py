@@ -28,7 +28,9 @@ rank order, the same 16-byte rule for q, k, v and dO as the forward;
 float32 on CUDA cores), counted in ``backward_launches``; on the CPU
 the forward and backward are the plain versions
 (``ref.flash_attention_backward_ref``). Serving never takes that route:
-one launch a layer, no L written.
+one launch a layer, no L written. Under ``torch.func.vmap`` (the batched
+FEL engine) both Functions fold the vmapped axis into the batch and
+launch once for the whole batch.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._fold import front, is_wrapped
 from repro_torch.kernels.ref import (flash_attention_backward_ref,
                                      flash_attention_gqa_ref,
                                      flash_attention_lse_ref)
@@ -229,37 +232,99 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
     return dq, dk, dv
 
 
+def _fold(t, dim, V):
+    """(V, B, ...) → (V·B, ...), contiguous: the vmapped axis becomes
+    part of the batch."""
+    t = front(t, dim, V)
+    return t.reshape(V * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _unfold(t, V):
+    """(V·B, ...) → (V, B, ...)."""
+    return t.reshape(V, t.shape[0] // V, *t.shape[1:])
+
+
 class _Attention(torch.autograd.Function):
-    """The op with a gradient: the kernels on the card, the plain
-    versions on the CPU."""
+    """The op as a ``torch.func``-ready Function: the kernels on the
+    card, the plain versions on the CPU. Its outputs are (o, the row
+    logsumexp L the backward reads; empty when ``save`` is off). Under
+    ``torch.func.vmap`` the vmapped axis is folded into the batch and the
+    op runs once for the whole batch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = _forward(q, k, v, causal, window, want_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(q, k, v, causal, window, save):
+        o, lse = _forward(q, k, v, causal, window, want_lse=save)
+        if lse is None:
+            lse = q.new_empty((q.shape[0], q.shape[2], 0),
+                              dtype=torch.float32)
+        return o, lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, _ = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(q, k, v, *output)
         ctx.mask = (causal, window)
-        return o
 
     @staticmethod
-    def backward(ctx, d_o):
+    def backward(ctx, d_o, _):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window = ctx.mask
+        return (*_AttentionBackward.apply(q, k, v, o, lse, d_o, *ctx.mask),
+                None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, save):
+        V = info.batch_size
+        o, lse = _Attention.apply(
+            *(_fold(t, d, V) for t, d in zip((q, k, v), in_dims)), causal,
+            window, save)
+        return (_unfold(o, V), _unfold(lse, V)), (0, 0)
+
+
+class _AttentionBackward(torch.autograd.Function):
+    """:func:`flash_attention_backward` as a Function of its own, so that
+    under ``torch.func`` the backward is folded and launched once too.
+    It has no gradient of its own."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, d_o, causal, window):
         # e.g. the expanded grad of a sum; the bf16 kernel also wants
         # 16-byte aligned rows, which a fresh copy has
         if d_o.stride(3) != 1 or (d_o.dtype == torch.bfloat16
                                   and tma_refusal("d_o", d_o)):
             d_o = d_o.clone(memory_format=torch.contiguous_format)
-        return (*flash_attention_backward(q, k, v, o, lse, d_o,
-                                          causal=causal, window=window),
-                None, None)
+        return flash_attention_backward(q, k, v, o, lse, d_o, causal=causal,
+                                        window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the flash attention backward has no "
+                                  "gradient")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, d_o, causal, window):
+        V = info.batch_size
+        grads = _AttentionBackward.apply(
+            *(_fold(t, d, V) for t, d in zip((q, k, v, o, lse, d_o),
+                                             in_dims)), causal, window)
+        return tuple(_unfold(g, V) for g in grads), (0, 0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, S, Hq, hd), k and v (B, S, Hk, hd) with Hq a multiple of Hk →
     (B, S, Hq, hd) in q's dtype. ``window`` > 0 keeps the keys with
-    q - k < window. Differentiable when an input requires grad."""
+    q - k < window. Differentiable when an input requires grad. Inputs
+    wrapped by ``torch.func`` (vmap, grad) go through the Function, whose
+    vmap rule folds the vmapped axis into the batch: one launch for the
+    batch."""
     _check(q, k, v, window)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Attention.apply(q, k, v, causal, window)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if grad or is_wrapped(q, k, v):
+        return _Attention.apply(q, k, v, causal, window, grad)[0]
     return _forward(q, k, v, causal, window, want_lse=False)[0]

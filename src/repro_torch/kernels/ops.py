@@ -4,7 +4,8 @@ Each op runs its hand-written CUDA kernel for a CUDA tensor and its plain
 PyTorch version (``repro_torch.kernels.ref``) for a CPU tensor; there is
 no other route. ``wkv6_recurrence`` and ``flash_attention`` are
 differentiable: their backward passes are kernels too (on the CPU, the
-plain backward versions). :func:`launch_counts` reads how many times each kernel
+plain backward versions); under ``torch.func.vmap`` each folds the
+vmapped axis into one launch. :func:`launch_counts` reads how many times each kernel
 was launched, so a run can show that its main path went through them.
 """
 

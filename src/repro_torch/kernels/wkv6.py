@@ -27,7 +27,9 @@ through distributed shared memory in rank order; then du's ordered fold
 over b; :func:`backward_shape` is its geometry), counted in
 ``backward_launches``; on the CPU the forward and backward are the
 plain versions (``ref.wkv6_backward_ref``). Serving never takes that
-route, so its launches and kernels are unchanged.
+route, so its launches and kernels are unchanged. Under
+``torch.func.vmap`` (the batched FEL engine) both Functions fold the
+vmapped axis into the heads and launch once for the whole batch.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._fold import front, is_wrapped
 from repro_torch.kernels.ref import wkv6_backward_ref, wkv6_recurrence_ref
 
 HEAD_SIZES = (8, 16, 32, 64)
@@ -247,33 +250,121 @@ def wkv6_backward(r, k, v, w, u, s0, d_o, d_state, ckpt=None):
     return dr, dk, dv, dw, du, ds0
 
 
+def _fold(t, dim, V):
+    """(V, B, S, H, K) → (B, S, V·H, K), contiguous: the vmapped axis
+    becomes part of the heads (each batch member's u is its own)."""
+    t = front(t, dim, V)
+    V, B, S, H, K = t.shape
+    return t.permute(1, 2, 0, 3, 4).reshape(B, S, V * H, K).contiguous()
+
+
+def _fold_state(t, dim, V):
+    """(V, B, H, ...) → (B, V·H, ...), contiguous."""
+    t = front(t, dim, V)
+    return t.transpose(0, 1).reshape(t.shape[1], V * t.shape[2],
+                                     *t.shape[3:]).contiguous()
+
+
+def _fold_u(u, dim, V):
+    """(V, H, K) → (V·H, K), contiguous."""
+    return front(u, dim, V).reshape(-1, u.shape[-1]).contiguous()
+
+
+def _unfold(t, V):
+    """(B, S, V·H, K) → (V, B, S, H, K)."""
+    B, S, VH, K = t.shape
+    return t.reshape(B, S, V, VH // V, K).permute(2, 0, 1, 3, 4)
+
+
+def _unfold_state(t, V):
+    """(B, V·H, ...) → (V, B, H, ...)."""
+    return t.reshape(t.shape[0], V, t.shape[1] // V,
+                     *t.shape[2:]).transpose(0, 1)
+
+
 class _Recurrence(torch.autograd.Function):
-    """The op with a gradient: the kernels on the card, the plain
-    versions on the CPU."""
+    """The op as a ``torch.func``-ready Function: the kernels on the
+    card, the plain versions on the CPU. Its outputs are (o, final
+    state, the chunk states the backward reads; empty on the CPU or
+    when ``save`` is off). Under ``torch.func.vmap`` the vmapped axis is
+    folded into the heads and the op runs once for the whole batch;
+    vmap over vmap folds twice, still one launch."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, s0):
-        o, s_fin, ckpt = _forward(r, k, v, w, u, s0, save=True)
-        ctx.save_for_backward(r, k, v, w, u, s0, ckpt)
-        return o, s_fin
+    def forward(r, k, v, w, u, s0, save):
+        o, s_fin, ckpt = _forward(r, k, v, w, u, s0, save=save)
+        if ckpt is None:
+            B, S, H, K = r.shape
+            ckpt = r.new_empty((B, H, 0, K, K))
+        return o, s_fin, ckpt
 
     @staticmethod
-    def backward(ctx, d_o, d_state):
+    def setup_context(ctx, inputs, output):
+        r, k, v, w, u, s0, _ = inputs
+        ctx.mark_non_differentiable(output[2])
+        ctx.save_for_backward(r, k, v, w, u, s0, output[2])
+
+    @staticmethod
+    def backward(ctx, d_o, d_state, _):
         r, k, v, w, u, s0, ckpt = ctx.saved_tensors
         if d_o is None:
             d_o = torch.zeros_like(r)
-        elif d_o.stride(3) != 1:     # e.g. the expanded grad of a sum
+        return (*_RecurrenceBackward.apply(r, k, v, w, u, s0, d_o, d_state,
+                                           ckpt), None)
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, s0, save):
+        V = info.batch_size
+        o, s_fin, ckpt = _Recurrence.apply(
+            *(_fold(t, d, V) for t, d in zip((r, k, v, w), in_dims)),
+            _fold_u(u, in_dims[4], V), _fold_state(s0, in_dims[5], V), save)
+        return ((_unfold(o, V), _unfold_state(s_fin, V),
+                 _unfold_state(ckpt, V)), (0, 0, 0))
+
+
+class _RecurrenceBackward(torch.autograd.Function):
+    """:func:`wkv6_backward` as a Function of its own, so that under
+    ``torch.func`` the backward is folded and launched once too. It has
+    no gradient of its own."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, s0, d_o, d_state, ckpt):
+        if d_o.stride(3) != 1:      # e.g. the expanded grad of a sum
             d_o = d_o.contiguous()
         return wkv6_backward(r, k, v, w, u, s0, d_o, d_state, ckpt)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the wkv6 backward has no gradient")
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, w, u, s0, d_o, d_state, ckpt):
+        V = info.batch_size
+        dr, dk, dv, dw, du, ds0 = _RecurrenceBackward.apply(
+            *(_fold(t, d, V) for t, d in zip((r, k, v, w), in_dims)),
+            _fold_u(u, in_dims[4], V), _fold_state(s0, in_dims[5], V),
+            _fold(d_o, in_dims[6], V),
+            None if d_state is None else _fold_state(d_state, in_dims[7], V),
+            _fold_state(ckpt, in_dims[8], V))
+        return ((*(_unfold(t, V) for t in (dr, dk, dv, dw)),
+                 du.reshape(V, -1, du.shape[-1]), _unfold_state(ds0, V)),
+                (0,) * 6)
 
 
 def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
     """r, k, v, w (B, S, H, K), u (H, K), s0 (B, H, K, K), all float32 →
     (o (B, S, H, K), final state (B, H, K, K)) in float32,
-    differentiable when an input requires grad."""
+    differentiable when an input requires grad. Inputs wrapped by
+    ``torch.func`` (vmap, grad) go through the Function, whose vmap rule
+    folds the vmapped axis into the heads: one launch for the batch."""
     _check(r, k, v, w, u, s0)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, w, u, s0)):
-        return _Recurrence.apply(r, k, v, w, u, s0)
+    ts = (r, k, v, w, u, s0)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    if grad or is_wrapped(*ts):
+        return _Recurrence.apply(r, k, v, w, u, s0, grad)[:2]
     return _forward(r, k, v, w, u, s0, save=False)[:2]

@@ -8,7 +8,9 @@ canonical serialization matches the reference's byte for byte.
 ``jax.random`` draws cannot be reproduced in torch: :func:`mlp_init`
 draws from a ``torch.Generator`` (on the CPU, so the same seed gives the
 same init on every device), and dropout draws its mask from a generator
-seeded per SGD step (:func:`step_generator`).
+seeded per SGD step (:func:`step_generator`). The batched FEL engine
+draws the same masks beforehand, outside ``torch.func.vmap``, and passes
+them in (``mask=``).
 """
 
 from __future__ import annotations
@@ -64,13 +66,20 @@ def dropout_mask(generator: torch.Generator, keep: float, shape: tuple,
 
 def mlp_apply(params: dict, x: torch.Tensor, *, cfg: MLPConfig,
               train: bool = False,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Logits. Training with dropout draws its keep-mask from
+    ``generator``, or takes a boolean ``mask`` of the hidden layer's
+    shape drawn beforehand (no draw happens here, as ``torch.func.vmap``
+    requires)."""
     h = torch.relu(x @ params["w1"] + params["b1"])
     if train and cfg.dropout > 0.0:
-        if generator is None:
-            raise ValueError("training with dropout needs a generator")
         keep = 1.0 - cfg.dropout
-        mask = dropout_mask(generator, keep, tuple(h.shape), h.device)
+        if mask is None:
+            if generator is None:
+                raise ValueError("training with dropout needs a generator "
+                                 "or a mask")
+            mask = dropout_mask(generator, keep, tuple(h.shape), h.device)
         h = torch.where(mask, h / keep, torch.zeros((), device=h.device))
     return h @ params["w2"] + params["b2"]  # logits; softmax folded into loss
 
@@ -78,9 +87,12 @@ def mlp_apply(params: dict, x: torch.Tensor, *, cfg: MLPConfig,
 def mlp_per_example_loss(params: dict, x: torch.Tensor, y: torch.Tensor, *,
                          cfg: MLPConfig, train: bool = False,
                          generator: Optional[torch.Generator] = None,
+                         mask: Optional[torch.Tensor] = None,
                          ) -> torch.Tensor:
-    """(B,) per-sample cross-entropies."""
-    logits = mlp_apply(params, x, cfg=cfg, train=train, generator=generator)
+    """(B,) per-sample cross-entropies; ``generator`` and ``mask`` as in
+    :func:`mlp_apply`."""
+    logits = mlp_apply(params, x, cfg=cfg, train=train, generator=generator,
+                       mask=mask)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, 1, y.to(torch.int64)[:, None])[:, 0]
 

@@ -922,3 +922,142 @@ def test_run_bhfl_lm_on_card_goes_through_kernels(cuda_device, model):
     assert after[kernel + "_backward"] - before[kernel + "_backward"] == \
         layers * steps
     assert after[kernel] - before[kernel] == layers * (steps + 1)
+
+
+# ---------------------------------------------------------------------------
+# the kernels under torch.func.vmap, and the batched FEL engine
+# ---------------------------------------------------------------------------
+
+def _counts_delta(before):
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("V,B,S,H,K", [(24, 8, 16, 2, 32), (3, 2, 33, 2, 64),
+                                       (2, 1, 17, 1, 8)])
+def test_wkv6_folded_launch_is_v_launches(cuda_device, V, B, S, H, K):
+    """A vmapped call folds the V batch members into the heads: one
+    forward and one backward launch, bit-identical to V separate launches
+    (the geometry and every sum's order depend on K alone; du's fold over
+    b runs per head)."""
+    from torch.func import vmap
+    from repro_torch.kernels import wkv6 as kw
+    gen = torch.Generator(device=cuda_device).manual_seed(V * S + K)
+    r, k, v, d_o = (_randn(gen, cuda_device, V, B, S, H, K) for _ in range(4))
+    w = 0.2 + 0.79 * torch.rand(V, B, S, H, K, generator=gen,
+                                device=cuda_device)
+    u = _randn(gen, cuda_device, V, H, K)
+    s0 = torch.zeros(B, H, K, K, device=cuda_device)     # unbatched
+    before = ops.launch_counts()
+    o, s_fin, ckpt = vmap(kw._Recurrence.apply,
+                          in_dims=(0, 0, 0, 0, 0, None, None))(
+        r, k, v, w, u, s0, True)
+    grads = vmap(kw._RecurrenceBackward.apply,
+                 in_dims=(0, 0, 0, 0, 0, None, 0, None, 0))(
+        r, k, v, w, u, s0, d_o, None, ckpt)
+    delta = _counts_delta(before)
+    assert delta["wkv6"] == 1 and delta["wkv6_backward"] == 1
+    for i in range(V):
+        oi, si, ci = kw._forward(r[i], k[i], v[i], w[i], u[i], s0, save=True)
+        assert torch.equal(o[i], oi) and torch.equal(s_fin[i], si)
+        assert torch.equal(ckpt[i], ci)
+        gi = kw.wkv6_backward(r[i], k[i], v[i], w[i], u[i], s0, d_o[i],
+                              None, ci)
+        for got, want in zip(grads, gi):
+            assert torch.equal(got[i], want)
+
+
+@pytest.mark.parametrize("V,B,S,Hq,Hk,hd", [(24, 8, 16, 2, 2, 32),
+                                            (4, 2, 512, 32, 4, 128),
+                                            (3, 2, 65, 4, 1, 64)])
+def test_flash_folded_launch_is_v_launches(cuda_device, V, B, S, Hq, Hk, hd):
+    """A vmapped call folds the V batch members into the batch: one
+    forward and one backward launch (bfloat16, the models' dtype),
+    bit-identical to V separate launches."""
+    from torch.func import vmap
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=cuda_device).manual_seed(V * S + hd)
+    q, d_o = (_randn(gen, cuda_device, V, B, S, Hq, hd).to(torch.bfloat16)
+              for _ in range(2))
+    k, v = (_randn(gen, cuda_device, V, B, S, Hk, hd).to(torch.bfloat16)
+            for _ in range(2))
+    before = ops.launch_counts()
+    o, lse = vmap(kf._Attention.apply, in_dims=(0, 0, 0, None, None, None))(
+        q, k, v, True, 0, True)
+    grads = vmap(kf._AttentionBackward.apply,
+                 in_dims=(0, 0, 0, 0, 0, 0, None, None))(
+        q, k, v, o, lse, d_o, True, 0)
+    delta = _counts_delta(before)
+    assert delta["flash_attention"] == 1
+    assert delta["flash_attention_backward"] == 1
+    for i in range(V):
+        oi, li = kf._forward(q[i], k[i], v[i], True, 0, want_lse=True)
+        assert torch.equal(o[i], oi) and torch.equal(lse[i], li)
+        gi = kf.flash_attention_backward(q[i], k[i], v[i], oi, li, d_o[i])
+        for got, want in zip(grads, gi):
+            assert torch.equal(got[i], want)
+
+
+def test_me_kernels_under_the_sharded_phase(cuda_device):
+    """Sharded ME on the card: two launches a shard, gw bit-identical to
+    the dense ME's (Eq. 1 sums each column over N in one order whatever
+    the shard), similarities within rtol 1e-5, the same vote."""
+    from repro_torch.fl.sharded_consensus import (shard_flat,
+                                                  sharded_model_evaluation)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    W = _randn(gen, cuda_device, 8, 101_770)
+    sizes = torch.rand(8, generator=gen, device=cuda_device) * 99 + 1
+    dense = model_evaluation(W, sizes)
+    before = ops.launch_counts()
+    sh = sharded_model_evaluation(shard_flat(W, 4), sizes)
+    delta = _counts_delta(before)
+    assert delta["cosine_partials"] == 4 and delta["weighted_aggregate"] == 4
+    assert torch.equal(sh.global_model, dense.global_model)
+    torch.testing.assert_close(sh.similarities, dense.similarities,
+                               rtol=1e-5, atol=0)
+    assert int(sh.vote) == int(dense.vote)
+
+
+def test_run_bhfl_batched_mlp_matches_the_loop_on_card(cuda_device):
+    """engine="batched" against engine="reference" on the card, dropout
+    on (the engine draws the loop's masks): the same leaders, gw within
+    rtol 1e-5 / atol 1e-6 every round (cuBLAS may round a batched product
+    and a single one differently). Label-skewed shards at lr 0.05 keep
+    the top-2 similarity margin far above float32 rounding, so the
+    leader is the data's pick, not the rounding's."""
+    from repro_torch.models.mlp import MLPConfig
+    kw = dict(model="mlp", n_nodes=4, clients_per_node=3, fel_iterations=2,
+              rounds=2, seed=2, mlp=MLPConfig(hidden=64),
+              distribution="label", lr=0.05,
+              data=api.make_mnist_like(720, 60, seed=2))
+    ref = api.run_bhfl(engine="reference", **kw)
+    bat = api.run_bhfl(engine="batched", **kw)
+    assert bat.runtime.engine == "batched" and bat.chain_valid
+    assert [m.leader_id for m in bat.history] == \
+        [m.leader_id for m in ref.history]
+    for mr, mb in zip(ref.history, bat.history):
+        torch.testing.assert_close(mb.consensus.global_model,
+                                   mr.consensus.global_model,
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("model", ["rwkv6", "transformer"])
+def test_run_bhfl_batched_lm_launches_once_a_layer_a_step(cuda_device, model):
+    """A batched LM round on the card: every vmapped SGD step launches the
+    forward and the backward kernel once a layer for all the clients,
+    every evaluation the forward once a layer."""
+    data = api.make_token_dataset(48, 16, 64, seed=1)
+    before = ops.launch_counts()
+    run = api.run_bhfl(model=model, n_nodes=2, clients_per_node=3,
+                       fel_iterations=2, rounds=1, seed=1, data=data,
+                       engine="batched")
+    delta = _counts_delta(before)
+    assert run.runtime.engine == "batched"
+    assert run.chain_valid and run.chain_height == 1
+    assert all(math.isfinite(m.test_loss) for m in run.history)
+    layers = run.runtime.adapter.arch.n_layers
+    eng = run.runtime._engine
+    steps = eng.fel_iterations * eng.steps_per_iteration
+    kernel = "wkv6" if model == "rwkv6" else "flash_attention"
+    assert delta[kernel + "_backward"] == layers * steps
+    assert delta[kernel] == layers * (steps + 1)
