@@ -13,7 +13,9 @@ CUDA build of PyTorch. It never imports JAX or the reference package
    where the toolkit has ``cuobjdump``, the flash library must hold
    ``HGMMA`` (wgmma) instructions: its bf16 path is on the tensor cores;
 3. kernels: each ME kernel at (N, D) = (8, 101770) and (50, 101770), in
-   float32 and bfloat16, against its plain PyTorch version on the card,
+   float32 and bfloat16, and at the shapes phases 23-24 give it, (6,
+   101770) (a scenario), (16, 101770) and (32, 101770) (a committee of
+   consortium_64 and consortium_256), in float32, against its plain PyTorch version on the card,
    twice on the same input (the outputs must be bit-identical), one call
    of the partials putting exactly one kernel on the card, then
    timed with CUDA events over CUDA-graph replays (device time per call,
@@ -116,7 +118,21 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     plain version, the bound and (flash) SDPA;
 22. sharded ME: ``ShardedModelEvaluation(4)`` on a batched round's W
     against the dense ME phase: gw bit-identical, similarities within
-    rtol 1e-5, the same vote, two kernel launches a shard.
+    rtol 1e-5, the same vote, two kernel launches a shard;
+23. scenarios: ``run_bhfl(scenario=...)`` of ``byzantine_third`` (the
+    reference loop), ``edge_churn`` (the batched engine, node 5 down for
+    two rounds) and ``crash_restart`` (WAL replay, ledger re-sync) on the
+    card: live, no safety violation, each ME kernel once per completed
+    round, byzantine_third's leaders honest or the honest argmax, the
+    round wall times; one more byzantine_third round profiled (busy
+    share); the chrome trace of one run written, read back with
+    ``obs.load_trace`` and summarized (``obs.format_summary``);
+24. consortium: ``run_bhfl(scenario="consortium_256")`` (N = 256 in 8
+    committees of 32, a 1 % lossy WAN with retries, checkpoints every 2
+    rounds) beside ``consortium_64``: every committee live, no safety
+    violation, the top-chains converged at 8 x epochs, each ME kernel
+    once per completed shard round, the committee round wall times, and
+    one more consortium round of each profiled (busy share).
 
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
@@ -144,6 +160,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 SHAPES = ((8, 101_770), (50, 101_770))
+# ME in phases 23-24: 6 nodes a scenario, committees of 16 and 32; float32,
+# the MLP's dtype
+SIM_SHAPES = ((6, 101_770), (16, 101_770), (32, 101_770))
 MAIN_ROUNDS = 3
 ME_KERNELS = ("cosine_partials", "weighted_aggregate")
 WKV6_SHAPES = ((8, 1, 32, 64), (8, 512, 32, 64))
@@ -411,20 +430,22 @@ def phase_kernels(dev) -> list:
     import torch
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for N, D in SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
-            W = torch.randn(N, D, generator=gen, device=dev).to(dt)
-            gw = torch.randn(D, generator=gen, device=dev).to(dt)
-            w = torch.rand(N, generator=gen, device=dev) * 99.0 + 1.0
-            for row in (check_partials(W, gw), check_aggregate(W, w)):
-                print(f"kernel {row['name']} {row['shape']} {row['dtype']}: "
-                      f"max_abs_err {row['max_abs_err']:.3e} bit-identical "
-                      f"{row['bit_identical']} | kernel {row['kernel_us']:.2f}"
-                      f" us, plain {row['plain_us']:.2f} us, library "
-                      f"{row['library_us']:.2f} us, bound "
-                      f"{row['bound_us']:.2f} us, eager call "
-                      f"{row['call_us']:.2f} us", flush=True)
-                rows.append(row)
+    cases = [(N, D, dt) for N, D in SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(N, D, torch.float32) for N, D in SIM_SHAPES]
+    for N, D, dt in cases:
+        W = torch.randn(N, D, generator=gen, device=dev).to(dt)
+        gw = torch.randn(D, generator=gen, device=dev).to(dt)
+        w = torch.rand(N, generator=gen, device=dev) * 99.0 + 1.0
+        for row in (check_partials(W, gw), check_aggregate(W, w)):
+            print(f"kernel {row['name']} {row['shape']} {row['dtype']}: "
+                  f"max_abs_err {row['max_abs_err']:.3e} bit-identical "
+                  f"{row['bit_identical']} | kernel {row['kernel_us']:.2f}"
+                  f" us, plain {row['plain_us']:.2f} us, library "
+                  f"{row['library_us']:.2f} us, bound "
+                  f"{row['bound_us']:.2f} us, eager call "
+                  f"{row['call_us']:.2f} us", flush=True)
+            rows.append(row)
     return rows
 
 
@@ -1943,6 +1964,221 @@ def phase_sharded_me(batched_rt) -> dict:
     return out
 
 
+# -- slice 9: the simulator's scenarios and the sharded consortium --------
+
+def round_breakdowns(rec) -> list:
+    """One dict per ``round`` span of a recorder, in order: its round,
+    committee (None unsharded), wall ms, and the summed wall ms of its
+    descendant spans by name (found through the spans' parent ids)."""
+    by_id = {sp.span_id: sp for sp in rec.spans}
+    totals: dict = {}
+    for sp in rec.spans:
+        anc = sp
+        while anc.parent is not None and anc.name != "round":
+            anc = by_id[anc.parent]
+        if anc.name != "round" or anc is sp:
+            continue
+        d = totals.setdefault(anc.span_id, {})
+        d[sp.name] = d.get(sp.name, 0.0) + sp.wall_dur * 1e3
+    out = []
+    for sp in sorted((s for s in rec.spans if s.name == "round"),
+                     key=lambda s: s.span_id):
+        out.append({"round": sp.round,
+                    "committee": sp.attrs.get("committee"),
+                    "ms": sp.wall_dur * 1e3,
+                    "aborted": sp.error is not None,
+                    "parts": totals.get(sp.span_id, {})})
+    return out
+
+
+# the parts of a round whose share of it phases 23-24 print: FEL, HCDS
+# commit/reveal, ME, every envelope batch verification (inside the
+# phases), the whole consensus
+ROUND_PARTS = ("fel", "phase:commit_reveal", "phase:model_evaluation",
+               "crypto.verify_batch", "consensus")
+
+
+def shares(rows) -> dict:
+    """Median share of a round taken by each of ROUND_PARTS."""
+    return {part: statistics.median(r["parts"].get(part, 0.0) / r["ms"]
+                                    for r in rows)
+            for part in ROUND_PARTS}
+
+
+def completed_rounds(history) -> int:
+    return sum(1 for m in history if m.consensus is not None)
+
+
+# (scenario, FEL engine): BTSV under bribery on the loop, the batched
+# engine's down-node path, WAL replay and ledger re-sync
+SCENARIO_RUNS = (("byzantine_third", "reference"),
+                 ("edge_churn", "batched"),
+                 ("crash_restart", "reference"))
+
+
+def phase_scenarios(dev) -> dict:
+    """Phase 23: ``run_bhfl(scenario=...)`` on the card at the §7.1 width:
+    live, no safety violation, each ME kernel once per completed round;
+    byzantine_third's leaders honest or the honest similarity argmax (a
+    bribed vote never elects), edge_churn converged on the batched engine,
+    crash_restart's restarts recovered; one run's chrome trace written,
+    read back and summarized."""
+    import tempfile
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.kernels import ops
+    out = {}
+    for name, engine in SCENARIO_RUNS:
+        rec = obs.TraceRecorder(name)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with obs.use_recorder(rec):
+            run = api.run_bhfl(scenario=name, seed=0, engine=engine,
+                               device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rep = run.scenario_report
+        tag = f"scenario {name} ({engine})"
+        check(run.runtime.engine == engine,
+              f"{tag}: engine is {run.runtime.engine}")
+        check(rep.liveness, f"{tag}: liveness violated: {rep.summary()}")
+        check(rep.safety_violations == 0,
+              f"{tag}: {rep.safety_violations} safety violations")
+        done = completed_rounds(run.history)
+        check(done == rep.completed_rounds,
+              f"{tag}: {done} rounds ran ME, the report completed "
+              f"{rep.completed_rounds}")
+        for kernel in ME_KERNELS:
+            check(counts[kernel] == done,
+                  f"{tag}: {kernel} launched {counts[kernel]} times in "
+                  f"{done} completed rounds")
+        if name == "byzantine_third":
+            bribed = [r.round for r in rep.rounds if not r.aborted
+                      and not (r.honest_leader or r.leader_is_argmax)]
+            check(not bribed, f"{tag}: rounds {bribed} elected a bribery "
+                              f"voter that is not the honest argmax")
+        if name == "edge_churn":
+            check(rep.converged, f"{tag}: honest chains did not converge")
+        if name == "crash_restart":
+            check(rep.recoveries >= 3 and rep.converged,
+                  f"{tag}: {rep.recoveries} recoveries, converged "
+                  f"{rep.converged}")
+        rows = round_breakdowns(rec)
+        print(f"{tag}: {rep.summary()}", flush=True)
+        for r, m in zip(rows, run.history):
+            print(f"{tag} round {r['round']}: wall {r['ms']:.1f} ms, fel "
+                  f"{r['parts'].get('fel', 0.0):.1f}, commit/reveal "
+                  f"{r['parts'].get('phase:commit_reveal', 0.0):.1f}, "
+                  f"verify_batch "
+                  f"{r['parts'].get('crypto.verify_batch', 0.0):.1f}, ME "
+                  f"{r['parts'].get('phase:model_evaluation', 0.0):.2f} ms;"
+                  f" leader {m.leader_id}", flush=True)
+        out[name] = {"engine": engine, "wall_s": wall, "launches": counts,
+                     "completed_rounds": done,
+                     "round_ms": [r["ms"] for r in rows],
+                     "round_ms_median": statistics.median(r["ms"]
+                                                          for r in rows),
+                     "shares": shares(rows),
+                     "leaders": [m.leader_id for m in run.history],
+                     "honest_leader_rate": rep.honest_leader_rate,
+                     "argmax_leader_rate": rep.argmax_leader_rate,
+                     "recoveries": rep.recoveries,
+                     "reelections": rep.reelections}
+        if name == SCENARIO_RUNS[0][0]:
+            # the device's busy share of one more round on the same bus
+            out[name]["profile"] = phase_profile(
+                run.runtime, out[name]["round_ms_median"],
+                f"scenario profile {name}")
+            # the exporter and the profiler on a trace taken on the card
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                obs.write_chrome_trace(path, [(name, rec)])
+                trace = obs.load_trace(path)
+            n_spans = sum(e["ph"] == "X" for e in trace["traceEvents"])
+            check(n_spans == len(rec.spans),
+                  f"{tag}: the trace holds {n_spans} spans, the recorder "
+                  f"{len(rec.spans)}")
+            print(f"{tag}: chrome trace of {n_spans} spans written and "
+                  f"read back; its profile:\n"
+                  f"{obs.format_summary(trace, 'wall', 4)}", flush=True)
+    print("scenarios " + json.dumps(out), flush=True)
+    return out
+
+
+# the consortium runs of phase 24: the scale run and the 64-node one
+CONSORTIUM_RUNS = ("consortium_64", "consortium_256")
+
+
+def phase_consortium(dev) -> dict:
+    """Phase 24: ``run_bhfl(scenario="consortium_256")`` (N = 256 in 8
+    committees of 32) beside consortium_64 on the card: every committee
+    live, no safety violation, the top-chains converged at 8 x epochs,
+    each ME kernel once per completed shard round."""
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.kernels import ops
+    from repro_torch.sim import get_scenario
+    out = {}
+    for name in CONSORTIUM_RUNS:
+        sc = get_scenario(name)
+        rec = obs.TraceRecorder(name)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with obs.use_recorder(rec):
+            run = api.run_bhfl(scenario=name, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rep = run.scenario_report
+        cons = run.runtime
+        tag = f"consortium {name}"
+        check(rep.committees == sc.committees
+              and all(c.liveness for c in rep.committee_reports),
+              f"{tag}: a committee lost liveness: {rep.summary()}")
+        check(rep.safety_violations == 0,
+              f"{tag}: {rep.safety_violations} safety violations")
+        check(rep.top_chain_converged, f"{tag}: top-chains did not converge")
+        check(rep.top_chain_height == sc.committees * cons.epochs,
+              f"{tag}: top-chain height {rep.top_chain_height}, want "
+              f"{sc.committees} x {cons.epochs} epochs")
+        check(cons.verify_chains(), f"{tag}: a chain does not verify")
+        done = completed_rounds(cons.history)
+        for kernel in ME_KERNELS:
+            check(counts[kernel] == done,
+                  f"{tag}: {kernel} launched {counts[kernel]} times in "
+                  f"{done} completed shard rounds")
+        rows = round_breakdowns(rec)
+        sync = [sp.wall_dur * 1e3 for sp in rec.spans
+                if sp.name == "phase:checkpoint_sync"]
+        per_round = {}
+        for r in rows:
+            per_round[r["round"]] = per_round.get(r["round"], 0.0) + r["ms"]
+        committee_ms = statistics.median(r["ms"] for r in rows)
+        print(f"{tag}: {rep.summary()}", flush=True)
+        print(f"{tag}: {sc.rounds} rounds of {sc.committees} "
+              f"committees of {sc.n_nodes // sc.committees} in {wall:.1f} "
+              f"s; committee round median {committee_ms:.1f} ms (min "
+              f"{min(r['ms'] for r in rows):.1f}, max "
+              f"{max(r['ms'] for r in rows):.1f}); all committees' rounds "
+              f"{[round(v, 1) for v in per_round.values()]} ms; checkpoint "
+              f"sync {[round(v, 1) for v in sync]} ms; ME launches "
+              f"{counts['cosine_partials']} in {done} shard rounds",
+              flush=True)
+        out[name] = {"wall_s": wall, "launches": counts,
+                     "completed_shard_rounds": done,
+                     "profile": phase_profile(
+                         cons, statistics.median(per_round.values()),
+                         f"consortium profile {name}"),
+                     "committee_round_ms_median": committee_ms,
+                     "round_ms_all_committees": list(per_round.values()),
+                     "checkpoint_sync_ms": sync, "shares": shares(rows),
+                     "top_chain_height": rep.top_chain_height,
+                     "retransmits": rep.retransmits}
+    print("consortium " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2028,9 +2264,16 @@ def main() -> int:
     fold_rows = phase_vmap_wkv6(dev) + phase_vmap_flash(dev)
     # 22. sharded ME on a batched round's W
     sharded = phase_sharded_me(batched["runtime"])
+    # 23. scenarios on the card, then (24) the consortium at N = 256
+    scen = phase_scenarios(dev)
+    consortium = phase_consortium(dev)
     for row in rows:
         row["batched_launches"] = batched["counts"][row["name"]]
         row["sharded_me_launches"] = sharded["launches"][row["name"]]
+        row["scenario_launches"] = sum(v["launches"][row["name"]]
+                                       for v in scen.values())
+        row["consortium_launches"] = consortium["consortium_256"][
+            "launches"][row["name"]]
     lm_counts = {**blm["rwkv6"]["launches"],
                  **{k: v for k, v in blm["transformer"]["launches"].items()
                     if k.startswith("flash")}}

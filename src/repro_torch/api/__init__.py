@@ -1,7 +1,8 @@
 """``repro_torch.api`` — the facade over the port's BHFL system (§3.1).
 
-Port of ``repro.api.run_bhfl`` in the ideal setting (no scenario, no
-faults, one committee), for the paper's MNIST MLP and the LM families:
+Port of ``repro.api.run_bhfl``, for the paper's MNIST MLP and the LM
+families, in the ideal setting or under a simulator scenario, on one
+committee or sharded into a consortium:
 
     from repro_torch import api
 
@@ -10,6 +11,8 @@ faults, one committee), for the paper's MNIST MLP and the LM families:
     run.chain_valid, run.chain_height, run.history[-1].test_accuracy
     api.run_bhfl(model="rwkv6", rounds=2)          # or "transformer"
     api.run_bhfl(engine="batched")       # every client in one vmapped step
+    api.run_bhfl(scenario="byzantine_third").scenario_report.summary()
+    api.run_bhfl(scenario="consortium_64")   # 4 committees of 16
 
 One call publishes the task, negotiates it (Stackelberg), partitions the
 data into the FEL hierarchy, and runs PoFEL rounds on ``device`` — the
@@ -18,9 +21,14 @@ FEL engine: ``"reference"`` (the default, one client's SGD step at a
 time), ``"batched"`` (``fl.batched_fel``: every client of every cluster
 in one ``torch.func.vmap``-ed step, the LM kernels launched once a layer
 for all of them) or ``"auto"`` (batched where the adapter has a batched
-train spec). The simulator
-(``scenario=``, ``faults=``) and the sharded consortium (``committees``
-> 1) are not ported yet and raise ``NotImplementedError``.
+train spec).
+
+``scenario=`` (a ``repro_torch.sim`` scenario name or ``Scenario``) or
+``faults=`` (a prebuilt ``repro_torch.sim.SimEnv``) sends the consensus
+rounds over the seeded fault-injecting bus, and the run carries
+``run.scenario_report``. ``committees`` > 1 shards the nodes into that
+many committee-scoped PoFEL instances with cross-shard checkpoints every
+``checkpoint_interval`` rounds (``repro_torch.fl.consortium``).
 """
 
 from __future__ import annotations
@@ -71,6 +79,9 @@ class BHFLRun:
     rewards: RewardLedger
     runtime: BHFLRuntime
     history: List[RoundMetrics] = field(default_factory=list)
+    # set when the run was driven through a repro_torch.sim scenario/fault
+    # env
+    scenario_report: Optional[Any] = None
     # metrics rollup from the active obs recorder (None when tracing off)
     obs: Optional[Dict[str, Any]] = None
 
@@ -100,7 +111,7 @@ _RUN_BHFL_KWARGS = frozenset((
     "task", "model", "data", "cfg", "n_nodes", "clients_per_node",
     "fel_iterations", "rounds", "engine", "distribution", "gamma", "mu",
     "seed", "vote_hook", "plagiarists", "on_round", "scenario", "faults",
-    "committees", "device"))
+    "committees", "checkpoint_interval", "device"))
 # BHFLConfig fields not already exposed as explicit run_bhfl kwargs
 _CFG_OVERRIDES = frozenset(
     f.name for f in dataclasses.fields(BHFLConfig)) - _RUN_BHFL_KWARGS
@@ -128,18 +139,6 @@ def _check_overrides(overrides: Dict[str, Any], cfg_given: bool) -> None:
         raise ValueError(
             f"config overrides {sorted(overrides)} conflict with an "
             f"explicit cfg=; set them on the BHFLConfig instead")
-
-
-def _check_ported(scenario: Any, faults: Any,
-                  committees: Optional[int]) -> None:
-    if scenario is not None or faults is not None:
-        raise NotImplementedError(
-            "scenario=/faults= need the fault-injecting simulator, which is "
-            "not ported yet (ROADMAP Queue 1 item 10, simulator)")
-    if committees is not None and committees > 1:
-        raise NotImplementedError(
-            "committees > 1 needs the sharded consortium, which is not "
-            "ported yet (ROADMAP Queue 1 item 10, consortium)")
 
 
 def _default_data(adapter: ModelAdapter, seed: int) -> Tuple[Any, Any]:
@@ -171,6 +170,7 @@ def run_bhfl(task: Optional[LearningTask] = None,
              scenario: Optional[Any] = None,
              faults: Optional[Any] = None,
              committees: Optional[int] = None,
+             checkpoint_interval: Optional[int] = None,
              device: Any = None,
              **overrides: Any,
              ) -> BHFLRun:
@@ -186,9 +186,33 @@ def run_bhfl(task: Optional[LearningTask] = None,
     ``make_token_dataset(256, 16, vocab, seed)`` for an LM; token data
     takes the "iid" distribution only. ``engine`` is ``"reference"`` (the
     default), ``"batched"`` or ``"auto"`` (module doc).
+
+    ``scenario`` supplies sizing defaults (nodes, clients, FEL iterations,
+    rounds, and for the MLP ``make_mnist_like(sc.n_train, sc.n_test)``)
+    that explicit arguments override; it excludes ``faults``.
+    ``committees`` defaults to the scenario's (1 without one) and
+    ``checkpoint_interval`` likewise; ``faults`` does not combine with
+    ``committees`` > 1.
     """
     _check_overrides(overrides, cfg_given=cfg is not None)
-    _check_ported(scenario, faults, committees)
+    sc = None
+    if scenario is not None:
+        if faults is not None:
+            raise ValueError("pass scenario= or faults=, not both")
+        from repro_torch.sim import Scenario, get_scenario
+        sc = get_scenario(scenario) if isinstance(scenario, str) \
+            else scenario
+        if not isinstance(sc, Scenario):
+            raise TypeError(f"scenario= must be a name or Scenario, "
+                            f"got {type(sc).__name__}")
+        # scenario sizing fills whatever the caller left unspecified
+        if cfg is None:
+            n_nodes = n_nodes if n_nodes is not None else sc.n_nodes
+            clients_per_node = (clients_per_node if clients_per_node
+                                is not None else sc.clients_per_node)
+            fel_iterations = (fel_iterations if fel_iterations is not None
+                              else sc.fel_iterations)
+        rounds = rounds if rounds is not None else sc.rounds
     device = resolve_device(device)
     if cfg is None:
         cfg = BHFLConfig(n_nodes=n_nodes if n_nodes is not None else 6,
@@ -251,7 +275,13 @@ def run_bhfl(task: Optional[LearningTask] = None,
 
     # 3. hierarchy over (possibly synthesized) data
     if data is None:
-        data = _default_data(adapter, seed)
+        if sc is not None and isinstance(adapter, MLPAdapter):
+            # scenario sizing: protocol behaviour under faults is the
+            # object of study, so the workload stays small
+            data = make_mnist_like(n_train=sc.n_train, n_test=sc.n_test,
+                                   seed=seed)
+        else:
+            data = _default_data(adapter, seed)
     train, test = data
     if distribution != "iid" and not hasattr(train, "n_classes"):
         raise ValueError(
@@ -261,18 +291,93 @@ def run_bhfl(task: Optional[LearningTask] = None,
     clusters = build_hierarchy(train, n_nodes, cfg.clients_per_node,
                                distribution, seed=seed)
 
-    # 4. FEL + consensus rounds until termination
+    # 4a. sharded consortium: K committee-scoped PoFEL instances with
+    # cross-shard checkpoint sync (repro_torch.fl.consortium). committees=1
+    # (explicit or default) stays on the single-committee path below.
+    k_committees = committees if committees is not None else (
+        sc.committees if sc is not None else 1)
+    if k_committees is not None and k_committees > 1:
+        if faults is not None:
+            raise ValueError(
+                "faults= is unsupported with committees > 1; shape the "
+                "consortium via a Scenario (net / cross_net / adversaries)")
+        from repro_torch.fl.consortium import ConsortiumRuntime
+        from repro_torch.sim import Scenario as _Scenario
+        csc = sc
+        if csc is None:
+            csc = _Scenario(
+                name=f"consortium_k{k_committees}",
+                description="ad-hoc consortium run (api.run_bhfl)",
+                rounds=max_rounds, n_nodes=cfg.n_nodes,
+                clients_per_node=cfg.clients_per_node)
+        if (csc.committees != k_committees
+                or (checkpoint_interval is not None
+                    and csc.checkpoint_interval != checkpoint_interval)):
+            csc = dataclasses.replace(
+                csc, committees=k_committees,
+                committee_sizes=(csc.committee_sizes
+                                 if csc.committees == k_committees
+                                 else None),
+                checkpoint_interval=(checkpoint_interval
+                                     if checkpoint_interval is not None
+                                     else csc.checkpoint_interval))
+        consortium = ConsortiumRuntime(clusters, cfg, test, adapter=adapter,
+                                       scenario=csc, seed=seed,
+                                       device=device)
+        if vote_hook is not None:
+            consortium.set_vote_hook(vote_hook)
+        if plagiarists:
+            consortium.set_plagiarists(plagiarists)
+        run = BHFLRun(task, agreement, rewards, consortium,
+                      consortium.history)
+        for _ in range(min(max_rounds, task.max_rounds)):
+            round_metrics = consortium.run_round()
+            for gid in consortium.last_leaders:
+                rewards.settle_round(gid)
+            if on_round is not None:
+                for m in round_metrics:
+                    on_round(m)
+            losses = [m.test_loss for m in round_metrics
+                      if not np.isnan(m.test_loss)]
+            if test is not None and losses \
+                    and max(losses) <= task.target_loss:
+                break
+        run.scenario_report = consortium.finalize(
+            csc.name, seed, rounds_requested=consortium.rounds_run)
+        rec = get_recorder()
+        if rec.enabled:
+            run.obs = rec.metrics_snapshot()
+        return run
+
+    # 4b. FEL + consensus rounds until termination (single committee)
     runtime = BHFLRuntime(clusters, cfg, test, adapter=adapter, device=device)
     runtime.vote_hook = vote_hook
     runtime.plagiarists = set(plagiarists)
+    env = faults
+    if sc is not None:
+        from repro_torch.sim import build_env
+        env = build_env(sc, n_nodes=cfg.n_nodes, seed=seed)
+    if env is not None:
+        if env.network.n_nodes != cfg.n_nodes:
+            raise ValueError(
+                f"faults/scenario env simulates {env.network.n_nodes} "
+                f"nodes but the run has n_nodes={cfg.n_nodes}")
+        runtime.env = env
+        env.bind(runtime.consensus)
+        runtime.plagiarists |= env.plagiarist_ids()
     run = BHFLRun(task, agreement, rewards, runtime, runtime.history)
     for _ in range(min(max_rounds, task.max_rounds)):
         m = runtime.run_round()
-        rewards.settle_round(m.leader_id)
+        if m.leader_id >= 0:    # aborted rounds reward no leader
+            rewards.settle_round(m.leader_id)
         if on_round is not None:
             on_round(m)
         if test is not None and m.test_loss <= task.target_loss:
             break
+    if env is not None:
+        run.scenario_report = env.finalize(
+            scenario=sc.name if sc is not None else "custom",
+            seed=seed, rounds_requested=len(runtime.history))
     rec = get_recorder()
     if rec.enabled:
         run.obs = rec.metrics_snapshot()

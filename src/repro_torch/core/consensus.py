@@ -77,12 +77,16 @@ class PoFELConsensus:
         self.n_nodes = n_nodes
         self.btsv_cfg = btsv_cfg
         self.g_max = g_max
-        # committee scope: one shard of a sharded consortium in the
-        # reference; the port runs the single global committee only
-        if committee is not None:
-            raise NotImplementedError(
-                "committee-scoped consensus is not ported yet (ROADMAP "
-                "Queue 1 item 10, consortium)")
+        # committee scope (repro_torch.core.committee.Committee): when
+        # set, this instance is one shard of a consortium — node ids
+        # 0..n-1 here are committee-LOCAL, and signing keys derive from the
+        # members' GLOBAL ids so no two committees share a key and the
+        # consortium key directory is global-id-keyed. None keeps the
+        # classic single global committee.
+        if committee is not None and committee.size != n_nodes:
+            raise ValueError(
+                f"committee {committee.committee_id} has {committee.size} "
+                f"members but consensus was sized for {n_nodes} nodes")
         self.committee = committee
         # one durable protocol WAL per node: commits/reveals/votes/blocks
         # are logged before signing, so a node restarted through the
@@ -92,7 +96,13 @@ class PoFELConsensus:
         # assumes. (A simulated amnesia fault detaches its node's WAL.)
         self.wals: Dict[int, NodeWAL] = {i: NodeWAL(i)
                                          for i in range(n_nodes)}
-        keypairs = {i: None for i in range(n_nodes)}
+        if committee is None:
+            keypairs = {i: None for i in range(n_nodes)}
+        else:
+            from repro_torch.core.committee import committee_keypair
+            keypairs = {i: committee_keypair(committee.committee_id,
+                                             committee.global_id(i))
+                        for i in range(n_nodes)}
         self.hcds_nodes = [HCDSNode(i, keypair=keypairs[i],
                                     nonce_len=nonce_len, wal=self.wals[i])
                            for i in range(n_nodes)]

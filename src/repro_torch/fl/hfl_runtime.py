@@ -35,6 +35,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.btsv import BTSVConfig
 from repro_torch.core.consensus import ConsensusRecord, PoFELConsensus
+from repro_torch.core.phases import QuorumNotReached
 from repro_torch.core.serialization import flatten_pytree, unflatten_pytree
 from repro_torch.fl.adapters import MLPAdapter, ModelAdapter
 from repro_torch.fl.batched_fel import engine_for
@@ -77,11 +78,11 @@ class BHFLConfig:
 @dataclass
 class RoundMetrics:
     round: int
-    leader_id: int
+    leader_id: int              # -1 when the round aborted (quorum timeout)
     test_accuracy: float
     test_loss: float
     mean_similarity: float
-    consensus: Optional[ConsensusRecord]
+    consensus: Optional[ConsensusRecord]   # None for an aborted round
 
 
 class AllNodesPlagiarizeError(RuntimeError):
@@ -96,13 +97,15 @@ class BHFLRuntime:
     MLP); the clusters' client datasets must match its batch format.
     ``device=None`` runs on the CUDA card and raises if there is none;
     pass ``device="cpu"`` to run on the CPU. A given ``adapter`` must
-    live on the same device.
+    live on the same device. ``committee`` (a
+    ``repro_torch.core.committee.Committee``) scopes the runtime to one
+    shard of a consortium.
     """
 
     def __init__(self, clusters: List[FELCluster], cfg: BHFLConfig,
                  test_set: Optional[Any] = None,
                  adapter: Optional[ModelAdapter] = None,
-                 device: Any = None):
+                 device: Any = None, committee: Optional[Any] = None):
         if len(clusters) != cfg.n_nodes:
             raise ValueError(f"{len(clusters)} clusters for "
                              f"n_nodes={cfg.n_nodes}")
@@ -118,8 +121,13 @@ class BHFLRuntime:
         if torch.device(self.adapter.device) != self.device:
             raise ValueError(f"adapter runs on {self.adapter.device} but the "
                              f"runtime on {self.device}")
+        # committee scopes this runtime to one shard of a consortium:
+        # consensus runs over the committee's member set with
+        # committee-derived signing keys, and round spans carry the
+        # committee id so traces drill per-shard
+        self.committee = committee
         self.consensus = PoFELConsensus(cfg.n_nodes, cfg.btsv,
-                                        g_max=cfg.g_max)
+                                        g_max=cfg.g_max, committee=committee)
         # the generator lives where the adapter draws its init: an LM on
         # its device (Model.init refuses another), the MLP on the CPU
         init_device = getattr(self.adapter, "init_device", self.device)
@@ -131,6 +139,9 @@ class BHFLRuntime:
         # act at consensus time
         self.plagiarists: set[int] = set()
         self.vote_hook: Optional[Callable] = None
+        # fault environment (repro_torch.sim.network.SimEnv) — set by the
+        # scenario wiring in api.run_bhfl; None = ideal synchronous world
+        self.env: Optional[Any] = None
         # -- FEL engine selection -------------------------------------------
         self._engine = None
         self._global_flat: Optional[torch.Tensor] = None
@@ -210,26 +221,48 @@ class BHFLRuntime:
         return params
 
     # -- W(k) production, per engine ----------------------------------------
-    def _fel_models_reference(self, round_seed: int) -> List[Any]:
+    def _fel_models_reference(self, round_seed: int,
+                              down: Optional[set] = None) -> List[Any]:
+        down = down or set()
         models: List[Any] = []
         for cluster in self.clusters:
-            if cluster.node_id in self.plagiarists:
+            if cluster.node_id in down:
+                # a crashed node trains nothing; the stale global model
+                # stands in (it is never revealed, so it cannot be voted)
+                models.append(self.global_params)
+            elif cluster.node_id in self.plagiarists:
                 models.append(None)  # filled in below by copying a victim
             else:
                 models.append(self._run_fel(cluster, self.global_params,
                                             round_seed=round_seed))
-        # plagiarists copy the first honest model they "received"
-        victim = next(i for i, m in enumerate(models) if m is not None)
-        return [dict(models[victim]) if m is None else m for m in models]
+        # plagiarists copy the first honest live model they "received"
+        honest_ids = [i for i, m in enumerate(models)
+                      if m is not None and i not in down]
+        if any(m is None for m in models) and not honest_ids:
+            raise QuorumNotReached(
+                "every honest node is down — no model for the "
+                "plagiarist(s) to copy; round cannot proceed")
+        return [dict(models[honest_ids[0]]) if m is None else m
+                for m in models]
 
-    def _fel_models_batched(self, round_seed: int) -> List[Any]:
+    def _fel_models_batched(self, round_seed: int,
+                            down: Optional[set] = None) -> List[Any]:
         """The batched engine's stacked (N, D) W(k); its rows go to
         consensus as they are (a flat vector is itself a model tree), a
-        plagiarist's row a copy of the first honest one."""
+        plagiarist's row a copy of the first honest live one. A crashed
+        node's row is the stale global model, as on the reference path
+        (still on the device)."""
+        down = down or set()
         W = self._engine.run_round(self._global_flat, round_seed)
         flags = [c.node_id in self.plagiarists for c in self.clusters]
-        victim = flags.index(False)
-        return [W[victim] if f else W[i] for i, f in enumerate(flags)]
+        victim = next((i for i, f in enumerate(flags)
+                       if not f and i not in down), None)
+        if victim is None and any(flags):
+            raise QuorumNotReached(
+                "every honest node is down — no model for the "
+                "plagiarist(s) to copy; round cannot proceed")
+        return [self._global_flat if i in down else
+                (W[victim] if f else W[i]) for i, f in enumerate(flags)]
 
     # -- one BCFL round ------------------------------------------------------
     def run_round(self) -> RoundMetrics:
@@ -240,27 +273,53 @@ class BHFLRuntime:
             raise AllNodesPlagiarizeError(
                 f"all {cfg.n_nodes} nodes are plagiarists — at least one "
                 f"honest node must train a model for round {k}")
+        env = self.env
         rec = get_recorder()
-        # the top-level round span: its children (fel, the consensus span
-        # opened inside run_round, adopt_global, evaluate) account for the
-        # round's wall time
-        rec.open_span("round", cat="runtime", round=k)
+        # the top-level round span: its children (begin_round, fel, the
+        # consensus span opened inside run_round, adopt_global, evaluate,
+        # end_round) account for the round's wall time
+        com_attrs = ({} if self.committee is None
+                     else {"committee": self.committee.committee_id})
+        rec.open_span("round", cat="runtime", round=k, sim_env=env,
+                      **com_attrs)
+        down: set = set()
+        if env is not None:
+            with rec.span("begin_round", round=k, sim_env=env):
+                env.begin_round(k)
+            down = set(range(cfg.n_nodes)) - env.alive()
         round_seed = cfg.seed + k + 1
         sizes = [float(c.data_size) for c in self.clusters]
         try:
-            with rec.span("fel", round=k, engine=self.engine):
+            with rec.span("fel", round=k, sim_env=env, engine=self.engine):
                 if self._engine is not None:
-                    models = self._fel_models_batched(round_seed)
+                    models = self._fel_models_batched(round_seed, down=down)
                 else:
-                    models = self._fel_models_reference(round_seed)
+                    models = self._fel_models_reference(round_seed,
+                                                        down=down)
             record = self.consensus.run_round(models, sizes,
-                                              vote_hook=self.vote_hook)
+                                              vote_hook=self.vote_hook,
+                                              env=env)
+        except QuorumNotReached as e:
+            if env is None:     # impossible without fault injection
+                rec.close_span(error=type(e).__name__)
+                raise
+            # liveness gap: no block this round; global model unchanged
+            self.consensus.skip_round()
+            env.note("round_aborted", round=k, reason=str(e))
+            metrics = RoundMetrics(k, -1, float("nan"), float("nan"),
+                                   float("nan"), None)
+            self.history.append(metrics)
+            with rec.span("end_round", round=k, sim_env=env):
+                env.end_round(k, metrics, aborted=True)
+            rec.close_span(sim_now=None, error="QuorumNotReached",
+                           aborted=True)
+            return metrics
         except BaseException as e:
             rec.close_span(error=type(e).__name__)
             raise
 
         # adopt gw(k) as the next global model (it stays on the device)
-        with rec.span("adopt_global", round=k):
+        with rec.span("adopt_global", round=k, sim_env=env):
             if self._engine is not None:
                 # the flat form is the batched engine's round state (set
                 # both here, past the syncing setter)
@@ -273,13 +332,16 @@ class BHFLRuntime:
 
         acc, loss = float("nan"), float("nan")
         if self.test_set is not None:
-            with rec.span("evaluate", round=k):
+            with rec.span("evaluate", round=k, sim_env=env):
                 acc, loss = self.adapter.evaluate(self.global_params,
                                                   self.test_set)
 
         metrics = RoundMetrics(k, record.leader_id, acc, loss,
                                float(np.mean(record.similarities)), record)
         self.history.append(metrics)
+        if env is not None:
+            with rec.span("end_round", round=k, sim_env=env):
+                env.end_round(k, metrics, aborted=False)
         rec.close_span(aborted=False)
         return metrics
 
@@ -290,5 +352,6 @@ class BHFLRuntime:
     def leader_counts(self) -> Dict[int, int]:
         counts: Dict[int, int] = {i: 0 for i in range(self.cfg.n_nodes)}
         for m in self.history:
-            counts[m.leader_id] += 1
+            if m.leader_id >= 0:    # aborted rounds elected no leader
+                counts[m.leader_id] += 1
         return counts

@@ -145,9 +145,9 @@ def test_run_bhfl_on_cpu():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(scenario="byzantine_third"), NotImplementedError),
-    (dict(faults=object()), NotImplementedError),
-    (dict(committees=2), NotImplementedError),
+    (dict(scenario="byzantine_third", faults=object()), ValueError),
+    (dict(scenario="no_such_scenario"), KeyError),
+    (dict(faults=object(), committees=2), ValueError),
     (dict(model="transformer", distribution="label", data=None),
      ValueError),
     (dict(model=api.transformer_adapter(vocab_size=32, device="cpu"),

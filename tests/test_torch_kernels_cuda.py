@@ -1061,3 +1061,91 @@ def test_run_bhfl_batched_lm_launches_once_a_layer_a_step(cuda_device, model):
     kernel = "wkv6" if model == "rwkv6" else "flash_attention"
     assert delta[kernel + "_backward"] == layers * steps
     assert delta[kernel] == layers * (steps + 1)
+
+
+# -- the simulator and the consortium on the card -------------------------
+
+def _completed(history):
+    return sum(1 for m in history if m.consensus is not None)
+
+
+def test_run_bhfl_scenario_on_card_launches_me_once_a_round(cuda_device):
+    """``byzantine_third`` on the card: live, safe, and each ME kernel
+    launched once per completed round."""
+    before = ops.launch_counts()
+    run = api.run_bhfl(scenario="byzantine_third", seed=0)
+    delta = _counts_delta(before)
+    rep = run.scenario_report
+    assert rep.liveness and rep.safety_violations == 0 and rep.converged
+    assert run.runtime.global_params["w1"].is_cuda
+    n = _completed(run.history)
+    assert n == rep.completed_rounds == 6
+    assert delta["cosine_partials"] == delta["weighted_aggregate"] == n
+
+
+def _mini(device):
+    from repro_torch.sim import Scenario
+    sc = Scenario(name="consortium_mini",
+                  description="3 committees of 4 on a clean bus",
+                  rounds=2, n_nodes=12, clients_per_node=1, committees=3,
+                  checkpoint_interval=1, n_train=96, n_test=32)
+    return api.run_bhfl(scenario=sc, seed=0, device=device)
+
+
+def test_mini_consortium_on_card_matches_cpu(cuda_device):
+    """3 committees of 4: each ME kernel once per completed shard round;
+    the report's structure equals the same run's on the CPU (which
+    committees, rounds, checkpoints, heights, traffic), the head hashes
+    and the leaders aside (HCDS nonces; float32 ties between cuBLAS and
+    the CPU)."""
+    before = ops.launch_counts()
+    card = _mini(None)
+    delta = _counts_delta(before)
+    cpu = _mini("cpu")
+    n = _completed(card.history)
+    assert n == 6
+    assert delta["cosine_partials"] == delta["weighted_aggregate"] == n
+    rc, rp = card.scenario_report, cpu.scenario_report
+    for field in ("n_nodes", "quorum", "committees", "completed_rounds",
+                  "aborted_rounds", "liveness", "safety_violations",
+                  "converged", "top_chain_height", "top_chain_converged",
+                  "cross_shard_checkpoints", "final_heights", "net_stats",
+                  "rejected_envelopes", "retransmits", "recoveries"):
+        assert getattr(rc, field) == getattr(rp, field), field
+    assert [(c.committee_id, c.members, c.completed_rounds,
+             c.checkpoints_emitted, c.checkpoints_merged, c.final_height)
+            for c in rc.committee_reports] == \
+        [(c.committee_id, c.members, c.completed_rounds,
+          c.checkpoints_emitted, c.checkpoints_merged, c.final_height)
+         for c in rp.committee_reports]
+    assert [(r.round, r.committee, r.aborted, r.available, r.rejected)
+            for r in rc.rounds] == \
+        [(r.round, r.committee, r.aborted, r.available, r.rejected)
+         for r in rp.rounds]
+    assert card.runtime.verify_chains()
+    for shard in card.runtime.shards:
+        assert shard.global_params["w1"].is_cuda
+
+
+def test_edge_churn_batched_on_card_keeps_the_down_row(cuda_device,
+                                                        monkeypatch):
+    """``edge_churn`` on the batched engine: while node 5 is down its row
+    of W(k) is the global model it went down with, on the card."""
+    from repro_torch.fl.hfl_runtime import BHFLRuntime
+    real = BHFLRuntime._fel_models_batched
+    seen = []
+
+    def spy(self, round_seed, down=None):
+        before = self._global_flat.clone()
+        models = real(self, round_seed, down=down)
+        for i in sorted(down or ()):
+            seen.append((self.consensus.round, i,
+                         torch.equal(models[i], before), models[i].is_cuda))
+        return models
+
+    monkeypatch.setattr(BHFLRuntime, "_fel_models_batched", spy)
+    run = api.run_bhfl(scenario="edge_churn", seed=0, engine="batched")
+    rep = run.scenario_report
+    assert run.runtime.engine == "batched"
+    assert seen == [(2, 5, True, True), (3, 5, True, True)]
+    assert rep.liveness and rep.safety_violations == 0 and rep.converged
