@@ -134,6 +134,37 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     once per completed shard round, the committee round wall times, and
     one more consortium round of each profiled (busy share).
 
+25. flash at hd 112 (Zamba2-7B's shared attention, 32 query and 32 kv
+    heads): phase 10 at (8, 512) and (8, 64), bf16 and fp32; the
+    backward wrapper refuses hd 112 on the card (ROADMAP Queue 2 item I);
+    then phase 10 at the MoE models' bf16 shapes: DeepSeek-MoE-16B's
+    prefill (8, 57) and forward (8, 512), 16 query and 16 kv heads of
+    128, and Phi-3.5-MoE's forward (8, 512), 32 query and 8 kv heads;
+26. hybrid serving: ``Model(get_config("zamba2-7b"))`` at full width and
+    depth (81 layers: 13 groups of 5 Mamba2 blocks and the shared block,
+    3 more Mamba2 blocks; d_model 3584, Mamba2 state 64, 32 x 112 shared
+    heads; ~22.1 GB of seeded random weights, the Mamba2 blocks float32)
+    through phase 8's checks: the prompt replays through decode steps (no
+    flash launch in ``generate``), the same tokens twice; one (8, 512)
+    forward with exactly 13 flash launches at hd 112; a decode profile;
+27. MoE serving: ``Model(get_config("deepseek-moe-16b"))`` at full width
+    and depth (28 layers, 64 routed experts top-6 and 2 shared; ~33.8 GB
+    bfloat16) the same way: 28 flash launches in the prefill, the same
+    tokens twice, a decode profile; then one (8, 512) forward with its
+    routing counted (C = 480 slots an expert; the share of dropped
+    assignments);
+28. ``phi3.5-moe-42b-a6.6b`` at full width and 16 of its 32 layers (its
+    83.7 GB of bfloat16 weights at 32 layers do not fit the card with
+    activations): one (8, 512) forward, 16 flash launches at G = 4, its
+    routing counted, then timed;
+29. phase 9's agreement for the reduced Zamba2-7B and DeepSeek-MoE-16B;
+30. LM rounds: ``run_bhfl(model=LMAdapter(get_config(arch).reduced()))``
+    at the API's LM defaults, Zamba2-7B on both engines and
+    DeepSeek-MoE-16B on the loop: valid chain, finite losses, flash
+    forward and backward launches against the attention layers and the
+    SGD steps, each ME kernel once a round (phase 3 holds both ME kernels
+    at these rounds' (6, D)).
+
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
 line, when there is no CUDA device or any check fails.
@@ -215,6 +246,23 @@ BATCHED_W_TOL = dict(rtol=1e-5, atol=1e-6)
 VMAP_WKV6 = (24, 8, 16, 2, 32)
 VMAP_FLASH = ((24, 8, 16, 2, 2, 32), (4, 2, 512, 32, 4, 128))
 ME_SHARDS = 4
+# flash at Zamba2-7B's shared attention (32 query and kv heads of 112):
+# its (8, 512) forward and an (8, 64) prefill-size call
+FLASH_112_CASES = ((8, 512, 32, 32, 112, "bfloat16", True, 0),
+                   (8, 64, 32, 32, 112, "bfloat16", True, 0),
+                   (8, 512, 32, 32, 112, "float32", True, 0),
+                   (8, 64, 32, 32, 112, "float32", True, 0))
+# flash at the MoE models' heads, in the order of their launch counts in
+# main(): DeepSeek-MoE-16B's prefill and (8, 512) forward (16 query and 16
+# kv heads of 128), Phi-3.5-MoE's (8, 512) forward (32 query, 8 kv)
+FLASH_MOE_CASES = ((8, 57, 16, 16, 128, "bfloat16", True, 0),
+                   (8, 512, 16, 16, 128, "bfloat16", True, 0),
+                   (8, 512, 32, 8, 128, "bfloat16", True, 0))
+# Phi-3.5-MoE's forward at full width and 16 of its 32 layers
+PHI_LAYERS = 16
+# the hybrid and MoE LM rounds: (arch, FEL engine), the reduced configs
+FAMILY_ROUNDS = (("zamba2-7b", "reference"), ("zamba2-7b", "batched"),
+                 ("deepseek-moe-16b", "reference"))
 
 
 class SmokeFailure(RuntimeError):
@@ -426,6 +474,16 @@ def check_aggregate(W, w) -> dict:
         vector_width=vec, library_call="torch.mv(W.t(), lam)")
 
 
+def family_me_sizes() -> list:
+    """D of the ME in phase 30's LM rounds: the reduced Zamba2-7B's and
+    DeepSeek-MoE-16B's parameter counts (6 nodes at the API's LM
+    defaults; the flattening is float32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import Model
+    return [Model(get_config(arch).reduced(), device="cpu").n_params()
+            for arch in ("zamba2-7b", "deepseek-moe-16b")]
+
+
 def phase_kernels(dev) -> list:
     import torch
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -433,6 +491,7 @@ def phase_kernels(dev) -> list:
     cases = [(N, D, dt) for N, D in SHAPES
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(N, D, torch.float32) for N, D in SIM_SHAPES]
+    cases += [(6, D, torch.float32) for D in family_me_sizes()]
     for N, D, dt in cases:
         W = torch.randn(N, D, generator=gen, device=dev).to(dt)
         gw = torch.randn(D, generator=gen, device=dev).to(dt)
@@ -768,12 +827,23 @@ def n_elements(tree) -> int:
                for v in tree.values())
 
 
+def attention_layers(cfg) -> int:
+    """Flash launches of one forward: one a self-attention layer, or one
+    a group's shared block in the hybrid."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.ssm_models import hybrid_group_shape
+        return hybrid_group_shape(cfg)[0]
+    return cfg.n_layers
+
+
 def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
     """``arch`` at full width behind ``ServingEngine.generate``, twice, the
     launches of ``kernel`` counted in each run; then a forward over
     (8, 512) tokens and a profile of decode steps. A recurrent model
     launches its kernel once per layer in every prompt-replay and decode
-    step; a transformer once per layer in its one prefill. ``then(model,
+    step; a transformer once per layer in its one prefill; the hybrid
+    replays the prompt through decode steps (decode attention is plain)
+    and launches flash only in a forward, once a group. ``then(model,
     params)``, if given, runs last, on the served weights."""
     import numpy as np
     import torch
@@ -794,8 +864,11 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
     if cfg.rwkv:
         want, how = ((max_p + NEW_TOKENS - 1) * cfg.n_layers,
                      f"({max_p} + {NEW_TOKENS - 1}) x {cfg.n_layers}")
+    elif cfg.family == "hybrid":
+        want, how = 0, "none: the prompt replays through decode steps"
     else:
         want, how = cfg.n_layers, "one a layer in the prefill"
+    fwd_want = cfg.n_layers if cfg.rwkv else attention_layers(cfg)
     runs = []
     for attempt in range(2):
         watch = FiniteWatch(model)
@@ -843,9 +916,9 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
         logits, _ = model.forward(params, {"tokens": toks})
         torch.cuda.synchronize()
         fwd_launches = ops.launch_counts()[kernel]
-        check(fwd_launches == cfg.n_layers,
+        check(fwd_launches == fwd_want,
               f"forward {arch}: {kernel} launched {fwd_launches} times, want "
-              f"{cfg.n_layers}")
+              f"{fwd_want}")
         check(tuple(logits.shape) == (N_REQUESTS, 512, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"forward {arch}: logits {tuple(logits.shape)} not all finite")
@@ -921,7 +994,7 @@ def teacher_forced(model, params, reqs, forced):
         model.device)
     out = []
     with torch.inference_mode():
-        if model.cfg.rwkv:
+        if model.cfg.rwkv or model.cfg.family == "hybrid":
             cache = model.init_cache(len(reqs), P + n)
             for i in range(P - 1):
                 _, cache = model.decode_step(params, cache,
@@ -944,11 +1017,60 @@ def tree_to(tree, dev):
             for k, v in tree.items()}
 
 
+class RoutingTape:
+    """The MoE routing of one run, recorded (``record``) and then forced
+    on another (``replay``): each ``moe.router_topk`` call of the replay
+    keeps its own probabilities but takes the recorded expert choices, so
+    the two runs dispatch alike and differ only by rounding. A choice
+    that bfloat16 rounding can flip (the recorded router logits' gap
+    between the k-th and the (k+1)-th expert within 2 * LOGIT_ATOL, the
+    margin rule of the token argmax) may differ; ``mismatched`` counts
+    the tokens whose own choice differs where the gap is clear, ``flipped``
+    all those whose choice differs."""
+
+    def __init__(self):
+        self.tape, self.mode, self.at = [], "record", 0
+        self.flipped = self.mismatched = self.tokens = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.inner = moe, moe.router_topk
+        moe.router_topk = self._route
+        self.at = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.inner
+        self.mode = "replay"
+
+    def _route(self, x, w, cfg):
+        import torch
+        gates, idx, probs = self.inner(x, w, cfg)
+        if self.mode == "record":
+            self.tape.append((idx.cpu(), (x.float() @ w.float()).cpu()))
+            return gates, idx, probs
+        want, logits = self.tape[self.at]
+        self.at += 1
+        k = cfg.experts_per_token
+        top = logits.sort(-1, descending=True).values
+        clear = (top[:, k - 1] - top[:, k] > 2 * LOGIT_ATOL
+                 if k < top.shape[1] else torch.ones(len(top), dtype=bool))
+        same = (idx.cpu().sort(-1).values == want.sort(-1).values).all(-1)
+        self.tokens += len(same)
+        self.flipped += int((~same).sum())
+        self.mismatched += int((clear & ~same).sum())
+        forced = want.to(idx.device)
+        g = probs.gather(-1, forced.long())
+        return g / g.sum(-1, keepdim=True).clamp(min=1e-9), forced, probs
+
+
 def phase_serving_agreement(dev, arch: str) -> None:
     """The reduced ``arch`` with one set of weights on the card and on the
     CPU (random QKV biases where the config has them), fed the CPU's
     greedy tokens: logits within LOGIT_ATOL, and the same argmax wherever
-    the CPU's top-2 margin exceeds 2 * LOGIT_ATOL."""
+    the CPU's top-2 margin exceeds 2 * LOGIT_ATOL. A MoE model's card run
+    takes the CPU run's expert choices (``RoutingTape``), and its own
+    choices must agree wherever the CPU's router margin is clear."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -958,7 +1080,7 @@ def phase_serving_agreement(dev, arch: str) -> None:
     card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = card.init(gen)
-    attn = params["layers"].get("attn", {})
+    attn = params.get("layers", {}).get("attn", {})
     for b in ("bq", "bk", "bv"):
         if b in attn:
             attn[b] = torch.randn(attn[b].shape, generator=gen, device=dev
@@ -967,8 +1089,21 @@ def phase_serving_agreement(dev, arch: str) -> None:
     reqs = serving_requests(cfg.vocab_size)
     done = ServingEngine(cpu, cpu_params, device="cpu").generate(reqs)
     forced = np.asarray([c.tokens for c in done], np.int32)
-    lh = teacher_forced(cpu, cpu_params, reqs, forced)
-    lc = teacher_forced(card, params, reqs, forced)
+    with RoutingTape() as tape:
+        lh = teacher_forced(cpu, cpu_params, reqs, forced)
+    if cfg.family == "moe":
+        with tape:
+            lc = teacher_forced(card, params, reqs, forced)
+        check(tape.at == len(tape.tape) and tape.mismatched == 0,
+              f"serving agreement {arch}: {tape.mismatched} tokens route to "
+              f"other experts on the card where the CPU's router margin is "
+              f"clear")
+        print(f"serving agreement {arch}: routing of {tape.tokens} tokens "
+              f"over {len(tape.tape)} router calls, {tape.flipped} chose "
+              f"other experts on the card, none where the margin is clear",
+              flush=True)
+    else:
+        lc = teacher_forced(card, params, reqs, forced)
     check(torch.equal(lh.argmax(-1), torch.from_numpy(forced).long()),
           f"serving agreement {arch}: the CPU's greedy tokens are not its "
           f"argmax")
@@ -1062,11 +1197,11 @@ def check_flash(gen, dev, B: int, S: int, Hq: int, Hk: int, hd: int,
                      "enable_gqa=True)")
 
 
-def phase_flash(dev) -> list:
+def phase_flash(dev, cases=FLASH_CASES, seed: int = 3) -> list:
     import torch
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    for case in FLASH_CASES:
+    for case in cases:
         row = check_flash(gen, dev, *case)
         print(f"kernel flash_attention {row['shape']} Hk {row['kv_heads']} "
               f"{row['dtype']} causal {row['causal']} window {row['window']}"
@@ -1964,6 +2099,199 @@ def phase_sharded_me(batched_rt) -> dict:
     return out
 
 
+# -- slice 10: the Zamba2 hybrid and the MoE family ------------------------
+
+def phase_flash_112(dev) -> list:
+    """Flash attention at Zamba2-7B's shared attention (32 query and 32 kv
+    heads of 112): phase 10's checks and times at its (8, 512) forward
+    and a (8, 64) prefill-size call, bf16 and fp32; then the backward
+    wrapper must refuse hd 112 on the card (ROADMAP Queue 2 item I)."""
+    import torch
+    from repro_torch.kernels import ops
+    rows = phase_flash(dev, FLASH_112_CASES, seed=112)
+    # the same heads at hd 128: hd 112 runs on the hd-128 tile, so this is
+    # what its narrower rows save in bytes
+    gen = torch.Generator(device=dev).manual_seed(128)
+    q, k, v = (torch.randn(8, 512, 32, 128, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    t128 = graph_time_us(lambda: ops.flash_attention(q, k, v))
+    print(f"flash (8, 512, 32, 32, 128) bf16 causal, the hd 112 rows' heads "
+          f"at hd 128: kernel {t128:.2f} us", flush=True)
+    del q, k, v
+    q = torch.randn(1, 64, 2, 112, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    o = ops.flash_attention(q, q.detach(), q.detach())
+    try:
+        o.sum().backward()
+    except NotImplementedError as e:
+        check("Queue 2 item I" in str(e),
+              f"flash backward at hd 112 raised without naming its ROADMAP "
+              f"item: {e}")
+        print(f"flash backward at hd 112 refuses: {e}", flush=True)
+    else:
+        raise SmokeFailure("flash backward at hd 112 ran: no kernel is built "
+                           "for it")
+    return rows
+
+
+def moe_forward(model, params) -> dict:
+    """One (8, 512) forward of a MoE model with every layer's routing
+    counted: the (token, choice) assignments, those past their expert's
+    capacity C (dropped), C itself; finite logits and one flash launch a
+    layer."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    cfg = model.cfg
+    stats = {"assignments": 0, "dropped": 0, "capacity": []}
+    inner = transformer.moe_ffn
+
+    def counted(x, p, mcfg):
+        _, idx, _ = moe.router_topk(x, p["router"], mcfg)
+        pos = moe.position_in_expert(idx, mcfg.n_experts)
+        C = moe.capacity(x.shape[0], mcfg)
+        stats["assignments"] += pos.numel()
+        stats["dropped"] += int((pos >= C).sum())
+        stats["capacity"].append(C)
+        return inner(x, p, mcfg)
+
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (N_REQUESTS, 512)).astype(np.int32)).to(
+        model.device)
+    ops.reset_launch_counts()
+    transformer.moe_ffn = counted
+    try:
+        with torch.inference_mode():
+            logits, aux = model.forward(params, {"tokens": toks})
+            finite = bool(torch.isfinite(logits).all())
+    finally:
+        transformer.moe_ffn = inner
+    launches = ops.launch_counts()["flash_attention"]
+    tag = f"MoE forward {cfg.name} ({cfg.n_layers} layers)"
+    check(finite, f"{tag}: non-finite logits")
+    check(launches == cfg.n_layers,
+          f"{tag}: flash launched {launches} times, want {cfg.n_layers}")
+    caps = sorted(set(stats["capacity"]))
+    share = stats["dropped"] / stats["assignments"]
+    print(f"{tag} (8, 512): capacity {caps} slots an expert, "
+          f"{stats['dropped']} of {stats['assignments']} assignments "
+          f"dropped ({share:.4f}), aux {float(aux):.4f}, flash launches "
+          f"{launches}", flush=True)
+    return {"capacity": caps, "assignments": stats["assignments"],
+            "dropped": stats["dropped"], "dropped_share": share,
+            "aux": float(aux), "forward_launches": launches}
+
+
+def phase_phi_forward(dev) -> dict:
+    """Phi-3.5-MoE at full width and PHI_LAYERS of its 32 layers (the cut:
+    ~83.7 GB of bfloat16 weights at 32 layers, ~42.1 GB at 16): one
+    counted (8, 512) forward (16 flash launches at G = 4), then two timed
+    ones; the weights freed after."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import Model
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              n_layers=PHI_LAYERS)
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    out = moe_forward(model, params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (N_REQUESTS, 512)).astype(np.int32)).to(dev)
+    fwd_ms = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(arch=cfg.name, layers=cfg.n_layers,
+               n_params=model.n_params(), init_s=init_s, forward_ms=fwd_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"forward {cfg.name} at {PHI_LAYERS} of 32 layers (8, 512): "
+          f"{min(fwd_ms):.1f} ms, {out['n_params'] / 1e9:.2f} B parameters, "
+          f"peak {out['peak_gb']:.2f} GB", flush=True)
+    print("phi_forward " + json.dumps(out), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_rounds(dev) -> dict:
+    """``run_bhfl(model=LMAdapter(get_config(arch).reduced()))`` at the
+    API's LM defaults for the hybrid on both engines and the MoE family
+    on the loop: valid chain, finite losses, flash forward and backward
+    launches against the attention layers and the SGD steps (vmapped
+    steps on the batched engine), each ME kernel once a round."""
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.obs import TraceRecorder, use_recorder
+    out = {}
+    for arch, engine in FAMILY_ROUNDS:
+        cfg = get_config(arch).reduced()
+        rec = TraceRecorder(f"{arch}_{engine}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with use_recorder(rec):
+            run = api.run_bhfl(model=api.LMAdapter(cfg, device=dev),
+                               rounds=LM_ROUNDS, seed=0, device=dev,
+                               engine=engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rt = run.runtime
+        layers = attention_layers(cfg)
+        if engine == "batched":
+            steps = LM_ROUNDS * rt._engine.fel_iterations \
+                * rt._engine.steps_per_iteration
+        else:
+            steps = LM_ROUNDS * sgd_steps(rt, rt.adapter.batch_size)
+        tag = f"LM round {arch} reduced ({engine})"
+        check(rt.engine == engine, f"{tag}: engine is {rt.engine}")
+        check(run.chain_valid and run.chain_height == LM_ROUNDS,
+              f"{tag}: chain valid {run.chain_valid}, height "
+              f"{run.chain_height}")
+        check(all(math.isfinite(m.test_loss) for m in run.history),
+              f"{tag}: non-finite test loss")
+        check(counts["flash_attention_backward"] == layers * steps,
+              f"{tag}: flash backward launched "
+              f"{counts['flash_attention_backward']} times, want {layers} "
+              f"attention layers x {steps} SGD steps")
+        check(counts["flash_attention"] == layers * (steps + LM_ROUNDS),
+              f"{tag}: flash launched {counts['flash_attention']} times, "
+              f"want {layers} x ({steps} SGD steps + {LM_ROUNDS} "
+              f"evaluations)")
+        check(all(counts[k] == LM_ROUNDS for k in ME_KERNELS),
+              f"{tag}: ME kernels launched {counts}, want once a round")
+        per_round = spans_by_round(rec)
+        for k in sorted(per_round):
+            m = run.history[k]
+            print(f"{tag} {k}: wall {per_round[k]['round']:.1f} ms, fel "
+                  f"{per_round[k]['fel']:.1f} ms, leader {m.leader_id}, "
+                  f"loss {m.test_loss:.4f}", flush=True)
+        out[f"{arch}/{engine}"] = {
+            "wall_s": wall, "launches": counts, "sgd_steps": steps,
+            "attention_layers": layers,
+            "n_params": rt.adapter.model.n_params(),
+            "leaders": [m.leader_id for m in run.history],
+            "test_loss": [m.test_loss for m in run.history],
+            "round_ms": {str(k): v for k, v in per_round.items()}}
+        print(f"{tag}: {LM_ROUNDS} rounds in {wall:.2f} s, {steps} SGD "
+              f"steps, flash {counts['flash_attention']} and backward "
+              f"{counts['flash_attention_backward']} launches", flush=True)
+    print("family_rounds " + json.dumps(out), flush=True)
+    return out
+
+
 # -- slice 9: the simulator's scenarios and the sharded consortium --------
 
 def round_breakdowns(rec) -> list:
@@ -2281,8 +2609,41 @@ def main() -> int:
         row["batched_lm_launches"] = lm_counts[row["name"]]
     for row in fold_rows:
         row["launches"] = lm_counts[row.pop("launches_key")]
+    # 25. flash at hd 112; 26. Zamba2-7B serving; 27. DeepSeek-MoE-16B
+    # serving and its routing; 28. Phi-3.5-MoE at 16 layers; each model
+    # freed before the next is built
+    torch.cuda.empty_cache()
+    f112_rows = phase_flash_112(dev)
+    moe_rows = phase_flash(dev, FLASH_MOE_CASES, seed=129)
+    zamba = phase_serving(dev, "zamba2-7b", "flash_attention")
+    torch.cuda.empty_cache()
+    for row in f112_rows:      # the main path: the Zamba2-7B forward
+        row["launches"] = zamba["forward_launches"]
+        row["serving_launches"] = zamba["launches"]
+    deepseek = phase_serving(dev, "deepseek-moe-16b", "flash_attention",
+                             then=moe_forward)
+    torch.cuda.empty_cache()
+    phi = phase_phi_forward(dev)
+    # 29. the reduced hybrid and MoE models on the card against the CPU
+    for arch in ("zamba2-7b", "deepseek-moe-16b"):
+        phase_serving_agreement(dev, arch)
+    # 30. the hybrid and MoE LM rounds
+    fam = phase_family_rounds(dev)
+    for row, n in zip(moe_rows, (deepseek["launches"],
+                                 deepseek["forward_launches"],
+                                 phi["forward_launches"])):
+        row["launches"] = n
+    for row in flash_bwd_rows:
+        row["family_lm_launches"] = {
+            k: v["launches"]["flash_attention_backward"]
+            for k, v in fam.items()}
+    for row in rows:
+        row["family_lm_launches"] = {k: v["launches"][row["name"]]
+                                     for k, v in fam.items()}
     print(json.dumps({"kernels": rows + wkv_rows + flash_rows + wkv_bwd_rows
-                      + flash_bwd_rows + fold_rows}), flush=True)
+                      + flash_bwd_rows + fold_rows + f112_rows
+                      + moe_rows}),
+          flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

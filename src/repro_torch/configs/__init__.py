@@ -31,25 +31,24 @@ _PORTED = {                                 # id -> module of its config
     "qwen2.5-14b": "qwen2_5_14b",
     "yi-6b": "yi_6b",
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "zamba2-7b": "zamba2_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
 }
 
 # why a family is not ported yet: the ROADMAP item that brings it. Read by
 # get_config and by models.model_api.Model.
-_CROSS = "ROADMAP Queue 1 item 11: the cross-attention (vision/audio) families"
+_CROSS = ("ROADMAP Queue 1 item 11c: the cross-attention (vision/audio) "
+          "families")
 NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 11: the MoE family",
-    "hybrid": "ROADMAP Queue 1 item 11: the Mamba2/Zamba2 hybrid family",
     "vlm": _CROSS,
     "audio": _CROSS,
     "mlp": "the paper's MLP is repro_torch.models.mlp.MLPConfig, run by "
            "repro_torch.api.run_bhfl",
 }
-_FAMILY_OF = {
-    "phi3.5-moe-42b-a6.6b": "moe",
+_FAMILY_OF = {          # the ids whose family is not ported
     "llama-3.2-vision-90b": "vlm",
     "musicgen-medium": "audio",
-    "deepseek-moe-16b": "moe",
-    "zamba2-7b": "hybrid",
     "mnist-mlp": "mlp",
 }
 

@@ -1,7 +1,8 @@
 """Model adapters — the pluggable-workload boundary of the BHFL runtime.
 
 Port of ``repro.fl.adapters``: the paper's MNIST MLP
-(:class:`MLPAdapter`) and the LM families (:class:`LMAdapter`, with the
+(:class:`MLPAdapter`) and the LM families (:class:`LMAdapter` over any
+ported ``ArchConfig``: RWKV-6, dense, MoE, the Zamba2 hybrid; with the
 CPU-scale :func:`transformer_adapter` and :func:`rwkv6_adapter` that
 ``run_bhfl(model="transformer" | "rwkv6")`` trains). ``BHFLRuntime``
 needs init / local-train / eval / flatten / unflatten from an adapter,
@@ -13,7 +14,8 @@ train spec (``batched_train_spec``).
 :func:`params_from_jax` loads the reference's MLP parameters into the
 port, so both packages can start from one init (``jax.random`` draws
 cannot be reproduced in torch); ``models.ssm_models.rwkv_params_from_jax``
-and ``models.transformer.transformer_params_from_jax`` do the same for the
+``models.ssm_models.hybrid_params_from_jax`` and
+``models.transformer.transformer_params_from_jax`` do the same for the
 LM families.
 """
 
@@ -236,8 +238,10 @@ class LMAdapter(_SerializationFlatten):
         """The batched FEL engine's spec (``fl.batched_fel``): token rows
         stack densely; the per-example loss is the per-row mean token CE
         plus ``DEFAULT_AUX_WEIGHT`` times the (batch-global) aux term, so
-        for the dense and RWKV-6 families (aux ≡ 0) the masked mean is
-        ``Model.loss``. Nothing is drawn. Memoized per adapter."""
+        for the dense, RWKV-6 and hybrid families (aux ≡ 0) the masked
+        mean is ``Model.loss``. A MoE family's aux term sees the padded
+        rows, as in the reference: route those through the reference
+        loop. Nothing is drawn. Memoized per adapter."""
         if getattr(self, "_batched_spec", None) is not None:
             return self._batched_spec
         from repro_torch.fl.batched_fel import BatchedTrainSpec

@@ -69,6 +69,13 @@
 //  - A tile row of hd bf16 is split into sub-tiles of min(hd, 64) columns
 //    (2 at hd = 128), each swizzled over its row width (128, 64 or 32
 //    bytes): the canonical wgmma layouts, one 8-row atom per 8 rows.
+//  - hd = 112 (Zamba2-7B) runs the hd-128 kernel on tensor maps whose hd
+//    extent is 112: the second 64-column box of a row reads columns
+//    64-111 and TMA fills 112-127 with zeros, so both products run at
+//    128, the zeros add nothing to Q.K^T and give 16 zero columns of O,
+//    which are not stored. The scale stays 1/sqrt(112). This spends 1/8
+//    of the MMA work on zeros; seven 16-column sub-tiles under the 32-byte
+//    swizzle (no padding, P.V as m64n112k16) measured slower on the H100.
 //  - Shared memory at hd = 128: 2 q tiles 32 KB + 2 stages x (K + V)
 //    64 KB = 97 KB with the barriers and alignment; 127 registers a thread,
 //    no spills: two blocks (four warpgroups) an SM. On the H100 a third
@@ -337,8 +344,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Grid (S/64, Hq/NWG, B), NWG warpgroups: warpgroup w takes query head
 // blockIdx.y * NWG + w, and all NWG heads share one kv head (NWG divides
 // G), so each K/V tile a block brings serves NWG heads. perm_* as in
-// pick(); o is contiguous (B, S, Hq, HD). scale2 = log2(e) / sqrt(HD).
-template <int HD, int NWG>
+// pick(); o is contiguous (B, S, Hq, OD): the first OD <= HD dims of the
+// tile (OD < HD: the maps' hd extent is OD, the rest of a row reads as
+// zeros). scale2 = log2(e) / sqrt(OD).
+template <int HD, int NWG, int OD = HD>
 __global__ void __launch_bounds__(NWG * NT)
     flash_fwd_tc(const __grid_constant__ CUtensorMap mq,
                  const __grid_constant__ CUtensorMap mk,
@@ -543,9 +552,9 @@ __global__ void __launch_bounds__(NWG * NT)
     if (qpos[i] >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow =
-        o + ((static_cast<long long>(b) * S + qpos[i]) * Hq + hq) * HD + cq;
+        o + ((static_cast<long long>(b) * S + qpos[i]) * Hq + hq) * OD + cq;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
+    for (int c = 0; c < OD / 8; ++c) {
       const float lo = acc[4 * c + 2 * i] * inv;
       const float hi = acc[4 * c + 2 * i + 1] * inv;
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
@@ -564,13 +573,14 @@ constexpr int RPT = BQ / 8;   // rows a thread owns
 constexpr int CPT = BK / 16;  // score columns a thread owns
 constexpr int PP = BK + 4;    // padded row of the probability tile
 
-// The output dim of a thread's i-th accumulator. At hd >= 64 a thread
-// owns runs of 4 dims 64 apart (ln*4 + 64*(i/4) + i%4), so the 8 threads
-// of one 16-byte load phase read 32 different banks of a V row; below
-// that it owns hd/16 dims in a row (2-byte strides, no conflict).
+// The output dim of a thread's i-th accumulator. At hd 64 and 128 a
+// thread owns runs of 4 dims 64 apart (ln*4 + 64*(i/4) + i%4), so the 8
+// threads of one 16-byte load phase read 32 different banks of a V row;
+// otherwise it owns hd/16 dims in a row (at hd 112, 7 dims: a stride of
+// 7 words, coprime with the 32 banks, so no conflict).
 template <int HD>
 __device__ __forceinline__ int out_dim(int ln, int i) {
-  if constexpr (HD >= 64)
+  if constexpr (HD % 64 == 0)
     return (i / 4) * 64 + ln * 4 + i % 4;
   else
     return ln * (HD / 16) + i;
@@ -832,8 +842,9 @@ constexpr int NO_ENCODER = -1000;
 // and b of extent > 1 in the order of their strides, then those of extent
 // 1 with a packed stride (their stride is never used). The box is
 // (COLS, 64 along s, 1, 1), swizzled over its COLS * 2 bytes; rows past
-// S read as zeros. *perm says where h, s and b went (see pick()).
-template <int HD>
+// S, and columns past an hd extent OD < HD, read as zeros. *perm says
+// where h, s and b went (see pick()).
+template <int HD, int OD = HD>
 int encode_map(CUtensorMap* map, int* perm, const void* ptr, int H, int S,
                int B, long long sb, long long ss, long long sh) {
   const EncodeTiled encode = encoder();
@@ -847,11 +858,11 @@ int encode_map(CUtensorMap* map, int* perm, const void* ptr, int H, int S,
     if ((x.n > 1) != (y.n > 1)) return x.n > 1;
     return x.n > 1 && x.stride < y.stride;
   });
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), 0, 0, 0};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(OD), 0, 0, 0};
   cuuint64_t strides[3];
   cuuint32_t box[4] = {static_cast<cuuint32_t>(Tc<HD>::COLS), 1, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  long long prev_n = HD, prev_stride = 1;
+  long long prev_n = OD, prev_stride = 1;
   *perm = 0;
   for (int i = 0; i < 3; ++i) {
     const long long stride = d[i].n > 1 ? d[i].stride : prev_n * prev_stride;
@@ -873,39 +884,42 @@ int encode_map(CUtensorMap* map, int* perm, const void* ptr, int H, int S,
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
-template <int HD, int NWG>
+// HD is the tile's hd, OD <= HD the operands' (see flash_fwd_tc)
+template <int HD, int NWG, int OD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, const long long* st, int B, int S, int Hq, int Hk,
               int causal, int window, cudaStream_t stream) {
   static_assert(TQ == TK, "one box shape serves q, k and v");
   constexpr int bytes = Tc<HD>::template smem<NWG>();
   static bool opted_in[64] = {};
-  int e = opt_in(flash_fwd_tc<HD, NWG>, bytes, opted_in);
+  int e = opt_in(flash_fwd_tc<HD, NWG, OD>, bytes, opted_in);
   if (e != 0) return e;
   CUtensorMap mq, mk, mv;
   int pq = 0, pk = 0, pv = 0;
-  if ((e = encode_map<HD>(&mq, &pq, q, Hq, S, B, st[0], st[1], st[2])) ||
-      (e = encode_map<HD>(&mk, &pk, k, Hk, S, B, st[3], st[4], st[5])) ||
-      (e = encode_map<HD>(&mv, &pv, v, Hk, S, B, st[6], st[7], st[8])))
+  if ((e = encode_map<HD, OD>(&mq, &pq, q, Hq, S, B, st[0], st[1], st[2])) ||
+      (e = encode_map<HD, OD>(&mk, &pk, k, Hk, S, B, st[3], st[4], st[5])) ||
+      (e = encode_map<HD, OD>(&mv, &pv, v, Hk, S, B, st[6], st[7], st[8])))
     return e;
   const dim3 grid((S + TQ - 1) / TQ, Hq / NWG, B);
-  const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  flash_fwd_tc<HD, NWG><<<grid, NWG * NT, bytes, stream>>>(
+  const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(OD));
+  flash_fwd_tc<HD, NWG, OD><<<grid, NWG * NT, bytes, stream>>>(
       mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), lse, S, Hq,
       Hk, causal, window, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
-// two query heads of one kv group a block where G is even
-template <int HD>
+// two query heads of one kv group a block where G is even; hd 112 on the
+// hd-128 tile
+template <int OD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, const long long* st, int B, int S, int Hq, int Hk,
               int causal, int window, cudaStream_t stream) {
+  constexpr int HD = OD == 112 ? 128 : OD;
   if ((Hq / Hk) % 2 == 0)
-    return launch_tc<HD, 2>(q, k, v, o, lse, st, B, S, Hq, Hk, causal, window,
-                            stream);
-  return launch_tc<HD, 1>(q, k, v, o, lse, st, B, S, Hq, Hk, causal, window,
-                          stream);
+    return launch_tc<HD, 2, OD>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,
+                                window, stream);
+  return launch_tc<HD, 1, OD>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,
+                              window, stream);
 }
 
 template <bool TC>
@@ -922,6 +936,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
     REPRO_HD(16)
     REPRO_HD(32)
     REPRO_HD(64)
+    REPRO_HD(112)
     REPRO_HD(128)
 #undef REPRO_HD
     default:
@@ -1926,8 +1941,8 @@ int dispatch_bwd_tc(const void* q, const void* k, const void* v,
 // S) fp32, which then receives each row's L = ln(sum_j exp(s_j)) for the
 // backward (training). dtype 0 is fp32 (CUDA cores), 1
 // bf16 (tensor cores: every base 16-byte aligned and every stride of a
-// dim of extent > 1 a multiple of 8 elements); hd is 16, 32, 64 or 128;
-// window 0 means none. Returns cudaGetLastError() after the launch on
+// dim of extent > 1 a multiple of 8 elements); hd is 16, 32, 64, 112 or
+// 128; window 0 means none. Returns cudaGetLastError() after the launch on
 // `stream`, cudaErrorInvalidValue for another dtype or hd, -(CUresult)
 // if a tensor map cannot be encoded and -1000 if libcuda has no
 // cuTensorMapEncodeTiled.

@@ -15,7 +15,8 @@ map: each base address and each stride of a dim of extent > 1 must be a
 multiple of 16 bytes (:func:`tma_refusal`). float32 runs on CUDA cores.
 For a CPU tensor it runs
 :func:`repro_torch.kernels.ref.flash_attention_gqa_ref`. Inputs are
-float32 or bfloat16, all three the same, and hd is 16, 32, 64 or 128.
+float32 or bfloat16, all three the same, and hd is 16, 32, 64, 112
+(Zamba2-7B's shared attention) or 128.
 
 When a gradient is wanted (grad mode on and an input that requires it)
 the op is a ``torch.autograd.Function``: on the card the forward kernel
@@ -43,7 +44,10 @@ from repro_torch.kernels.ref import (flash_attention_backward_ref,
                                      flash_attention_gqa_ref,
                                      flash_attention_lse_ref)
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
+# head dims the forward takes but the backward kernels do not yet
+NO_BACKWARD_HEAD_DIMS = {112: "ROADMAP Queue 2 item I: the flash backward "
+                              "at head dim 112"}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65_535         # the kernel's grid is (S / 64, Hq, B)
 TMA_ALIGN = 16               # bytes: TMA's base and stride granule
@@ -185,6 +189,10 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
                                             causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for {q.device}")
+    if hd in NO_BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash attention backward kernel: hd {hd} is not built yet "
+            f"({NO_BACKWARD_HEAD_DIMS[hd]}); the forward takes it")
     if d_o.shape != q.shape or d_o.dtype != q.dtype or d_o.stride(3) != 1:
         raise ValueError(f"flash attention backward kernel needs d_o of "
                          f"shape {tuple(q.shape)} and dtype {q.dtype} with "

@@ -1,8 +1,9 @@
 """Family-dispatched model API: init / forward / loss / prefill / decode.
 
-Port of ``repro.models.model_api`` for the families ported so far (RWKV-6
-and the dense transformers); the others raise ``NotImplementedError`` and
-name the ROADMAP item that brings them.
+Port of ``repro.models.model_api`` for the families ported so far
+(RWKV-6, the Zamba2 hybrid, the dense and MoE transformers); the
+cross-attention families raise ``NotImplementedError`` and name the
+ROADMAP item that brings them.
 
     from repro_torch.models.model_api import Model
     model = Model(cfg)                      # on the card; device="cpu" asks
@@ -14,6 +15,7 @@ name the ROADMAP item that brings them.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -27,6 +29,8 @@ from repro_torch.models.config import ArchConfig
 # default weight of the auxiliary (load-balancing) loss term; eval paths
 # that recombine (logits, aux) outside Model.loss must use the same value
 DEFAULT_AUX_WEIGHT = 0.01
+# the families Model runs besides RWKV-6 (config.rwkv)
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _token_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -48,7 +52,7 @@ class Model:
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
-        if not (self.cfg.rwkv or self.cfg.family == "dense"):
+        if not (self.cfg.rwkv or self.cfg.family in PORTED_FAMILIES):
             raise NotImplementedError(
                 f"{self.cfg.name} ({self.cfg.family}) is not ported to "
                 f"repro_torch yet: "
@@ -63,15 +67,45 @@ class Model:
                              f"model runs on {self.device}")
         if self.cfg.rwkv:
             return ssm_models.rwkv_init_params(self.cfg, generator)
+        if self.cfg.family == "hybrid":
+            return ssm_models.hybrid_init_params(self.cfg, generator)
         return transformer.init_params(self.cfg, generator)
+
+    def param_shapes(self) -> dict:
+        """{name: (shape, dtype)} of the parameter tree, nested as it is
+        (the reference's ``abstract_params``)."""
+        if self.cfg.rwkv:
+            return ssm_models.rwkv_param_shapes(self.cfg)
+        if self.cfg.family == "hybrid":
+            return ssm_models.hybrid_param_shapes(self.cfg)
+        return transformer.param_shapes(self.cfg)
+
+    def n_params(self) -> int:
+        return sum(math.prod(shape) for _, shape in
+                   _shape_leaves(self.param_shapes()))
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: routed experts count k of E)."""
+        cfg = self.cfg
+        if not cfg.n_experts:
+            return self.n_params()
+        total = 0
+        for path, shape in _shape_leaves(self.param_shapes()):
+            size = math.prod(shape)
+            if ("moe" in path and "shared" not in path
+                    and "router" not in path):
+                size = size * cfg.experts_per_token // cfg.n_experts
+            total += size
+        return total
 
     # -- forward / loss -------------------------------------------------------
     def forward(self, params: dict,
                 batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, S, V), aux loss ())."""
-        if self.cfg.rwkv:
-            logits = ssm_models.rwkv_forward(params, batch["tokens"],
-                                             self.cfg)
+        if self.cfg.rwkv or self.cfg.family == "hybrid":
+            fwd = (ssm_models.rwkv_forward if self.cfg.rwkv
+                   else ssm_models.hybrid_forward)
+            logits = fwd(params, batch["tokens"], self.cfg)
             return logits, torch.zeros((), device=logits.device)
         return transformer.forward(params, batch["tokens"], self.cfg)
 
@@ -84,16 +118,19 @@ class Model:
     def init_cache(self, batch: int, seq_len: int) -> Any:
         if self.cfg.rwkv:    # the recurrent state does not grow
             return ssm_models.rwkv_init_caches(self.cfg, batch, self.device)
+        if self.cfg.family == "hybrid":
+            return ssm_models.hybrid_init_cache(self.cfg, batch, seq_len,
+                                                self.device)
         return transformer.init_cache(self.cfg, batch, seq_len, self.device)
 
     def prefill(self, params: dict, batch: dict):
         """The last position's logits (B, 1, V) and a cache. A transformer
-        fills a prompt-sized KV cache in one forward. The recurrent prefill
-        runs forward for the logits and returns a fresh cache, as the
-        reference has it: the serving engine builds the state by replaying
-        the prompt through :meth:`decode_step`."""
+        fills a prompt-sized KV cache in one forward. The recurrent and
+        hybrid prefill runs forward for the logits and returns a fresh
+        cache, as the reference has it: the serving engine builds the
+        state by replaying the prompt through :meth:`decode_step`."""
         tokens = batch["tokens"]
-        if not self.cfg.rwkv:
+        if not (self.cfg.rwkv or self.cfg.family == "hybrid"):
             return transformer.prefill(params, tokens, self.cfg)
         logits, _ = self.forward(params, batch)
         cache = self.init_cache(tokens.shape[0], tokens.shape[1])
@@ -104,4 +141,17 @@ class Model:
         if self.cfg.rwkv:
             return ssm_models.rwkv_decode_step(params, cache, tokens, pos,
                                                self.cfg)
+        if self.cfg.family == "hybrid":
+            return ssm_models.hybrid_decode_step(params, cache, tokens, pos,
+                                                 self.cfg)
         return transformer.decode_step(params, cache, tokens, pos, self.cfg)
+
+
+def _shape_leaves(spec: dict, path: str = ""):
+    """(path "a/b", shape) of each leaf of a ``param_shapes`` spec."""
+    for k, v in spec.items():
+        key = f"{path}/{k}" if path else k
+        if isinstance(v, dict):
+            yield from _shape_leaves(v, key)
+        else:
+            yield key, v[0]

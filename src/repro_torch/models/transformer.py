@@ -1,5 +1,6 @@
 """Attention-based LM families (port of ``repro.models.transformer``), so
-far the dense family: Yi, StarCoder2, Qwen2.5, Mistral-Nemo.
+far the dense family (Yi, StarCoder2, Qwen2.5, Mistral-Nemo) and the MoE
+family (DeepSeek-MoE-16B, Phi-3.5-MoE), whose FFN is ``models.moe``.
 
 The layer weights are stacked along a leading layer axis, as the
 reference stacks them for ``lax.scan`` (``params["layers"]["attn"]["wq"]``
@@ -8,9 +9,10 @@ prefill and forward attention goes through ``ops.flash_attention`` (the
 flash kernel on the card). Decode keeps per-layer KV caches stacked on a
 leading layer axis and attends over the whole cache, as the reference.
 
-Not ported: the MoE FFN, the VLM and audio cross-attention (ROADMAP
-Queue 1 item 11), the reference's rematerialization (the port is
-forward only) and its mesh levers in ``FwdOptions`` (Queue 1 item 15).
+Not ported: the VLM and audio cross-attention (ROADMAP Queue 1 item
+11c), the reference's rematerialization and its mesh levers in
+``FwdOptions`` (Queue 1 item 15; the MoE FFN runs the reference's
+``gather`` combine).
 
 :func:`transformer_params_from_jax` carries the reference's weights
 over bit for bit.
@@ -29,13 +31,14 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope,
                                        blockwise_attention, decode_attention,
                                        dense_init, embed_init, rms_norm,
                                        swiglu_mlp)
+from repro_torch.models.moe import MoEConfig, moe_ffn
 from repro_torch.models.params_io import tree_from_numpy
 
 PARAM_DTYPE = torch.bfloat16
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported to repro_torch yet: "
             f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1 item 11')}")
@@ -66,12 +69,47 @@ def _mlp_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
             "w_down": dense_init(generator, F, D, PARAM_DTYPE)}
 
 
+def _moe_shapes(cfg: ArchConfig) -> dict:
+    """{name: (shape, dtype)} of one layer's MoE FFN: a float32 router,
+    the (E, ·, ·) bfloat16 expert stacks and the shared experts."""
+    D, E = cfg.d_model, cfg.n_experts
+    Fe = cfg.moe_d_ff or cfg.d_ff
+    bf16 = PARAM_DTYPE
+    spec = {"router": ((D, E), torch.float32),
+            "w_gate": ((E, D, Fe), bf16), "w_up": ((E, D, Fe), bf16),
+            "w_down": ((E, Fe, D), bf16)}
+    if cfg.n_shared_experts:
+        Fs = Fe * cfg.n_shared_experts
+        spec["shared"] = {"w_gate": ((D, Fs), bf16), "w_up": ((D, Fs), bf16),
+                          "w_down": ((Fs, D), bf16)}
+    return spec
+
+
+def _moe_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
+    """Each matrix of ``_moe_shapes`` a ``dense_init``; an (E, ·, ·)
+    expert stack one expert at a time."""
+    def draw(leaf):
+        shape, dtype = leaf
+        if len(shape) == 2:
+            return dense_init(generator, *shape, dtype)
+        out = torch.empty(shape, dtype=dtype, device=generator.device)
+        for e in range(shape[0]):
+            out[e] = dense_init(generator, *shape[1:], dtype)
+        return out
+
+    return _map(draw, _moe_shapes(cfg))
+
+
 def _self_layer_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
     ones = torch.ones((cfg.d_model,), dtype=torch.float32,
                       device=generator.device)
-    return {"ln1": ones, "ln2": ones.clone(),
-            "attn": _attn_init(cfg, generator),
-            "mlp": _mlp_init(cfg, generator)}
+    layer = {"ln1": ones, "ln2": ones.clone(),
+             "attn": _attn_init(cfg, generator)}
+    if cfg.family == "moe":
+        layer["moe"] = _moe_init(cfg, generator)
+    else:
+        layer["mlp"] = _mlp_init(cfg, generator)
+    return layer
 
 
 def _map(fn, tree: dict) -> dict:
@@ -89,9 +127,9 @@ def _fill(stacked: dict, i: int, layer: dict) -> None:
 
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random weights in the reference's layout, drawn on
-    ``generator.device``: bfloat16 matrices, float32 norms, the layers
-    stacked along a leading layer axis (filled one layer at a time, so
-    the peak is the model plus one layer)."""
+    ``generator.device``: bfloat16 matrices, float32 norms (and MoE
+    router), the layers stacked along a leading layer axis (filled one
+    layer at a time, so the peak is the model plus one layer)."""
     _check_family(cfg)
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     params = {
@@ -112,32 +150,37 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
-    """{name: (shape, dtype)} of the reference's dense parameter tree,
-    ``layers`` holding the leaves stacked on a leading layer axis."""
+    """{name: (shape, dtype)} of the reference's dense or MoE parameter
+    tree, ``layers`` holding the leaves stacked on a leading layer axis."""
     _check_family(cfg)
     D, L, F = cfg.d_model, cfg.n_layers, cfg.d_ff
     attn = {"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
             "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D)}
     if cfg.qkv_bias:
         attn.update(bq=(cfg.q_dim,), bk=(cfg.kv_dim,), bv=(cfg.kv_dim,))
-    mlp = {"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
     bf16 = PARAM_DTYPE
+    layers = {
+        "ln1": ((L, D), torch.float32), "ln2": ((L, D), torch.float32),
+        "attn": {k: ((L,) + s, bf16) for k, s in attn.items()},
+    }
+    if cfg.family == "moe":
+        layers["moe"] = _map(lambda sd: ((L,) + sd[0], sd[1]),
+                             _moe_shapes(cfg))
+    else:
+        mlp = {"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
+        layers["mlp"] = {k: ((L,) + s, bf16) for k, s in mlp.items()}
     return {
         "embed": ((cfg.vocab_size, D), bf16),
         "final_norm": ((D,), torch.float32),
         "lm_head": ((D, cfg.vocab_size), bf16),
-        "layers": {
-            "ln1": ((L, D), torch.float32), "ln2": ((L, D), torch.float32),
-            "attn": {k: ((L,) + s, bf16) for k, s in attn.items()},
-            "mlp": {k: ((L,) + s, bf16) for k, s in mlp.items()},
-        },
+        "layers": layers,
     }
 
 
 def transformer_params_from_jax(params: Mapping[str, Any], cfg: ArchConfig,
                                 device: torch.device | str | None = None
                                 ) -> dict:
-    """The reference's dense parameter tree, as numpy arrays (e.g.
+    """The reference's dense or MoE parameter tree, as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, repro_params)``), as the port's tensors on
     ``device`` (the card unless the caller asks for the CPU). Names,
     shapes and dtypes are checked against ``cfg``; values are copied bit
@@ -183,12 +226,18 @@ def _self_attention(layer: dict, x: torch.Tensor, cfg: ArchConfig,
     return out, (k, v)
 
 
-def _ffn(layer: dict, x: torch.Tensor) -> torch.Tensor:
-    """The dense family's SwiGLU MLP. The reference's ``_ffn`` also
-    returns the MoE load-balancing loss, which is 0 for a dense model; the
-    MoE FFN is not ported."""
+def _ffn(layer: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
+    """(out, the MoE load-balancing loss ()): the MoE FFN over the
+    (B·S, D) tokens, or the dense SwiGLU MLP and a zero loss."""
+    if cfg.family == "moe":
+        B, S, D = x.shape
+        moe_cfg = MoEConfig(cfg.n_experts, cfg.experts_per_token,
+                            cfg.capacity_factor)
+        out, aux = moe_ffn(x.reshape(B * S, D), layer["moe"], moe_cfg)
+        return out.reshape(B, S, D), aux
     m = layer["mlp"]
-    return swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
+    return (swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"]),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _self_block(layer: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -197,14 +246,15 @@ def _self_block(layer: dict, x: torch.Tensor, cfg: ArchConfig,
     att, kv = _self_attention(layer, h, cfg, positions)
     x = x + att
     h = rms_norm(x, layer["ln2"], cfg.norm_eps)
-    return x + _ffn(layer, h), kv
+    f, aux = _ffn(layer, h, cfg)
+    return x + f, aux, kv
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             collect_cache: bool = False):
-    """tokens (B, S) → (logits (B, S, V), moe aux loss (), 0 for the
-    dense family) and, when ``collect_cache``, the stacked per-layer
-    (k, v), each (L, B, S, Hk, hd), for prefill."""
+    """tokens (B, S) → (logits (B, S, V), the MoE aux loss summed over
+    the layers (), 0 for the dense family) and, when ``collect_cache``,
+    the stacked per-layer (k, v), each (L, B, S, Hk, hd), for prefill."""
     _check_family(cfg)
     B, S = tokens.shape
     x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
@@ -212,8 +262,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _self_block(_layer(params["layers"], i), x, cfg,
-                                positions)
+        x, aux_l, (k, v) = _self_block(_layer(params["layers"], i), x, cfg,
+                                       positions)
+        aux = aux + aux_l
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -270,7 +321,7 @@ def decode_step(params: dict, cache: DecodeCache, tokens: torch.Tensor,
         h = rms_norm(x, layer["ln1"], cfg.norm_eps)
         x = x + _decode_self(layer, h, cache.k[i], cache.v[i], pos, cfg)
         h = rms_norm(x, layer["ln2"], cfg.norm_eps)
-        x = x + _ffn(layer, h)
+        x = x + _ffn(layer, h, cfg)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"].to(x.dtype), cache
 

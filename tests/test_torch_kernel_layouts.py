@@ -240,3 +240,39 @@ def test_cosine_chunking_depends_on_d_only(D):
     if D <= 2 ** 21:
         assert chunk == 2048      # one tile: gw read once into registers
     assert (chunk_for(D), splits_for(D)) == (chunk, splits)
+
+
+@pytest.mark.parametrize("hd,ok", [(16, True), (32, True), (64, True),
+                                   (112, True), (128, True), (100, False),
+                                   (96, False), (8, False)])
+def test_flash_head_dims(hd, ok):
+    """hd 112 (Zamba2-7B's shared attention) is taken, as the reference's
+    kernel takes any hd; a head dim the kernel has no case for is refused
+    before any launch (on the CPU, before the plain version)."""
+    q = torch.zeros(1, 5, 2, hd)
+    if ok:
+        assert ops.flash_attention(q, q, q).shape == (1, 5, 2, hd)
+    else:
+        with pytest.raises(ValueError, match="takes hd in"):
+            ops.flash_attention(q, q, q)
+
+
+def _cases(source: str, function: str) -> set:
+    """The head dims of ``function``'s REPRO_HD case list in the source."""
+    import re
+    body = source.split(f" {function}(", 1)[1].split("default:", 1)[0]
+    return {int(n) for n in re.findall(r"REPRO_HD\((\d+)\)", body)}
+
+
+def test_flash_source_cases_match_the_wrapper():
+    """The forward's case list is the wrapper's HEAD_DIMS; both backward
+    case lists lack exactly the head dims the wrapper refuses to
+    differentiate on the card (hd 112: ROADMAP Queue 2 item I)."""
+    from pathlib import Path
+    src = (Path(kf.__file__).parent / "csrc" / "flash_attention.cu"
+           ).read_text()
+    assert _cases(src, "dispatch_hd") == set(kf.HEAD_DIMS)
+    backward = set(kf.HEAD_DIMS) - set(kf.NO_BACKWARD_HEAD_DIMS)
+    assert _cases(src, "dispatch_bwd_f32") == backward
+    assert _cases(src, "dispatch_bwd_tc") == backward
+    assert "Queue 2 item I" in kf.NO_BACKWARD_HEAD_DIMS[112]

@@ -35,6 +35,8 @@ mean <= 0.02 s.
 """
 
 import math
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -1149,3 +1151,123 @@ def test_edge_churn_batched_on_card_keeps_the_down_row(cuda_device,
     assert run.runtime.engine == "batched"
     assert seen == [(2, 5, True, True), (3, 5, True, True)]
     assert rep.liveness and rep.safety_violations == 0 and rep.converged
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and MoE families: flash at head dim 112, the models on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hk", [(8, 512, 32, 32), (8, 64, 32, 32),
+                                       (2, 1, 2, 2), (2, 57, 4, 4),
+                                       (1, 130, 8, 1), (2, 513, 4, 2)])
+def test_flash_hd112_matches_plain(cuda_device, B, S, Hq, Hk, dtype):
+    """Zamba2-7B's shared attention (32 query and kv heads of 112) and
+    ragged lengths, G 1, 2 and 8: within tolerance of the plain version,
+    bit-identical on repeat, one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * S + Hq)
+    q, k, v = _flash_inputs(gen, cuda_device, B, S, Hq, Hk, 112, dtype)
+    before = ops.launch_counts()["flash_attention"]
+    o = ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(o, tref.flash_attention_gqa_ref(q, k, v),
+                               **(BF16 if dtype == torch.bfloat16 else FP32))
+    assert torch.equal(o, ops.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 40), (False, 0),
+                                           (False, 50)])
+def test_flash_hd112_windows_and_non_causal(cuda_device, causal, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(window + 1)
+    q, k, v = _flash_inputs(gen, cuda_device, 2, 333, 8, 2, 112,
+                            torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    o = ops.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(
+        o, tref.flash_attention_gqa_ref(q, k, v, **kw), **BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_refuses_hd112(cuda_device, dtype):
+    """The backward kernels have no hd 112 case: the wrapper raises and
+    names ROADMAP Queue 2 item I, and does not fall back to the plain
+    version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (t.requires_grad_(True) for t in
+               _flash_inputs(gen, cuda_device, 1, 64, 2, 2, 112, dtype))
+    o = ops.flash_attention(q, k, v)
+    before = ops.launch_counts()["flash_attention_backward"]
+    with pytest.raises(NotImplementedError, match="Queue 2 item I"):
+        o.sum().backward()
+    assert ops.launch_counts()["flash_attention_backward"] == before
+
+
+@pytest.mark.parametrize("name", ["zamba2-7b", "deepseek-moe-16b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_hybrid_and_moe_forward_on_card_match_cpu(cuda_device, name):
+    """The reduced models with one set of weights on the card and the
+    CPU: one flash launch a shared block (hybrid) or a layer (MoE), logits
+    within the bfloat16 rule, the MoE aux loss within the bfloat16
+    tolerance (a float32 router over the bfloat16 hidden states, which
+    the two backends round apart). The MoE card run takes the CPU run's
+    expert choices
+    (``chip_smoke.RoutingTape``; bfloat16 rounding flips a choice where
+    the router is near a tie, and a flipped expert moves that token's
+    logits far beyond the rule), and its own choices must agree where the
+    CPU's router margin is clear."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import Model
+    from repro_torch.models.ssm_models import hybrid_group_shape
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import RoutingTape
+    cfg = get_config(name).reduced()
+    card = Model(cfg)
+    params = card.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    toks = torch.from_numpy(np.stack([np.arange(24) * 5 % 512,
+                                      np.arange(24) * 11 % 512]))
+    tape = RoutingTape()
+    with tape:
+        lh, ah = cpu.forward(_tree_to(params, "cpu"), {"tokens": toks})
+    before = ops.launch_counts()["flash_attention"]
+    with tape:
+        lc, ac = card.forward(params, {"tokens": toks.to(cuda_device)})
+    want = (hybrid_group_shape(cfg)[0] if cfg.family == "hybrid"
+            else cfg.n_layers)
+    assert ops.launch_counts()["flash_attention"] - before == want
+    assert tape.at == len(tape.tape) == (cfg.n_layers if cfg.n_experts
+                                         else 0)
+    assert tape.mismatched == 0
+    diff = (lc.float().cpu() - lh.float()).abs()
+    assert torch.isfinite(lc).all()
+    assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02
+    torch.testing.assert_close(ac.cpu(), ah, **BF16)
+
+
+@pytest.mark.parametrize("name", ["zamba2-7b", "deepseek-moe-16b"])
+def test_run_bhfl_hybrid_and_moe_on_card_go_through_kernels(cuda_device,
+                                                           name):
+    """An LM round of the reduced hybrid or MoE model on the card: every
+    SGD step launches the forward and the backward kernel once an
+    attention layer, every evaluation the forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm_models import hybrid_group_shape
+    cfg = get_config(name).reduced()
+    data = api.make_token_dataset(32, 16, cfg.vocab_size, seed=1)
+    before = ops.launch_counts()
+    run = api.run_bhfl(model=api.LMAdapter(cfg), n_nodes=2,
+                       clients_per_node=2, fel_iterations=1, rounds=1,
+                       seed=1, data=data)
+    after = ops.launch_counts()
+    assert run.chain_valid and run.chain_height == 1
+    assert all(math.isfinite(m.test_loss) for m in run.history)
+    layers = (hybrid_group_shape(cfg)[0] if cfg.family == "hybrid"
+              else cfg.n_layers)
+    steps = sum(c.data_size // min(8, c.data_size)
+                for cl in run.runtime.clusters for c in cl.clients
+                if c.data_size)
+    assert after["flash_attention_backward"] - \
+        before["flash_attention_backward"] == layers * steps
+    assert after["flash_attention"] - before["flash_attention"] == \
+        layers * (steps + 1)

@@ -48,6 +48,7 @@ import repro.models.transformer as j_tf
 import repro_torch.models.ssm_models as t_ssm
 import repro_torch.models.transformer as t_tf
 
+from repro.configs import get_config as j_get_config
 from repro.data.tokens import make_token_dataset as j_tokens
 from repro.fl import adapters as jad
 from repro.fl.client import Client as JClient
@@ -55,6 +56,7 @@ from repro.fl.hfl_runtime import BHFLConfig as JConfig
 from repro.fl.hfl_runtime import BHFLRuntime as JRuntime
 from repro.fl.hierarchy import build_hierarchy as j_build
 from repro_torch import api
+from repro_torch.configs import get_config
 from repro_torch.data.tokens import make_token_dataset
 from repro_torch.fl import adapters as tad
 from repro_torch.fl.client import Client
@@ -62,7 +64,8 @@ from repro_torch.fl.hfl_runtime import BHFLConfig as TConfig
 from repro_torch.fl.hfl_runtime import BHFLRuntime as TRuntime
 from repro_torch.fl.hierarchy import build_hierarchy as t_build
 from repro_torch.kernels import ops
-from repro_torch.models.ssm_models import rwkv_params_from_jax
+from repro_torch.models.ssm_models import (hybrid_params_from_jax,
+                                           rwkv_params_from_jax)
 from repro_torch.models.transformer import transformer_params_from_jax
 
 SIM_ATOL = 1e-4
@@ -199,19 +202,21 @@ def _tree_float(tree):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_two_lm_rounds_match_reference(family, compute):
+def _two_rounds(ja, ta, load, compute):
+    """Two rounds of both packages from the reference's init (``load``
+    carries it over): similarities, leaders where the margin is clear,
+    test losses, the chains."""
     seed = 0
     jtr, jte = j_tokens(64, 16, 64, seed=seed)
     ttr, tte = make_token_dataset(64, 16, 64, seed=seed)
-    ja, ta = _adapters(family, 64)
     common = dict(n_nodes=3, clients_per_node=2, fel_iterations=1,
                   seed=seed)
     jrt = JRuntime(j_build(jtr, 3, 2, "iid", seed=seed), JConfig(**common),
                    jte, adapter=ja)
     trt = TRuntime(t_build(ttr, 3, 2, "iid", seed=seed), TConfig(**common),
                    tte, adapter=ta, device="cpu")
-    trt.global_params = _port_params(family, jrt.global_params, ta.arch)
+    trt.global_params = load(jax.tree.map(np.asarray, jrt.global_params),
+                             ta.arch, device="cpu")
     before = ops.launch_counts()
     for _ in range(2):
         mj, mt = jrt.run_round(), trt.run_round()
@@ -226,6 +231,76 @@ def test_two_lm_rounds_match_reference(family, compute):
     for led in trt.consensus.ledgers:
         assert led.verify_chain() and led.height == 2
     assert ops.launch_counts() == before        # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_two_lm_rounds_match_reference(family, compute):
+    ja, ta = _adapters(family, 64)
+    _two_rounds(ja, ta, rwkv_params_from_jax if family == "rwkv6"
+                else transformer_params_from_jax, compute)
+
+
+def _arch_adapters(name):
+    """The reference's and the port's LMAdapter over the reduced
+    ``name`` at d_model 64 and vocab 64 (heads of 32; Zamba2: one group of
+    a Mamba2 block, 4 SSM heads of 32, and the shared block;
+    DeepSeek-MoE: 4 experts top-2 and one shared expert)."""
+    return (jad.LMAdapter(j_get_config(name).reduced(d_model=64, vocab=64)),
+            tad.LMAdapter(get_config(name).reduced(d_model=64, vocab=64),
+                          device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["zamba2-7b", "deepseek-moe-16b"])
+def test_two_hybrid_and_moe_rounds_match_reference(name, compute):
+    """``run_bhfl(model=LMAdapter(cfg))``'s rounds for the hybrid and MoE
+    families on the loop, at the tolerances above. In bfloat16 an expert
+    choice may flip with a rounding where the router's top-k margin is
+    thin, which the test-loss tolerance covers."""
+    ja, ta = _arch_adapters(name)
+    _two_rounds(ja, ta, hybrid_params_from_jax if name == "zamba2-7b"
+                else transformer_params_from_jax, compute)
+
+
+def test_hybrid_batched_engine_matches_the_loop(monkeypatch):
+    """The batched engine (``torch.func.vmap(vmap(grad))`` through the
+    Mamba2 time loop and the shared block's attention) against the port's
+    loop, everything in float32 on one CPU thread (the batched and the
+    single products then round alike): a round's global model within
+    rtol 1e-5 / atol 1e-6 (observed 3e-8), the leader equal where the
+    similarity margin is clear of float32 rounding (1e-6). One round: in
+    the second the two engines part by ~5e-4 in every LM family, the
+    reference's own engines too (a CPU measurement of its tiny
+    transformer), so the second round holds nothing of the hybrid."""
+    monkeypatch.setattr(t_ssm, "COMPUTE_DTYPE", torch.float32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ttr, tte = make_token_dataset(64, 16, 64, seed=0)
+        ja, ta = _arch_adapters("zamba2-7b")
+        start = _tree_float(hybrid_params_from_jax(
+            jax.tree.map(np.asarray, ja.init(jax.random.key(0))), ta.arch,
+            device="cpu"))
+        runs = []
+        for engine in ("reference", "batched"):
+            rt = TRuntime(t_build(ttr, 3, 2, "iid", seed=0),
+                          TConfig(n_nodes=3, clients_per_node=2,
+                                  fel_iterations=1, seed=0, engine=engine),
+                          tte, adapter=ta, device="cpu")
+            rt.global_params = start
+            assert rt.engine == engine
+            runs.append([(rt.run_round(), tad._flat(rt.global_params))])
+    finally:
+        torch.set_num_threads(threads)
+    for (mr, pr), (mb, pb) in zip(*runs):
+        sims = np.asarray(mr.consensus.similarities, np.float64)
+        np.testing.assert_allclose(mb.consensus.similarities, sims, rtol=0,
+                                   atol=1e-6)
+        top2 = np.sort(sims)[-2:]
+        if top2[1] - top2[0] > 1e-6:
+            assert mb.leader_id == mr.leader_id
+        for k in pr:
+            np.testing.assert_allclose(pb[k].numpy(), pr[k].numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -265,10 +265,17 @@ def test_init_has_reference_layout():
 
 
 def test_unported_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        get_config("deepseek-moe-16b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Model(j_get_config("zamba2-7b"), device="cpu")
+    """The cross-attention families are the ones left (item 11c); the
+    hybrid and MoE families are ported."""
+    for arch in ("llama-3.2-vision-90b", "musicgen-medium"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 11c"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 11c"):
+            Model(j_get_config(arch), device="cpu")
+    for arch in ("zamba2-7b", "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"):
+        assert Model(get_config(arch), device="cpu").cfg.name == arch
     with pytest.raises(KeyError):
         get_config("gpt-5")
     with pytest.raises(NotImplementedError, match="run_bhfl"):
