@@ -165,6 +165,37 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     SGD steps, each ME kernel once a round (phase 3 holds both ME kernels
     at these rounds' (6, D)).
 
+31. flash with keys of their own length (cross-attention, Skv != Sq,
+    non-causal): Llama-3.2-Vision's prefill (8, 57) and forward (8, 512)
+    queries to 1024 context keys (64 query over 8 kv heads of 128),
+    MusicGen-medium's (8, 57) and (8, 512) to 256 keys (24 over 24 heads
+    of 64) in bf16 and once in fp32, a ragged Skv of 100 and Sq > Skv
+    (512 queries to 16 keys): phase 10's checks and times, SDPA with
+    ``enable_gqa`` beside; the backward wrapper refuses Skv != Sq on the
+    card (ROADMAP Queue 2 item K); then the same checks at the two
+    models' causal self-attention, (8, 57) and (8, 512) at 64 over 8
+    heads of 128 and 24 over 24 of 64. Each row's launches are its own
+    call's in phases 32-33 (``ops.flash_launch_shapes``): the check-only
+    rows (fp32, ragged, Sq > Skv) have none, and every call of those
+    phases has its row;
+32. audio serving: ``Model(get_config("musicgen-medium"))`` at full width
+    and depth (48 layers, d_model 1536, 24 heads of 64, 256 context
+    tokens; 2,271,438,336 parameters, ~4.5 GB bfloat16) through phase
+    8's checks with the reference's ``0.1 * ones`` context: 96 flash
+    launches in the prefill (48 self, 48 cross), the same tokens twice,
+    a (8, 512) forward with its context (96), a decode profile;
+33. vlm serving: ``llama-3.2-vision-90b`` at full width and VLM_LAYERS =
+    30 of its 100 layers (6 groups of 4 self-attention layers and a
+    gated cross-attention block; 27,770,986,508 parameters, ~55.5 GB
+    bfloat16; 87.7 B and ~175 GB at 100 layers do not fit the card) the
+    same way: 30 flash launches in the prefill and in the forward;
+34. phase 9's agreement for the reduced Llama-3.2-Vision and MusicGen
+    (the vlm gates set nonzero, so the cross blocks add something), with
+    the engine's context;
+35. an LM round of the reduced MusicGen on the loop engine, as phase 30:
+    its rounds pass no context (the reference's ``LMAdapter``), so only
+    the self-attention runs, one flash launch a layer.
+
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
 line, when there is no CUDA device or any check fails.
@@ -260,9 +291,33 @@ FLASH_MOE_CASES = ((8, 57, 16, 16, 128, "bfloat16", True, 0),
                    (8, 512, 32, 8, 128, "bfloat16", True, 0))
 # Phi-3.5-MoE's forward at full width and 16 of its 32 layers
 PHI_LAYERS = 16
+# cross-attention, (B, Sq, Skv, Hq, Hk, hd, dtype), in the order of their
+# launch counts in main(): Llama-3.2-Vision's prefill and (8, 512)
+# forward to its 1024 image tokens, MusicGen's to its 256 conditioning
+# frames in bf16 and fp32, then a ragged Skv and Sq > Skv
+FLASH_CROSS_CASES = ((8, 57, 1024, 64, 8, 128, "bfloat16"),
+                     (8, 512, 1024, 64, 8, 128, "bfloat16"),
+                     (8, 57, 256, 24, 24, 64, "bfloat16"),
+                     (8, 512, 256, 24, 24, 64, "bfloat16"),
+                     (8, 512, 256, 24, 24, 64, "float32"),
+                     (2, 57, 100, 8, 2, 64, "bfloat16"),
+                     (2, 512, 16, 8, 8, 32, "bfloat16"))
+# the first four are on the served models' path, the last three checks only
+CROSS_ON_PATH = 4
+# the same two models' self-attention (causal): Llama-3.2-Vision's prefill
+# and (8, 512) forward (64 query over 8 kv heads of 128), then MusicGen's
+# (24 over 24 heads of 64)
+FLASH_XSELF_CASES = ((8, 57, 64, 8, 128, "bfloat16", True, 0),
+                     (8, 512, 64, 8, 128, "bfloat16", True, 0),
+                     (8, 57, 24, 24, 64, "bfloat16", True, 0),
+                     (8, 512, 24, 24, 64, "bfloat16", True, 0))
+# Llama-3.2-Vision-90B served at full width and 30 of its 100 layers
+VLM_LAYERS = 30
 # the hybrid and MoE LM rounds: (arch, FEL engine), the reduced configs
 FAMILY_ROUNDS = (("zamba2-7b", "reference"), ("zamba2-7b", "batched"),
                  ("deepseek-moe-16b", "reference"))
+# the audio family's LM round (phase 35): its rounds pass no context
+CROSS_ROUNDS = (("musicgen-medium", "reference"),)
 
 
 class SmokeFailure(RuntimeError):
@@ -475,13 +530,14 @@ def check_aggregate(W, w) -> dict:
 
 
 def family_me_sizes() -> list:
-    """D of the ME in phase 30's LM rounds: the reduced Zamba2-7B's and
-    DeepSeek-MoE-16B's parameter counts (6 nodes at the API's LM
-    defaults; the flattening is float32)."""
+    """D of the ME in phases 30 and 35's LM rounds: the reduced
+    Zamba2-7B's, DeepSeek-MoE-16B's and MusicGen's parameter counts (6
+    nodes at the API's LM defaults; the flattening is float32)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model_api import Model
     return [Model(get_config(arch).reduced(), device="cpu").n_params()
-            for arch in ("zamba2-7b", "deepseek-moe-16b")]
+            for arch in ("zamba2-7b", "deepseek-moe-16b",
+                         "musicgen-medium")]
 
 
 def phase_kernels(dev) -> list:
@@ -801,6 +857,12 @@ class FiniteWatch:
     def init_cache(self, batch: int, seq_len: int):
         return self.model.init_cache(batch, seq_len)
 
+    def needs_context(self) -> bool:
+        return self.model.needs_context()
+
+    def stub_context(self, batch: int):
+        return self.model.stub_context(batch)
+
     def prefill(self, params, batch):
         logits, cache = self.model.prefill(params, batch)
         return self._watch(logits), cache
@@ -827,24 +889,43 @@ def n_elements(tree) -> int:
                for v in tree.values())
 
 
-def attention_layers(cfg) -> int:
-    """Flash launches of one forward: one a self-attention layer, or one
-    a group's shared block in the hybrid."""
+def attention_layers(cfg, context: bool = True) -> int:
+    """Flash launches of one forward: one a self-attention layer, one a
+    group's shared block in the hybrid, and with a ``context`` one a
+    cross-attention (vlm: a block a group; audio: one in every layer)."""
     if cfg.family == "hybrid":
         from repro_torch.models.ssm_models import hybrid_group_shape
         return hybrid_group_shape(cfg)[0]
+    if cfg.family == "vlm":
+        from repro_torch.models.transformer import vlm_group_shape
+        n_groups, spg = vlm_group_shape(cfg)
+        return n_groups * (spg + int(context))
+    if cfg.family == "audio" and context:
+        return 2 * cfg.n_layers
     return cfg.n_layers
 
 
-def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
-    """``arch`` at full width behind ``ServingEngine.generate``, twice, the
-    launches of ``kernel`` counted in each run; then a forward over
-    (8, 512) tokens and a profile of decode steps. A recurrent model
-    launches its kernel once per layer in every prompt-replay and decode
-    step; a transformer once per layer in its one prefill; the hybrid
-    replays the prompt through decode steps (decode attention is plain)
-    and launches flash only in a forward, once a group. ``then(model,
-    params)``, if given, runs last, on the served weights."""
+def context_batch(model, tokens) -> dict:
+    """{"tokens": tokens} and, for a model that needs one, the serving
+    engine's stub context (the reference's ``0.1 * ones``, float32)."""
+    batch = {"tokens": tokens}
+    if model.needs_context():
+        batch["context"] = model.stub_context(tokens.shape[0])
+    return batch
+
+
+def phase_serving(dev, arch: str, kernel: str, then=None,
+                  cfg=None) -> dict:
+    """``arch`` (or ``cfg``, a cut of it) at full width behind
+    ``ServingEngine.generate``, twice, the launches of ``kernel`` counted
+    in each run; then a forward over (8, 512) tokens and a profile of
+    decode steps. A recurrent model launches its kernel once per layer in
+    every prompt-replay and decode step; a transformer once per self- and
+    cross-attention in its one prefill; the hybrid replays the prompt
+    through decode steps (decode attention is plain) and launches flash
+    only in a forward, once a group. A model that needs a context gets
+    the engine's stub in its forward too. ``then(model, params)``, if
+    given, runs last, on the served weights."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -852,7 +933,7 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
     from repro_torch.models.model_api import Model
     from repro_torch.obs import TraceRecorder, use_recorder
     from repro_torch.serving import ServingEngine
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -867,9 +948,10 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
     elif cfg.family == "hybrid":
         want, how = 0, "none: the prompt replays through decode steps"
     else:
-        want, how = cfg.n_layers, "one a layer in the prefill"
+        want, how = (attention_layers(cfg), "one a self- and cross-"
+                     "attention in the prefill")
     fwd_want = cfg.n_layers if cfg.rwkv else attention_layers(cfg)
-    runs = []
+    runs, shapes = [], []
     for attempt in range(2):
         watch = FiniteWatch(model)
         rec = TraceRecorder("serving")
@@ -879,6 +961,7 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
             out = ServingEngine(watch, params, device=dev).generate(reqs)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        shapes.append(ops.flash_launch_shapes())
         span = {sp.name: sp.wall_dur * 1e3 for sp in rec.spans}
         runs.append({"tokens": [c.tokens for c in out], "counts": counts,
                      "finite": bool(watch.finite),
@@ -912,10 +995,12 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
         0, cfg.vocab_size, (N_REQUESTS, 512)).astype(np.int32)).to(dev)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    batch = context_batch(model, toks)
     with torch.inference_mode():
-        logits, _ = model.forward(params, {"tokens": toks})
+        logits, _ = model.forward(params, batch)
         torch.cuda.synchronize()
         fwd_launches = ops.launch_counts()[kernel]
+        fwd_shapes = ops.flash_launch_shapes()
         check(fwd_launches == fwd_want,
               f"forward {arch}: {kernel} launched {fwd_launches} times, want "
               f"{fwd_want}")
@@ -928,7 +1013,7 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.forward(params, {"tokens": toks})
+            model.forward(params, batch)
             torch.cuda.synchronize()
             fwd_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -955,7 +1040,8 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
           f"profile of 4 steps: {n_ops} device ops, busy {busy_us / 4:.0f} "
           f"us a step: busy share {share:.4f}, idle share {1 - share:.4f}",
           flush=True)
-    summary = {"arch": arch, "n_params": n_params, "init_s": init_s,
+    summary = {"arch": arch, "layers": cfg.n_layers, "n_params": n_params,
+               "init_s": init_s,
                "max_prompt": max_p,
                "prompt_lens": [len(r.prompt) for r in reqs],
                "runs": [{k: v for k, v in r.items() if k != "tokens"}
@@ -970,7 +1056,9 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
                "first_tokens": runs[0]["tokens"][0][:8]}
     print("serving " + json.dumps(summary), flush=True)
     out = {"launches": runs[0]["counts"][kernel],
-           "forward_launches": fwd_launches}
+           "forward_launches": fwd_launches,
+           # flash launches by call, the first prefill's and the forward's
+           "shapes": [shapes[0], fwd_shapes]}
     if then is not None:
         out["then"] = then(model, params)
     return out
@@ -978,10 +1066,11 @@ def phase_serving(dev, arch: str, kernel: str, then=None) -> dict:
 
 def teacher_forced(model, params, reqs, forced):
     """(B, n, V) float32 logits on the host: the left-padded prompts of
-    ``reqs`` taken in as the engine takes them (a transformer's prefill
-    and its cache grown by n slots; a recurrent model's replay through
-    decode steps), then ``forced`` (B, n) fed one token a step, as the
-    engine feeds its own tokens."""
+    ``reqs`` taken in as the engine takes them (a transformer's prefill,
+    with the engine's context where the model needs one, and its cache
+    grown by n slots; a recurrent model's replay through decode steps),
+    then ``forced`` (B, n) fed one token a step, as the engine feeds its
+    own tokens."""
     import numpy as np
     import torch
     from repro_torch.serving import grow_cache
@@ -1001,7 +1090,8 @@ def teacher_forced(model, params, reqs, forced):
                                              feed[:, i:i + 1], i)
             start = P - 1
         else:
-            logits, cache = model.prefill(params, {"tokens": feed[:, :P]})
+            logits, cache = model.prefill(params,
+                                          context_batch(model, feed[:, :P]))
             cache = grow_cache(cache, n)
             out.append(logits[:, -1].float().cpu())
             start = P
@@ -1066,7 +1156,9 @@ class RoutingTape:
 
 def phase_serving_agreement(dev, arch: str) -> None:
     """The reduced ``arch`` with one set of weights on the card and on the
-    CPU (random QKV biases where the config has them), fed the CPU's
+    CPU (random QKV biases where the config has them, the vlm tanh gates
+    at random nonzero values: at their init of 0 the cross blocks add
+    nothing), fed the CPU's
     greedy tokens: logits within LOGIT_ATOL, and the same argmax wherever
     the CPU's top-2 margin exceeds 2 * LOGIT_ATOL. A MoE model's card run
     takes the CPU run's expert choices (``RoutingTape``), and its own
@@ -1085,6 +1177,10 @@ def phase_serving_agreement(dev, arch: str) -> None:
         if b in attn:
             attn[b] = torch.randn(attn[b].shape, generator=gen, device=dev
                                   ).to(attn[b].dtype)
+    cross = params.get("cross_layers", {})
+    for g in ("gate_attn", "gate_mlp"):
+        if g in cross:
+            cross[g] = torch.randn(cross[g].shape, generator=gen, device=dev)
     cpu_params = tree_to(params, "cpu")
     reqs = serving_requests(cfg.vocab_size)
     done = ServingEngine(cpu, cpu_params, device="cpu").generate(reqs)
@@ -1126,30 +1222,33 @@ def phase_serving_agreement(dev, arch: str) -> None:
 
 
 def flash_bound_us(B: int, S: int, Hq: int, Hk: int, hd: int, size: int,
-                   causal: bool, window: int,
-                   flop_per_s: float) -> tuple[float, str]:
-    """Read q, k, v once and write o once; 4·hd operations (two
-    multiply-adds a dim, q·k and p·v) for each unmasked (q, k) pair —
-    S(S+1)/2 a head when causal, fewer with a window."""
-    n_bytes = (2 * B * S * Hq * hd + 2 * B * S * Hk * hd) * size
-    pairs = 0
-    for qpos in range(S):
-        hi = qpos + 1 if causal else S
-        lo = max(0, qpos - window + 1) if window > 0 else 0
-        pairs += max(0, hi - lo)
-    return bound_us(n_bytes, 4.0 * hd * B * Hq * pairs, flop_per_s)
+                   causal: bool, window: int, flop_per_s: float,
+                   Skv: int | None = None) -> tuple[float, str]:
+    """Read q, k, v once and write o once, (q + o)·Sq + (k + v)·Skv; 4·hd
+    operations (two multiply-adds a dim, q·k and p·v) for each unmasked
+    (q, k) pair — S(S+1)/2 a head when causal, fewer with a window,
+    Sq·Skv with keys of their own length (Skv)."""
+    Skv = S if Skv is None else Skv
+    n_bytes = (2 * B * S * Hq * hd + 2 * B * Skv * Hk * hd) * size
+    return bound_us(n_bytes, 4.0 * hd * B * Hq *
+                    unmasked_pairs(S, causal, window, Skv), flop_per_s)
 
 
 def check_flash(gen, dev, B: int, S: int, Hq: int, Hk: int, hd: int,
-                dtype_name: str, causal: bool, window: int) -> dict:
+                dtype_name: str, causal: bool, window: int,
+                Skv: int | None = None) -> dict:
+    """Flash attention from S queries to S keys, or to ``Skv`` keys of
+    their own length (cross-attention), against its plain version, timed
+    beside it, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_gqa_ref
     dtype = getattr(torch, dtype_name)
+    Skv = S if Skv is None else Skv
     q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Hk, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Hk, hd, generator=gen, device=dev).to(dtype)
     kw = dict(causal=causal, window=window)
     out = ops.flash_attention(q, k, v, **kw)
     again = ops.flash_attention(q, k, v, **kw)
@@ -1157,8 +1256,8 @@ def check_flash(gen, dev, B: int, S: int, Hq: int, Hk: int, hd: int,
     ref = flash_attention_gqa_ref(q, k, v, **kw)
     bit = torch.equal(out, again)
     err = float((out.float() - ref.float()).abs().max())
-    tag = f"flash {(B, S, Hq, Hk, hd)} {dtype_name} causal {causal} " \
-          f"window {window}"
+    tag = f"flash {(B, S, Hq, Hk, hd)} Skv {Skv} {dtype_name} causal " \
+          f"{causal} window {window}"
     check(bit, f"{tag}: two launches on one input differ")
     check(torch.allclose(out.float(), ref.float(), **FLASH_TOL[dtype_name]),
           f"{tag}: disagrees with flash_attention_gqa_ref (max abs err "
@@ -1180,7 +1279,8 @@ def check_flash(gen, dev, B: int, S: int, Hq: int, Hk: int, hd: int,
     check(torch.allclose(sdpa().transpose(1, 2).float(), ref.float(),
                          **FLASH_TOL["bfloat16"]),
           f"{tag}: the SDPA yardstick does not compute the same function")
-    plain_reps = dict(reps=2, samples=10) if S * S * B * Hq > 1 << 24 else {}
+    plain_reps = (dict(reps=2, samples=10) if S * Skv * B * Hq > 1 << 24
+                  else {})
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return entry(
         "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1189,10 +1289,10 @@ def check_flash(gen, dev, B: int, S: int, Hq: int, Hk: int, hd: int,
         graph_time_us(lambda: flash_attention_gqa_ref(q, k, v, **kw),
                       **plain_reps),
         flash_bound_us(B, S, Hq, Hk, hd, q.element_size(), causal, window,
-                       peak),
+                       peak, Skv),
         graph_time_us(sdpa),
         call_time_us(lambda: ops.flash_attention(q, k, v, **kw)),
-        kv_heads=Hk, causal=causal, window=window,
+        kv_heads=Hk, kv_len=Skv, causal=causal, window=window,
         library_call="torch.nn.functional.scaled_dot_product_attention("
                      "enable_gqa=True)")
 
@@ -1204,7 +1304,8 @@ def phase_flash(dev, cases=FLASH_CASES, seed: int = 3) -> list:
     for case in cases:
         row = check_flash(gen, dev, *case)
         print(f"kernel flash_attention {row['shape']} Hk {row['kv_heads']} "
-              f"{row['dtype']} causal {row['causal']} window {row['window']}"
+              f"Skv {row['kv_len']} {row['dtype']} causal {row['causal']} "
+              f"window {row['window']}"
               f": max_abs_err {row['max_abs_err']:.3e} bit-identical "
               f"{row['bit_identical']} | kernel {row['kernel_us']:.2f} us, "
               f"plain {row['plain_us']:.2f} us, library "
@@ -1279,10 +1380,14 @@ def phase_wkv6_backward(dev) -> list:
     return rows
 
 
-def unmasked_pairs(S: int, causal: bool, window: int) -> int:
+def unmasked_pairs(S: int, causal: bool, window: int,
+                   Skv: int | None = None) -> int:
+    """(query, key) pairs the masks keep, S queries to S keys or to
+    ``Skv`` keys, positions of both from 0."""
+    Skv = S if Skv is None else Skv
     pairs = 0
     for qpos in range(S):
-        hi = qpos + 1 if causal else S
+        hi = qpos + 1 if causal else Skv      # causal: Skv == S
         lo = max(0, qpos - window + 1) if window > 0 else 0
         pairs += max(0, hi - lo)
     return pairs
@@ -2224,19 +2329,23 @@ def phase_phi_forward(dev) -> dict:
     return out
 
 
-def phase_family_rounds(dev) -> dict:
+def phase_family_rounds(dev, runs=FAMILY_ROUNDS,
+                        tag_line: str = "family_rounds") -> dict:
     """``run_bhfl(model=LMAdapter(get_config(arch).reduced()))`` at the
-    API's LM defaults for the hybrid on both engines and the MoE family
-    on the loop: valid chain, finite losses, flash forward and backward
-    launches against the attention layers and the SGD steps (vmapped
-    steps on the batched engine), each ME kernel once a round."""
+    API's LM defaults for each (arch, engine) of ``runs`` (phase 30: the
+    hybrid on both engines and the MoE family on the loop; phase 35: the
+    audio family on the loop): valid chain, finite losses, flash forward
+    and backward launches against the attention layers and the SGD steps
+    (vmapped steps on the batched engine), each ME kernel once a round.
+    The rounds pass no context, as the reference's ``LMAdapter``: an
+    audio model runs its self-attention only."""
     import torch
     from repro_torch import api
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.obs import TraceRecorder, use_recorder
     out = {}
-    for arch, engine in FAMILY_ROUNDS:
+    for arch, engine in runs:
         cfg = get_config(arch).reduced()
         rec = TraceRecorder(f"{arch}_{engine}")
         ops.reset_launch_counts()
@@ -2249,7 +2358,7 @@ def phase_family_rounds(dev) -> dict:
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         rt = run.runtime
-        layers = attention_layers(cfg)
+        layers = attention_layers(cfg, context=False)
         if engine == "batched":
             steps = LM_ROUNDS * rt._engine.fel_iterations \
                 * rt._engine.steps_per_iteration
@@ -2288,8 +2397,79 @@ def phase_family_rounds(dev) -> dict:
         print(f"{tag}: {LM_ROUNDS} rounds in {wall:.2f} s, {steps} SGD "
               f"steps, flash {counts['flash_attention']} and backward "
               f"{counts['flash_attention_backward']} launches", flush=True)
-    print("family_rounds " + json.dumps(out), flush=True)
+    print(f"{tag_line} " + json.dumps(out), flush=True)
     return out
+
+
+# -- slice 11: the cross-attention families ------------------------------
+
+def phase_flash_cross(dev) -> list:
+    """Flash attention with keys of their own length (FLASH_CROSS_CASES,
+    non-causal, window 0): phase 10's checks and times; then the backward
+    wrapper must refuse Skv != Sq on the card (ROADMAP Queue 2 item K)."""
+    import torch
+    from repro_torch.kernels import ops
+    rows = phase_flash(dev, [(B, Sq, Hq, Hk, hd, dt, False, 0, Skv)
+                             for B, Sq, Skv, Hq, Hk, hd, dt
+                             in FLASH_CROSS_CASES], seed=1024)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(1, 64, 2, 64, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    k = torch.randn(1, 256, 2, 64, generator=gen, device=dev).to(
+        torch.bfloat16)
+    o = ops.flash_attention(q, k, k, causal=False)
+    before = ops.launch_counts()["flash_attention_backward"]
+    try:
+        o.sum().backward()
+    except NotImplementedError as e:
+        check("Queue 2 item K" in str(e),
+              f"flash backward with Skv != Sq raised without naming its "
+              f"ROADMAP item: {e}")
+        print(f"flash backward with Skv != Sq refuses: {e}", flush=True)
+    else:
+        raise SmokeFailure("flash backward with Skv != Sq ran: no kernel "
+                           "is built for it")
+    check(ops.launch_counts()["flash_attention_backward"] == before,
+          "flash backward with Skv != Sq launched a kernel")
+    return rows
+
+
+def flash_key(row) -> tuple:
+    """A flash row's call as ``ops.flash_launch_shapes`` keys it."""
+    B, S, Hq, hd = row["shape"]
+    return (B, S, row["kv_len"], Hq, row["kv_heads"], hd, row["dtype"],
+            row["causal"], row["window"])
+
+
+def launches_by_call(on_path: list, off_path: list, served: list) -> None:
+    """Give each flash row the launches of its own call in the ``served``
+    runs (phase_serving's prefill and forward): each row of ``on_path``
+    must have been launched there, and every call launched there must
+    have its row; ``off_path`` rows (checks only) get 0."""
+    left: dict = {}
+    for out in served:
+        for counts in out["shapes"]:
+            for key, n in counts.items():
+                left[key] = left.get(key, 0) + n
+    for row in on_path:
+        row["launches"] = left.pop(flash_key(row), 0)
+        row["on_path"] = True
+        check(row["launches"] > 0, f"flash {flash_key(row)} was not "
+              f"launched on the served models' path")
+    for row in off_path:
+        row["launches"] = 0
+        row["on_path"] = False
+    check(not left, f"flash calls on the served models' path with no row: "
+          f"{left}")
+
+
+def vlm_cut():
+    """Llama-3.2-Vision-90B at full width and VLM_LAYERS of its 100
+    layers: 6 groups of 4 self-attention layers and a cross block."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                               n_layers=VLM_LAYERS)
 
 
 # -- slice 9: the simulator's scenarios and the sharded consortium --------
@@ -2547,6 +2727,7 @@ def main() -> int:
                            then=fedsgd("rwkv6-1.6b", "wkv6",
                                        FEDSGD["rwkv6-1.6b"]))
     fed = {"wkv6": served.pop("then")}
+    served.pop("shapes")
     for row in wkv_rows:
         row.update(served)
     # 9. the served model on the card against the CPU
@@ -2558,6 +2739,7 @@ def main() -> int:
                            then=fedsgd("yi-6b", "flash_attention",
                                        FEDSGD["yi-6b"]))
     fed["flash_attention"] = served.pop("then")
+    served.pop("shapes")
     for row in flash_rows:
         row.update(served)
     # 12. the dense models on the card against the CPU
@@ -2633,6 +2815,28 @@ def main() -> int:
                                  deepseek["forward_launches"],
                                  phi["forward_launches"])):
         row["launches"] = n
+    # 31. flash with keys of their own length; 32. MusicGen-medium
+    # serving; 33. Llama-3.2-Vision-90B at 30 layers; each model freed
+    # before the next is built
+    torch.cuda.empty_cache()
+    cross_rows = phase_flash_cross(dev)
+    xself_rows = phase_flash(dev, FLASH_XSELF_CASES, seed=57)
+    musicgen = phase_serving(dev, "musicgen-medium", "flash_attention")
+    torch.cuda.empty_cache()
+    vlm = phase_serving(dev, "llama-3.2-vision-90b", "flash_attention",
+                        cfg=vlm_cut())
+    torch.cuda.empty_cache()
+    # 34. the reduced cross-attention models on the card against the CPU
+    for arch in ("llama-3.2-vision-90b", "musicgen-medium"):
+        phase_serving_agreement(dev, arch)
+    # 35. the audio family's LM round: self-attention only, as the
+    # reference's rounds pass no context
+    fam.update(phase_family_rounds(dev, CROSS_ROUNDS, "cross_rounds"))
+    launches_by_call(cross_rows[:CROSS_ON_PATH] + xself_rows,
+                     cross_rows[CROSS_ON_PATH:], [musicgen, vlm])
+    for row in cross_rows + xself_rows:
+        print(f"flash {flash_key(row)}: {row['launches']} launches on the "
+              f"served path", flush=True)
     for row in flash_bwd_rows:
         row["family_lm_launches"] = {
             k: v["launches"]["flash_attention_backward"]
@@ -2642,7 +2846,7 @@ def main() -> int:
                                      for k, v in fam.items()}
     print(json.dumps({"kernels": rows + wkv_rows + flash_rows + wkv_bwd_rows
                       + flash_bwd_rows + fold_rows + f112_rows
-                      + moe_rows}),
+                      + moe_rows + cross_rows + xself_rows}),
           flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Architecture registry of the port (counterpart of ``repro.configs``).
 
-The ids are the reference's. A config is registered here when its family
-is ported; :func:`get_config` on any other id raises and names the
-ROADMAP item that brings its family over.
+The ids are the reference's, and every one of them is registered.
+``mnist-mlp`` is there for completeness, as in the reference: the FL
+runtime runs the paper's MLP from ``repro_torch.models.mlp`` and
+``models.model_api.Model`` refuses its family (:data:`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -34,30 +35,20 @@ _PORTED = {                                 # id -> module of its config
     "zamba2-7b": "zamba2_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
+    "musicgen-medium": "musicgen_medium",
+    "mnist-mlp": "mnist_mlp",
 }
 
-# why a family is not ported yet: the ROADMAP item that brings it. Read by
-# get_config and by models.model_api.Model.
-_CROSS = ("ROADMAP Queue 1 item 11c: the cross-attention (vision/audio) "
-          "families")
+# why models.model_api.Model does not run a family: the paper's MLP is its
+# own model, run by the API
 NOT_PORTED = {
-    "vlm": _CROSS,
-    "audio": _CROSS,
     "mlp": "the paper's MLP is repro_torch.models.mlp.MLPConfig, run by "
            "repro_torch.api.run_bhfl",
-}
-_FAMILY_OF = {          # the ids whose family is not ported
-    "llama-3.2-vision-90b": "vlm",
-    "musicgen-medium": "audio",
-    "mnist-mlp": "mlp",
 }
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in _FAMILY_OF:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported to repro_torch yet: "
-            f"{NOT_PORTED[_FAMILY_OF[arch_id]]}")
     if arch_id not in _PORTED:
         raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_PORTED[arch_id]}")

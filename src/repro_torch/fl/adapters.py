@@ -224,7 +224,11 @@ class LMAdapter(_SerializationFlatten):
                 batch = {k: torch.as_tensor(v, device=self.device)
                          for k, v in batch.items()}
                 loss = self.model.loss(_nested(flat), batch)
-                grads = torch.autograd.grad(loss, list(flat.values()))
+                # a leaf the loss does not reach (an audio model's
+                # cross-attention, run without a context) gets a zero
+                # gradient, as jax.grad gives it
+                grads = torch.autograd.grad(loss, list(flat.values()),
+                                            materialize_grads=True)
                 sgd_update(dict(zip(flat, grads)), opt_state, flat,
                            lr=self.lr, momentum=self.momentum,
                            decay=self.decay)

@@ -38,7 +38,7 @@ SIGNATURES = {
                       [_P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
                        *[_P] * 8, *[_I] * 7, _P]),
     "flash_attention": ("flash_attention", "repro_flash_attention",
-                        [_P, _P, _P, _P, _P, *[_L] * 9, *[_I] * 8, _P]),
+                        [_P, _P, _P, _P, _P, *[_L] * 9, *[_I] * 9, _P]),
     "flash_attention_backward": (
         "flash_attention", "repro_flash_attention_backward",
         [*[_P] * 10, *[_L] * 12, *[_I] * 8, _P]),

@@ -8,9 +8,14 @@
 //     s[i,j] = (q_i . k_j) / sqrt(hd)   in fp32, -1e30 where masked
 //     o_i    = sum_j softmax_j(s[i,:]) v_j
 //
-// keys masked by k < S, causality (q >= k) and the window (q - k < window),
+// keys masked by k < Skv, causality (q >= k) and the window (q - k < window),
 // the softmax kept online (running max m, sum l, fp32 accumulator acc) and
-// o = acc / max(l, 1e-30) written in the inputs' dtype.
+// o = acc / max(l, 1e-30) written in the inputs' dtype. The forward takes
+// Skv keys of its own (cross-attention: Sq tokens to Skv context keys,
+// positions of both from 0, as the reference's blockwise_attention has
+// it), unmasked but for k < Skv; causal and window runs have Skv = Sq.
+// The tensor maps of k and v have extent Skv, so TMA zero-fills a tile's
+// rows past it, and the grid and the o and L stores run over Sq.
 //
 // What bounds it: at the served model's shapes (hd = 128, bf16) the card
 // could do the 4*hd operations of each unmasked (q, k) pair on its tensor
@@ -353,8 +358,8 @@ __global__ void __launch_bounds__(NWG * NT)
                  const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv, int perm_q,
                  int perm_k, int perm_v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int S, int Hq, int Hk, int causal,
-                 int window, float scale2) {
+                 float* __restrict__ lse, int S, int Skv, int Hq, int Hk,
+                 int causal, int window, float scale2) {
   using C = Tc<HD>;
   constexpr int ST = KV_STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -384,7 +389,7 @@ __global__ void __launch_bounds__(NWG * NT)
     const int lo = q0 - window + 1;  // the oldest key any row may see
     kt_begin = lo > 0 ? lo / TK : 0;
   }
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;  // causal: Skv == S
   const int n_tiles = (k_end + TK - 1) / TK - kt_begin;
 
   if (tid == 0) {
@@ -460,11 +465,11 @@ __global__ void __launch_bounds__(NWG * NT)
     reg_fence(s);
 
     // s[4c + 2i + e] is row r0 + 8i, key k0 + 8c + cq + e. Only a tile
-    // that crosses S, the diagonal or the window edge is masked: there the
+    // that crosses Skv, the diagonal or the window edge is masked: there the
     // scores are scaled and masked first; elsewhere the row max is taken
     // on the raw scores (scale2 > 0, so it scales exactly) and the scale
     // is folded into the exponent's fma.
-    const bool edge = k0 + TK > S || (causal && k0 + TK - 1 > q0) ||
+    const bool edge = k0 + TK > Skv || (causal && k0 + TK - 1 > q0) ||
                       (window > 0 && q0 + TQ - 1 - k0 >= window);
     float mx[2] = {NEG_INF, NEG_INF};
     if (edge) {
@@ -472,7 +477,7 @@ __global__ void __launch_bounds__(NWG * NT)
       for (int x = 0; x < 32; ++x) {
         const int i = (x >> 1) & 1;
         const int kpos = k0 + 8 * (x >> 2) + cq + (x & 1);
-        bool ok = kpos < S;
+        bool ok = kpos < Skv;
         if (causal) ok = ok && qpos[i] >= kpos;
         if (window > 0) ok = ok && qpos[i] - kpos < window;
         s[x] = ok ? s[x] * scale2 : NEG_INF;
@@ -600,8 +605,8 @@ __global__ void __launch_bounds__(NT)
                   float* __restrict__ lse, long long qsb, long long qss,
                   long long qsh, long long ksb,
                   long long kss, long long ksh, long long vsb, long long vss,
-                  long long vsh, int S, int Hq, int Hk, int causal,
-                  int window, float scale) {
+                  long long vsh, int S, int Skv, int Hq, int Hk,
+                  int causal, int window, float scale) {
   constexpr int QP = HD + 4;
   constexpr int DPT = HD / 16;  // output dims a thread owns
   extern __shared__ float4 smem4[];
@@ -641,7 +646,7 @@ __global__ void __launch_bounds__(NT)
     const int lo = q0 - window + 1;  // the oldest key any row may see
     kt_begin = lo > 0 ? lo / BK : 0;
   }
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;  // causal: Skv == S
   const int kt_end = (k_end + BK - 1) / BK;
 
   const float* kb = k + b * ksb + hk * ksh;
@@ -652,7 +657,7 @@ __global__ void __launch_bounds__(NT)
     for (int idx = tid; idx < BK * HD; idx += NT) {
       const int r = idx / HD, d = idx - r * HD;
       const int pos = k0 + r;
-      const bool in = pos < S;
+      const bool in = pos < Skv;
       sk[r * QP + d] = in ? kb[pos * kss + d] : 0.f;
       sv[r * HD + d] = in ? vb[pos * vss + d] : 0.f;
     }
@@ -690,7 +695,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int kpos = k0 + ln + 16 * c;
-        bool ok = kpos < S;
+        bool ok = kpos < Skv;
         if (causal) ok = ok && qpos >= kpos;
         if (window > 0) ok = ok && qpos - kpos < window;
         s[r][c] = ok ? s[r][c] * scale : NEG_INF;
@@ -791,8 +796,8 @@ int opt_in(Kernel kernel, int bytes, bool (&done)[64]) {
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, const long long* st, int B, int S, int Hq, int Hk,
-               int causal, int window, cudaStream_t stream) {
+               float* lse, const long long* st, int B, int S, int Skv, int Hq,
+               int Hk, int causal, int window, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * 4;
   static bool opted_in[64] = {};
   const int e = opt_in(flash_fwd_f32<HD>, bytes, opted_in);
@@ -802,8 +807,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32<HD><<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], S, Hq, Hk, causal,
-      window, scale);
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], S, Skv, Hq, Hk,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -887,8 +892,8 @@ int encode_map(CUtensorMap* map, int* perm, const void* ptr, int H, int S,
 // HD is the tile's hd, OD <= HD the operands' (see flash_fwd_tc)
 template <int HD, int NWG, int OD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              float* lse, const long long* st, int B, int S, int Hq, int Hk,
-              int causal, int window, cudaStream_t stream) {
+              float* lse, const long long* st, int B, int S, int Skv, int Hq,
+              int Hk, int causal, int window, cudaStream_t stream) {
   static_assert(TQ == TK, "one box shape serves q, k and v");
   constexpr int bytes = Tc<HD>::template smem<NWG>();
   static bool opted_in[64] = {};
@@ -897,14 +902,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   CUtensorMap mq, mk, mv;
   int pq = 0, pk = 0, pv = 0;
   if ((e = encode_map<HD, OD>(&mq, &pq, q, Hq, S, B, st[0], st[1], st[2])) ||
-      (e = encode_map<HD, OD>(&mk, &pk, k, Hk, S, B, st[3], st[4], st[5])) ||
-      (e = encode_map<HD, OD>(&mv, &pv, v, Hk, S, B, st[6], st[7], st[8])))
+      (e = encode_map<HD, OD>(&mk, &pk, k, Hk, Skv, B, st[3], st[4],
+                              st[5])) ||
+      (e = encode_map<HD, OD>(&mv, &pv, v, Hk, Skv, B, st[6], st[7],
+                              st[8])))
     return e;
   const dim3 grid((S + TQ - 1) / TQ, Hq / NWG, B);
   const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(OD));
   flash_fwd_tc<HD, NWG, OD><<<grid, NWG * NT, bytes, stream>>>(
-      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), lse, S, Hq,
-      Hk, causal, window, scale2);
+      mq, mk, mv, pq, pk, pv, static_cast<__nv_bfloat16*>(o), lse, S, Skv,
+      Hq, Hk, causal, window, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -912,27 +919,28 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 // hd-128 tile
 template <int OD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              float* lse, const long long* st, int B, int S, int Hq, int Hk,
-              int causal, int window, cudaStream_t stream) {
+              float* lse, const long long* st, int B, int S, int Skv, int Hq,
+              int Hk, int causal, int window, cudaStream_t stream) {
   constexpr int HD = OD == 112 ? 128 : OD;
   if ((Hq / Hk) % 2 == 0)
-    return launch_tc<HD, 2, OD>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,
-                                window, stream);
-  return launch_tc<HD, 1, OD>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,
-                              window, stream);
+    return launch_tc<HD, 2, OD>(q, k, v, o, lse, st, B, S, Skv, Hq, Hk,
+                                causal, window, stream);
+  return launch_tc<HD, 1, OD>(q, k, v, o, lse, st, B, S, Skv, Hq, Hk,
+                              causal, window, stream);
 }
 
 template <bool TC>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                float* lse, const long long* st, int B, int S, int Hq, int Hk,
-                int hd, int causal, int window, cudaStream_t s) {
+                float* lse, const long long* st, int B, int S, int Skv,
+                int Hq, int Hk, int hd, int causal, int window,
+                cudaStream_t s) {
   switch (hd) {
 #define REPRO_HD(N)                                                         \
   case N:                                                                   \
-    return TC ? launch_tc<N>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,     \
-                             window, s)                                     \
-              : launch_f32<N>(q, k, v, o, lse, st, B, S, Hq, Hk, causal,    \
-                              window, s);
+    return TC ? launch_tc<N>(q, k, v, o, lse, st, B, S, Skv, Hq, Hk,        \
+                             causal, window, s)                             \
+              : launch_f32<N>(q, k, v, o, lse, st, B, S, Skv, Hq, Hk,       \
+                              causal, window, s);
     REPRO_HD(16)
     REPRO_HD(32)
     REPRO_HD(64)
@@ -1935,31 +1943,36 @@ int dispatch_bwd_tc(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q: (B, S, Hq, hd); k, v: (B, S, Hk, hd), Hq a multiple of Hk, each read
-// through its element strides (batch, sequence, head) with a unit stride
-// over hd; o: (B, S, Hq, hd) contiguous. lse: null (serving), or (B, Hq,
-// S) fp32, which then receives each row's L = ln(sum_j exp(s_j)) for the
-// backward (training). dtype 0 is fp32 (CUDA cores), 1
-// bf16 (tensor cores: every base 16-byte aligned and every stride of a
-// dim of extent > 1 a multiple of 8 elements); hd is 16, 32, 64, 112 or
-// 128; window 0 means none. Returns cudaGetLastError() after the launch on
-// `stream`, cudaErrorInvalidValue for another dtype or hd, -(CUresult)
-// if a tensor map cannot be encoded and -1000 if libcuda has no
+// q: (B, S, Hq, hd); k, v: (B, Skv, Hk, hd), Hq a multiple of Hk, each
+// read through its element strides (batch, sequence, head) with a unit
+// stride over hd; o: (B, S, Hq, hd) contiguous. Query and key positions
+// both count from 0; Skv != S (cross-attention) only without causality
+// or a window. lse: null (serving), or (B, Hq, S) fp32, which then
+// receives each row's L = ln(sum_j exp(s_j)) for the backward (training).
+// dtype 0 is fp32 (CUDA cores), 1 bf16 (tensor cores: every base 16-byte
+// aligned and every stride of a dim of extent > 1 a multiple of 8
+// elements); hd is 16, 32, 64, 112 or 128; window 0 means none. Returns
+// cudaGetLastError() after the launch on `stream`, cudaErrorInvalidValue
+// for another dtype or hd or a mask with Skv != S, -(CUresult) if a
+// tensor map cannot be encoded and -1000 if libcuda has no
 // cuTensorMapEncodeTiled.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, int B, int S,
-    int Hq, int Hk, int hd, int causal, int window, int dtype, void* stream) {
+    int Skv, int Hq, int Hk, int hd, int causal, int window, int dtype,
+    void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (Skv != S && (causal || window > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_hd<false>(q, k, v, o, l, st, B, S, Hq, Hk, hd, causal,
-                              window, s);
+    return dispatch_hd<false>(q, k, v, o, l, st, B, S, Skv, Hq, Hk, hd,
+                              causal, window, s);
   if (dtype == 1)
-    return dispatch_hd<true>(q, k, v, o, l, st, B, S, Hq, Hk, hd, causal,
-                             window, s);
+    return dispatch_hd<true>(q, k, v, o, l, st, B, S, Skv, Hq, Hk, hd,
+                             causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

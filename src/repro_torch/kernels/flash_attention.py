@@ -2,7 +2,11 @@
 
 Port of ``repro.kernels.ops.flash_attention`` (the Pallas
 ``_flash_kernel``): blocked online-softmax attention with GQA, causal and
-sliding-window masks, scores and softmax in float32.
+sliding-window masks, scores and softmax in float32. The forward also
+takes keys of a length of their own, Skv ≠ Sq, for cross-attention (the
+reference's ``blockwise_attention(q, k, v, causal=False, window=0)``,
+query and key positions both from 0): unmasked but for k < Skv. A causal
+or windowed call with Skv ≠ Sq is refused; no caller makes one.
 
 For a CUDA tensor the wrapper launches a hand-written Hopper kernel in
 ``csrc/flash_attention.cu`` and counts one launch. Both kernels walk the
@@ -28,7 +32,9 @@ blocks of a thread-block cluster (:func:`dkdv_cluster`) and folded in
 rank order, the same 16-byte rule for q, k, v and dO as the forward;
 float32 on CUDA cores), counted in ``backward_launches``; on the CPU
 the forward and backward are the plain versions
-(``ref.flash_attention_backward_ref``). Serving never takes that route:
+(``ref.flash_attention_backward_ref``). With Skv ≠ Sq the backward
+kernels are not built yet and raise on the card (ROADMAP Queue 2 item
+K); on the CPU the plain backward runs. Serving never takes that route:
 one launch a layer, no L written. Under ``torch.func.vmap`` (the batched
 FEL engine) both Functions fold the vmapped axis into the batch and
 launch once for the whole batch.
@@ -48,35 +54,45 @@ HEAD_DIMS = (16, 32, 64, 112, 128)
 # head dims the forward takes but the backward kernels do not yet
 NO_BACKWARD_HEAD_DIMS = {112: "ROADMAP Queue 2 item I: the flash backward "
                               "at head dim 112"}
+# keys of a length of their own, which the backward kernels do not take yet
+NO_BACKWARD_CROSS = ("ROADMAP Queue 2 item K: the flash backward with a key "
+                     "length of its own")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GRID_YZ = 65_535         # the kernel's grid is (S / 64, Hq, B)
+MAX_GRID_YZ = 65_535         # the kernel's grid is (Sq / 64, Hq, B)
 TMA_ALIGN = 16               # bytes: TMA's base and stride granule
 NO_ENCODER = -1000           # the C entry's code for a missing libcuda call
 
 launches = 0            # forward kernel launches
 backward_launches = 0   # backward calls (each the dQ and the dK/dV kernel)
+# forward kernel launches by call: (B, Sq, Skv, Hq, Hk, hd, dtype name,
+# causal, window) → count
+shape_launches: dict = {}
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, causal, window) -> None:
     if q.ndim != 4:
         raise ValueError(f"flash_attention needs q of shape (B, S, Hq, hd); "
                          f"got {tuple(q.shape)}")
     B, S, Hq, hd = q.shape
-    if k.ndim != 4 or tuple(k.shape[:2]) != (B, S) or k.shape[3] != hd \
+    if k.ndim != 4 or k.shape[0] != B or k.shape[3] != hd \
             or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} needs k and v "
-                         f"of shape ({B}, {S}, Hk, {hd}); got k "
+                         f"of one shape ({B}, Skv, Hk, {hd}); got k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    Hk = k.shape[2]
-    if min(B, S, Hk) < 1 or Hq % Hk:
-        raise ValueError(f"flash_attention needs B, S, Hk >= 1 and Hq a "
-                         f"multiple of Hk; got q {tuple(q.shape)}, k "
+    Skv, Hk = k.shape[1], k.shape[2]
+    if min(B, S, Skv, Hk) < 1 or Hq % Hk:
+        raise ValueError(f"flash_attention needs B, Sq, Skv, Hk >= 1 and Hq "
+                         f"a multiple of Hk; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes hd in {HEAD_DIMS}; got {hd}")
     if not isinstance(window, int) or window < 0:
         raise ValueError(f"flash_attention takes a window >= 0 (0: none); "
                          f"got {window!r}")
+    if Skv != S and (causal or window > 0):
+        raise ValueError(f"flash_attention takes keys of their own length "
+                         f"(Skv {Skv} != Sq {S}) only with causal=False and "
+                         f"window 0; got causal={causal}, window={window}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"q is {q.dtype} but {name} is {t.dtype}")
@@ -129,9 +145,9 @@ def backward_scratch_floats(B: int, S: int, Hq: int) -> int:
 
 
 def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
-    """(o, L (B, Hq, S) float32 or None)."""
+    """(o, L (B, Hq, Sq) float32 or None)."""
     B, S, Hq, hd = q.shape
-    Hk = k.shape[2]
+    Skv, Hk = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         o = flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
         return o, (flash_attention_lse_ref(q, k, causal=causal,
@@ -162,8 +178,8 @@ def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  0 if lse is None else lse.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 B, S, Hq, Hk, hd, int(causal), window, DTYPES[q.dtype],
-                 stream)
+                 B, S, Skv, Hq, Hk, hd, int(causal), window,
+                 DTYPES[q.dtype], stream)
     if err == NO_ENCODER:
         raise RuntimeError("flash attention kernel: libcuda has no "
                            "cuTensorMapEncodeTiled")
@@ -174,14 +190,18 @@ def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
+    key = (B, S, Skv, Hq, Hk, hd, str(q.dtype).split(".")[-1], bool(causal),
+           int(window))
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     return o, lse
 
 
 def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
                              window: int = 0):
     """The gradient of :func:`flash_attention`: (dq, dk, dv) in q's dtype,
-    from the forward's output ``o`` and row logsumexp ``lse`` (B, Hq, S)
-    and the output gradient ``d_o`` (B, S, Hq, hd)."""
+    from the forward's output ``o`` and row logsumexp ``lse`` (B, Hq, Sq)
+    and the output gradient ``d_o`` (B, Sq, Hq, hd). On the card k and v
+    must have q's sequence length (:data:`NO_BACKWARD_CROSS`)."""
     B, S, Hq, hd = q.shape
     Hk = k.shape[2]
     if q.device.type == "cpu":
@@ -193,6 +213,11 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
         raise NotImplementedError(
             f"flash attention backward kernel: hd {hd} is not built yet "
             f"({NO_BACKWARD_HEAD_DIMS[hd]}); the forward takes it")
+    if k.shape[1] != S:
+        raise NotImplementedError(
+            f"flash attention backward kernel: keys of their own length "
+            f"(Skv {k.shape[1]} != Sq {S}) are not built yet "
+            f"({NO_BACKWARD_CROSS}); the forward takes them")
     if d_o.shape != q.shape or d_o.dtype != q.dtype or d_o.stride(3) != 1:
         raise ValueError(f"flash attention backward kernel needs d_o of "
                          f"shape {tuple(q.shape)} and dtype {q.dtype} with "
@@ -324,13 +349,14 @@ class _AttentionBackward(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, S, Hq, hd), k and v (B, S, Hk, hd) with Hq a multiple of Hk →
-    (B, S, Hq, hd) in q's dtype. ``window`` > 0 keeps the keys with
-    q - k < window. Differentiable when an input requires grad. Inputs
+    """q (B, Sq, Hq, hd), k and v (B, Skv, Hk, hd) with Hq a multiple of
+    Hk → (B, Sq, Hq, hd) in q's dtype. ``window`` > 0 keeps the keys with
+    q - k < window; Skv ≠ Sq (cross-attention) only with causal=False and
+    window 0. Differentiable when an input requires grad. Inputs
     wrapped by ``torch.func`` (vmap, grad) go through the Function, whose
     vmap rule folds the vmapped axis into the batch: one launch for the
     batch."""
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
     if grad or is_wrapped(q, k, v):

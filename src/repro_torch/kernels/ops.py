@@ -48,6 +48,13 @@ def launch_counts() -> Dict[str, int]:
             "flash_attention_backward": _fa.backward_launches}
 
 
+def flash_launch_shapes() -> Dict[tuple, int]:
+    """Forward flash launches by call: (B, Sq, Skv, Hq, Hk, hd, dtype
+    name, causal, window) → count; they sum to
+    ``launch_counts()["flash_attention"]``."""
+    return dict(_fa.shape_launches)
+
+
 def reset_launch_counts() -> None:
     _cs.launches = 0
     _wa.launches = 0
@@ -55,8 +62,9 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _wkv.backward_launches = 0
     _fa.backward_launches = 0
+    _fa.shape_launches.clear()
 
 
 __all__ = ["batched_cosine_similarity", "combine_partials", "cosine_partials",
-           "flash_attention", "launch_counts", "reset_launch_counts",
-           "weighted_aggregate", "wkv6_recurrence"]
+           "flash_attention", "flash_launch_shapes", "launch_counts",
+           "reset_launch_counts", "weighted_aggregate", "wkv6_recurrence"]

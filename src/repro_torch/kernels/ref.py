@@ -136,13 +136,13 @@ def wkv6_backward_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             du.reshape(B, H, K).sum(0), ds.reshape(B, H, K, K))
 
 
-def _attention_mask(S: int, causal: bool, window: int,
+def _attention_mask(Sq: int, Skv: int, causal: bool, window: int,
                     device) -> torch.Tensor:
-    """(S, S) keys each query keeps: causality (q >= k) and the window
-    (q - k < window)."""
-    pos = torch.arange(S, device=device)
-    qpos, kpos = pos[:, None], pos[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    """(Sq, Skv) keys each query keeps: causality (q >= k) and the window
+    (q - k < window), query and key positions both counted from 0."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
         mask = mask & (qpos >= kpos)
     if window > 0:
@@ -152,19 +152,20 @@ def _attention_mask(S: int, causal: bool, window: int,
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
             window: int) -> torch.Tensor:
-    """(B, H, S, S) float32 scaled scores, the reference's finite -1e30
+    """(B, H, Sq, Skv) float32 scaled scores, the reference's finite -1e30
     where masked."""
-    S, hd = q.shape[2], q.shape[3]
+    hd = q.shape[3]
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * (1.0 / math.sqrt(hd))
-    return s.masked_fill(~_attention_mask(S, causal, window, q.device),
-                         -1e30)
+    return s.masked_fill(~_attention_mask(q.shape[2], k.shape[2], causal,
+                                          window, q.device), -1e30)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """(B, H, S, hd) naive attention (float32 softmax), in q's dtype.
+    """q (B, H, Sq, hd), k and v (B, H, Skv, hd) → (B, H, Sq, hd): naive
+    attention (float32 softmax), in q's dtype.
 
     Keys are masked by causality (q >= k) and the window (q - k < window)
     with the finite -1e30 of the reference."""
@@ -176,9 +177,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: int = 0) -> torch.Tensor:
-    """:func:`flash_attention_ref` in the op's layout: q (B, S, Hq, hd),
-    k and v (B, S, Hk, hd) with each KV head repeated for its Hq / Hk query
-    heads → (B, S, Hq, hd)."""
+    """:func:`flash_attention_ref` in the op's layout: q (B, Sq, Hq, hd),
+    k and v (B, Skv, Hk, hd) with each KV head repeated for its Hq / Hk
+    query heads → (B, Sq, Hq, hd)."""
     G = q.shape[2] // k.shape[2]
     kt = torch.repeat_interleave(k.transpose(1, 2), G, dim=1)
     vt = torch.repeat_interleave(v.transpose(1, 2), G, dim=1)
@@ -187,8 +188,8 @@ def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def _kv_by_index(t: torch.Tensor, G: int) -> torch.Tensor:
-    """(B, S, Hk, hd) → (B, Hk·G, S, hd) float32: query head h reads kv
-    head h // G."""
+    """(B, Skv, Hk, hd) → (B, Hk·G, Skv, hd) float32: query head h reads
+    kv head h // G."""
     return torch.repeat_interleave(t.to(torch.float32).transpose(1, 2), G,
                                    dim=1)
 
@@ -198,7 +199,7 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
                             window: int = 0) -> torch.Tensor:
     """The per-row logsumexp L = m + log l of the scaled, masked scores
     (natural log), float32 (B, Hq, S): what the forward kernel writes for
-    its backward. q (B, S, Hq, hd), k (B, S, Hk, hd)."""
+    its backward. q (B, Sq, Hq, hd), k (B, Skv, Hk, hd)."""
     G = q.shape[2] // k.shape[2]
     return torch.logsumexp(_scores(q.transpose(1, 2), _kv_by_index(k, G),
                                    causal, window), dim=-1)
@@ -209,7 +210,7 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
                                  lse: torch.Tensor, d_o: torch.Tensor, *,
                                  causal: bool = True, window: int = 0):
     """The gradient of :func:`flash_attention_gqa_ref`: q, o, d_o
-    (B, S, Hq, hd), k, v (B, S, Hk, hd), lse (B, Hq, S) from the forward
+    (B, Sq, Hq, hd), k, v (B, Skv, Hk, hd), lse (B, Hq, Sq) from the forward
     → (dq, dk, dv) in q's dtype, computed in float32. With P recomputed
     from L (masked scores are the finite -1e30, so P is 0 there):
 
@@ -218,8 +219,8 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
 
     query head h reading kv head h // G, and dK, dV of a kv head summed
     over its G query heads in index order."""
-    B, S, Hq, hd = q.shape
-    Hk = k.shape[2]
+    B, _, Hq, hd = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
     scale = 1.0 / math.sqrt(hd)
     qf = q.to(torch.float32).transpose(1, 2)
@@ -230,11 +231,11 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
     D = torch.sum(dof * o.to(torch.float32).transpose(1, 2), dim=-1)
     ds = p * (dof @ vf.transpose(2, 3) - D[..., None])
     dq = (ds @ kf) * scale
-    dk_h = (ds.transpose(2, 3) @ qf) * scale             # (B, Hq, S, hd)
+    dk_h = (ds.transpose(2, 3) @ qf) * scale           # (B, Hq, Skv, hd)
     dv_h = p.transpose(2, 3) @ dof
 
     def per_kv_head(t):
-        t = t.reshape(B, Hk, G, S, hd)
+        t = t.reshape(B, Hk, G, Skv, hd)
         acc = t[:, :, 0]
         for g in range(1, G):
             acc = acc + t[:, :, g]

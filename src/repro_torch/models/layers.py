@@ -1,7 +1,9 @@
 """Shared building blocks of the LM families (port of
 ``repro.models.layers``): the compute dtype, the two initializers,
-RMSNorm, RoPE, attention (prefill through the flash kernel, decode over
-the whole cache) and the SwiGLU MLP. ``gelu_mlp`` is on no ported path.
+RMSNorm, RoPE, attention (prefill, forward and cross-attention through
+the flash kernel, decode over the whole cache), the SwiGLU MLP and the
+GELU MLP (``gelu_mlp``, which the reference's transformer imports and
+calls nowhere; ported for completeness).
 
 Weights are plain tensors in nested dicts, as in the reference.
 ``jax.random`` draws cannot be reproduced in torch: the initializers
@@ -83,8 +85,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """Prefill and forward attention: q (B, S, Hq, hd), k and v
-    (B, S, Hk, hd) with Hq a multiple of Hk → (B, S, Hq, hd).
+    """Prefill, forward and cross-attention: q (B, Sq, Hq, hd), k and v
+    (B, Skv, Hk, hd) with Hq a multiple of Hk → (B, Sq, Hq, hd); keys of
+    their own length (Skv ≠ Sq) only with causal=False and window 0.
 
     The reference computes this in jnp with an online softmax over
     (q_block, kv_block) tiles; here it is ``ops.flash_attention``, the
@@ -130,3 +133,19 @@ def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = x @ w_up.to(x.dtype)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
     return h @ w_down.to(x.dtype)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+             b_up: torch.Tensor | None = None,
+             b_down: torch.Tensor | None = None) -> torch.Tensor:
+    """down(gelu(x·up + b_up)) + b_down, the GELU (tanh form, as
+    ``jax.nn.gelu``'s default) in float32."""
+    h = x @ w_up.to(x.dtype)
+    if b_up is not None:
+        h = h + b_up.to(h.dtype)
+    h = torch.nn.functional.gelu(h.to(torch.float32),
+                                 approximate="tanh").to(x.dtype)
+    out = h @ w_down.to(x.dtype)
+    if b_down is not None:
+        out = out + b_down.to(out.dtype)
+    return out

@@ -1,14 +1,16 @@
 """Family-dispatched model API: init / forward / loss / prefill / decode.
 
-Port of ``repro.models.model_api`` for the families ported so far
-(RWKV-6, the Zamba2 hybrid, the dense and MoE transformers); the
-cross-attention families raise ``NotImplementedError`` and name the
-ROADMAP item that brings them.
+Port of ``repro.models.model_api``: RWKV-6, the Zamba2 hybrid and the
+attention families (dense, MoE, and the cross-attention families vlm and
+audio, whose batch carries a ``context`` of frontend embeddings, cast to
+bfloat16 here as in the reference). The paper's MLP family is not run
+through ``Model`` (``repro_torch.configs.NOT_PORTED``).
 
     from repro_torch.models.model_api import Model
     model = Model(cfg)                      # on the card; device="cpu" asks
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     logits, aux = model.forward(params, {"tokens": tokens})
+    batch = {"tokens": tokens}              # vlm, audio: and "context"
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 """
@@ -25,12 +27,13 @@ from repro_torch import resolve_device
 from repro_torch.configs import NOT_PORTED
 from repro_torch.models import ssm_models, transformer
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import COMPUTE_DTYPE
 
 # default weight of the auxiliary (load-balancing) loss term; eval paths
 # that recombine (logits, aux) outside Model.loss must use the same value
 DEFAULT_AUX_WEIGHT = 0.01
 # the families Model runs besides RWKV-6 (config.rwkv)
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("hybrid",) + transformer.FAMILIES
 
 
 def _token_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -53,10 +56,10 @@ class Model:
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
         if not (self.cfg.rwkv or self.cfg.family in PORTED_FAMILIES):
-            raise NotImplementedError(
-                f"{self.cfg.name} ({self.cfg.family}) is not ported to "
-                f"repro_torch yet: "
-                f"{NOT_PORTED.get(self.cfg.family, 'ROADMAP Queue 1 item 11')}")
+            why = NOT_PORTED.get(self.cfg.family,
+                                 "the reference has no such family")
+            raise NotImplementedError(f"{self.cfg.name} ({self.cfg.family}) "
+                                      f"does not run through Model: {why}")
 
     # -- params -------------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:
@@ -98,6 +101,19 @@ class Model:
             total += size
         return total
 
+    # -- context stub (vlm/audio frontend carve-out) -------------------------
+    def needs_context(self) -> bool:
+        return self.cfg.family in transformer.CONTEXT_FAMILIES
+
+    def context_shape(self, batch: int) -> tuple:
+        return (batch, self.cfg.n_context_tokens, self.cfg.d_model)
+
+    def stub_context(self, batch: int) -> torch.Tensor:
+        """The serving engine's stand-in for the frontend's embeddings:
+        the reference's ``0.1 * ones``, float32, of :meth:`context_shape`."""
+        return 0.1 * torch.ones(self.context_shape(batch),
+                                dtype=torch.float32, device=self.device)
+
     # -- forward / loss -------------------------------------------------------
     def forward(self, params: dict,
                 batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -107,7 +123,8 @@ class Model:
                    else ssm_models.hybrid_forward)
             logits = fwd(params, batch["tokens"], self.cfg)
             return logits, torch.zeros((), device=logits.device)
-        return transformer.forward(params, batch["tokens"], self.cfg)
+        return transformer.forward(params, batch["tokens"], self.cfg,
+                                   context=_context(batch))
 
     def loss(self, params: dict, batch: dict,
              aux_weight: float = DEFAULT_AUX_WEIGHT) -> torch.Tensor:
@@ -131,7 +148,8 @@ class Model:
         state by replaying the prompt through :meth:`decode_step`."""
         tokens = batch["tokens"]
         if not (self.cfg.rwkv or self.cfg.family == "hybrid"):
-            return transformer.prefill(params, tokens, self.cfg)
+            return transformer.prefill(params, tokens, self.cfg,
+                                       context=_context(batch))
         logits, _ = self.forward(params, batch)
         cache = self.init_cache(tokens.shape[0], tokens.shape[1])
         return logits[:, -1:], cache
@@ -145,6 +163,12 @@ class Model:
             return ssm_models.hybrid_decode_step(params, cache, tokens, pos,
                                                  self.cfg)
         return transformer.decode_step(params, cache, tokens, pos, self.cfg)
+
+
+def _context(batch: dict) -> Optional[torch.Tensor]:
+    """The batch's ``context`` in the compute dtype, or None."""
+    ctx = batch.get("context")
+    return None if ctx is None else ctx.to(COMPUTE_DTYPE)
 
 
 def _shape_leaves(spec: dict, path: str = ""):

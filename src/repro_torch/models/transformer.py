@@ -1,18 +1,26 @@
-"""Attention-based LM families (port of ``repro.models.transformer``), so
-far the dense family (Yi, StarCoder2, Qwen2.5, Mistral-Nemo) and the MoE
-family (DeepSeek-MoE-16B, Phi-3.5-MoE), whose FFN is ``models.moe``.
+"""Attention-based LM families (port of ``repro.models.transformer``):
+dense (Yi, StarCoder2, Qwen2.5, Mistral-Nemo), MoE (DeepSeek-MoE-16B,
+Phi-3.5-MoE; the FFN is ``models.moe``), vlm (Llama-3.2-Vision: a gated
+cross-attention block after every ``cross_attn_every - 1`` self-attention
+layers) and audio (MusicGen: cross-attention inside every layer). The
+vlm and audio families attend to a context (B, Nc, D) of precomputed
+frontend embeddings; the vision encoder and the EnCodec/text frontend
+are stubbed, as in the reference.
 
-The layer weights are stacked along a leading layer axis, as the
-reference stacks them for ``lax.scan`` (``params["layers"]["attn"]["wq"]``
-is (L, D, q_dim)); here a Python loop walks the layers. Every layer's
-prefill and forward attention goes through ``ops.flash_attention`` (the
-flash kernel on the card). Decode keeps per-layer KV caches stacked on a
-leading layer axis and attends over the whole cache, as the reference.
+The layer weights are stacked along leading layer axes, as the reference
+stacks them for ``lax.scan`` (``params["layers"]["attn"]["wq"]`` is
+(L, D, q_dim); for vlm ``params["layers"]`` is (n_groups, spg, ...) and
+``params["cross_layers"]`` (n_groups, ...)); here Python loops walk the
+layers. Every self- and cross-attention of a prefill or forward goes
+through ``ops.flash_attention`` (the flash kernel on the card; a
+cross-attention with keys of their own length, Nc). Decode keeps
+per-layer KV caches stacked on a leading layer axis and attends over the
+whole cache, and over the context K/V the prefill computed, as the
+reference.
 
-Not ported: the VLM and audio cross-attention (ROADMAP Queue 1 item
-11c), the reference's rematerialization and its mesh levers in
-``FwdOptions`` (Queue 1 item 15; the MoE FFN runs the reference's
-``gather`` combine).
+Not ported: the reference's rematerialization and its mesh levers in
+``FwdOptions`` (ROADMAP Queue 1 item 15; the MoE FFN runs the
+reference's ``gather`` combine).
 
 :func:`transformer_params_from_jax` carries the reference's weights
 over bit for bit.
@@ -20,7 +28,8 @@ over bit for bit.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple
+import itertools
+from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -37,24 +46,31 @@ from repro_torch.models.params_io import tree_from_numpy
 PARAM_DTYPE = torch.bfloat16
 
 
+FAMILIES = ("dense", "moe", "vlm", "audio")
+CONTEXT_FAMILIES = ("vlm", "audio")      # attend to a frontend context
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported to repro_torch yet: "
-            f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1 item 11')}")
+    if cfg.family not in FAMILIES:
+        why = NOT_PORTED.get(cfg.family, "the reference has no such family")
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not an "
+                                  f"attention family: {why}")
 
 
 # ---------------------------------------------------------------------------
 # Parameter construction
 # ---------------------------------------------------------------------------
 
-def _attn_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
+def _attn_init(cfg: ArchConfig, generator: torch.Generator,
+               kv_from_ctx: bool = False) -> dict:
+    """q, k, v and o projections; QKV biases where the config has them,
+    except on a cross-attention (k and v from the context)."""
     D = cfg.d_model
     p = {"wq": dense_init(generator, D, cfg.q_dim, PARAM_DTYPE),
          "wk": dense_init(generator, D, cfg.kv_dim, PARAM_DTYPE),
          "wv": dense_init(generator, D, cfg.kv_dim, PARAM_DTYPE),
          "wo": dense_init(generator, cfg.q_dim, D, PARAM_DTYPE)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not kv_from_ctx:
         dev = generator.device
         p["bq"] = torch.zeros((cfg.q_dim,), dtype=PARAM_DTYPE, device=dev)
         p["bk"] = torch.zeros((cfg.kv_dim,), dtype=PARAM_DTYPE, device=dev)
@@ -109,7 +125,27 @@ def _self_layer_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
         layer["moe"] = _moe_init(cfg, generator)
     else:
         layer["mlp"] = _mlp_init(cfg, generator)
+    if cfg.family == "audio":           # in-layer cross-attention (MusicGen)
+        layer["ln_x"] = ones.clone()
+        layer["xattn"] = _attn_init(cfg, generator, kv_from_ctx=True)
     return layer
+
+
+def _cross_layer_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
+    """A Llama-3.2-Vision gated cross-attention block: its tanh gates
+    start at 0, so a fresh block adds nothing."""
+    dev = generator.device
+    ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)
+    return {"ln1": ones, "ln2": ones.clone(),
+            "xattn": _attn_init(cfg, generator, kv_from_ctx=True),
+            "mlp": _mlp_init(cfg, generator),
+            "gate_attn": torch.zeros((1,), dtype=torch.float32, device=dev),
+            "gate_mlp": torch.zeros((1,), dtype=torch.float32, device=dev)}
+
+
+def vlm_group_shape(cfg: ArchConfig) -> tuple[int, int]:
+    """(n_groups, self_per_group) for interleaved cross-attention."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
 
 
 def _map(fn, tree: dict) -> dict:
@@ -117,7 +153,7 @@ def _map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def _fill(stacked: dict, i: int, layer: dict) -> None:
+def _fill(stacked: dict, i, layer: dict) -> None:
     for k, v in layer.items():
         if isinstance(v, dict):
             _fill(stacked[k], i, v)
@@ -125,62 +161,104 @@ def _fill(stacked: dict, i: int, layer: dict) -> None:
             stacked[k][i] = v
 
 
+def _stacked(lead: tuple, draw) -> dict:
+    """``draw()`` once for each index of the leading axes ``lead``, the
+    layers stacked along them (filled one layer at a time, so the peak is
+    the stack plus one layer)."""
+    stacked = None
+    for i in itertools.product(*map(range, lead)):
+        layer = draw()
+        if stacked is None:
+            stacked = _map(lambda t: t.new_empty(lead + tuple(t.shape)),
+                           layer)
+        _fill(stacked, i, layer)
+    return stacked
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random weights in the reference's layout, drawn on
-    ``generator.device``: bfloat16 matrices, float32 norms (and MoE
-    router), the layers stacked along a leading layer axis (filled one
-    layer at a time, so the peak is the model plus one layer)."""
+    ``generator.device``: bfloat16 matrices, float32 norms, gates (and MoE
+    router), the layers stacked along leading layer axes."""
     _check_family(cfg)
-    D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    D, V = cfg.d_model, cfg.vocab_size
     params = {
         "embed": embed_init(generator, V, D, PARAM_DTYPE),
         "final_norm": torch.ones((D,), dtype=torch.float32,
                                  device=generator.device),
         "lm_head": dense_init(generator, D, V, PARAM_DTYPE),
     }
-    stacked = None
-    for i in range(L):
-        layer = _self_layer_init(cfg, generator)
-        if stacked is None:
-            stacked = _map(lambda t: t.new_empty((L,) + tuple(t.shape)),
-                           layer)
-        _fill(stacked, i, layer)
-    params["layers"] = stacked
+    if cfg.family == "vlm":
+        n_groups, spg = vlm_group_shape(cfg)
+        params["layers"] = _stacked(
+            (n_groups, spg), lambda: _self_layer_init(cfg, generator))
+        params["cross_layers"] = _stacked(
+            (n_groups,), lambda: _cross_layer_init(cfg, generator))
+    else:
+        params["layers"] = _stacked(
+            (cfg.n_layers,), lambda: _self_layer_init(cfg, generator))
     return params
 
 
+def _attn_shapes(cfg: ArchConfig, kv_from_ctx: bool = False) -> dict:
+    D, bf16 = cfg.d_model, PARAM_DTYPE
+    attn = {"wq": ((D, cfg.q_dim), bf16), "wk": ((D, cfg.kv_dim), bf16),
+            "wv": ((D, cfg.kv_dim), bf16), "wo": ((cfg.q_dim, D), bf16)}
+    if cfg.qkv_bias and not kv_from_ctx:
+        attn.update(bq=((cfg.q_dim,), bf16), bk=((cfg.kv_dim,), bf16),
+                    bv=((cfg.kv_dim,), bf16))
+    return attn
+
+
+def _mlp_shapes(cfg: ArchConfig) -> dict:
+    D, F, bf16 = cfg.d_model, cfg.d_ff, PARAM_DTYPE
+    return {"w_gate": ((D, F), bf16), "w_up": ((D, F), bf16),
+            "w_down": ((F, D), bf16)}
+
+
+def _lead(lead: tuple, spec: dict) -> dict:
+    """``spec`` with the leading axes ``lead`` put before every shape."""
+    return _map(lambda sd: (lead + sd[0], sd[1]), spec)
+
+
 def param_shapes(cfg: ArchConfig) -> dict:
-    """{name: (shape, dtype)} of the reference's dense or MoE parameter
-    tree, ``layers`` holding the leaves stacked on a leading layer axis."""
+    """{name: (shape, dtype)} of the reference's parameter tree of an
+    attention family: ``layers`` holding the leaves stacked on a leading
+    layer axis, or for vlm on (n_groups, spg) axes beside
+    ``cross_layers`` on an (n_groups,) axis."""
     _check_family(cfg)
-    D, L, F = cfg.d_model, cfg.n_layers, cfg.d_ff
-    attn = {"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
-            "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D)}
-    if cfg.qkv_bias:
-        attn.update(bq=(cfg.q_dim,), bk=(cfg.kv_dim,), bv=(cfg.kv_dim,))
-    bf16 = PARAM_DTYPE
-    layers = {
-        "ln1": ((L, D), torch.float32), "ln2": ((L, D), torch.float32),
-        "attn": {k: ((L,) + s, bf16) for k, s in attn.items()},
-    }
+    D = cfg.d_model
+    norm = ((D,), torch.float32)
+    layer = {"ln1": norm, "ln2": norm, "attn": _attn_shapes(cfg)}
     if cfg.family == "moe":
-        layers["moe"] = _map(lambda sd: ((L,) + sd[0], sd[1]),
-                             _moe_shapes(cfg))
+        layer["moe"] = _moe_shapes(cfg)
     else:
-        mlp = {"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
-        layers["mlp"] = {k: ((L,) + s, bf16) for k, s in mlp.items()}
-    return {
-        "embed": ((cfg.vocab_size, D), bf16),
-        "final_norm": ((D,), torch.float32),
-        "lm_head": ((D, cfg.vocab_size), bf16),
-        "layers": layers,
+        layer["mlp"] = _mlp_shapes(cfg)
+    if cfg.family == "audio":
+        layer.update(ln_x=norm, xattn=_attn_shapes(cfg, kv_from_ctx=True))
+    spec = {
+        "embed": ((cfg.vocab_size, D), PARAM_DTYPE),
+        "final_norm": norm,
+        "lm_head": ((D, cfg.vocab_size), PARAM_DTYPE),
     }
+    if cfg.family == "vlm":
+        n_groups, spg = vlm_group_shape(cfg)
+        gate = ((1,), torch.float32)
+        cross = {"ln1": norm, "ln2": norm,
+                 "xattn": _attn_shapes(cfg, kv_from_ctx=True),
+                 "mlp": _mlp_shapes(cfg), "gate_attn": gate,
+                 "gate_mlp": gate}
+        spec["layers"] = _lead((n_groups, spg), layer)
+        spec["cross_layers"] = _lead((n_groups,), cross)
+    else:
+        spec["layers"] = _lead((cfg.n_layers,), layer)
+    return spec
 
 
 def transformer_params_from_jax(params: Mapping[str, Any], cfg: ArchConfig,
                                 device: torch.device | str | None = None
                                 ) -> dict:
-    """The reference's dense or MoE parameter tree, as numpy arrays (e.g.
+    """The reference's parameter tree of an attention family (the vlm
+    ``cross_layers`` and the audio ``xattn`` included), as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, repro_params)``), as the port's tensors on
     ``device`` (the card unless the caller asks for the CPU). Names,
     shapes and dtypes are checked against ``cfg``; values are copied bit
@@ -188,7 +266,9 @@ def transformer_params_from_jax(params: Mapping[str, Any], cfg: ArchConfig,
     return tree_from_numpy(params, param_shapes(cfg), resolve_device(device))
 
 
-def _layer(layers: dict, i: int) -> dict:
+def _layer(layers: dict, i) -> dict:
+    """The layer at index ``i`` (an int, or a (group, j) tuple) of a
+    stack."""
     return _map(lambda t: t[i], layers)
 
 
@@ -226,6 +306,28 @@ def _self_attention(layer: dict, x: torch.Tensor, cfg: ArchConfig,
     return out, (k, v)
 
 
+def _cross_attention(a: dict, x: torch.Tensor, ctx_kv: tuple,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Attend from x (B, S, D) to the precomputed context K/V, each
+    (B, Nc, Hk, hd): flash attention with keys of their own length,
+    unmasked, positions from 0 (no RoPE on either side)."""
+    B, S, _ = x.shape
+    k, v = ctx_kv
+    q = (x @ a["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    o = blockwise_attention(q, k, v, causal=False, window=0)
+    return o.reshape(B, S, cfg.q_dim) @ a["wo"].to(x.dtype)
+
+
+def _context_kv(xattn: dict, context: torch.Tensor,
+                cfg: ArchConfig) -> tuple:
+    """The context (B, Nc, D) → its K and V, each (B, Nc, Hk, hd)."""
+    B, Nc, _ = context.shape
+    k = context @ xattn["wk"].to(context.dtype)
+    v = context @ xattn["wv"].to(context.dtype)
+    return (k.reshape(B, Nc, cfg.n_kv_heads, cfg.hd),
+            v.reshape(B, Nc, cfg.n_kv_heads, cfg.hd))
+
+
 def _ffn(layer: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
     """(out, the MoE load-balancing loss ()): the MoE FFN over the
     (B·S, D) tokens, or the dense SwiGLU MLP and a zero loss."""
@@ -241,37 +343,98 @@ def _ffn(layer: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
 
 
 def _self_block(layer: dict, x: torch.Tensor, cfg: ArchConfig,
-                positions: torch.Tensor) -> tuple:
+                positions: torch.Tensor,
+                ctx_kv: Optional[tuple] = None) -> tuple:
     h = rms_norm(x, layer["ln1"], cfg.norm_eps)
     att, kv = _self_attention(layer, h, cfg, positions)
     x = x + att
+    if ctx_kv is not None:          # MusicGen's in-layer cross-attention
+        h = rms_norm(x, layer["ln_x"], cfg.norm_eps)
+        x = x + _cross_attention(layer["xattn"], h, ctx_kv, cfg)
     h = rms_norm(x, layer["ln2"], cfg.norm_eps)
     f, aux = _ffn(layer, h, cfg)
     return x + f, aux, kv
 
 
+def _gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(gate.to(torch.float32)).to(y.dtype) * y
+
+
+def _cross_block(block: dict, x: torch.Tensor, cfg: ArchConfig,
+                 attend) -> torch.Tensor:
+    """Llama-3.2-Vision's gated cross-attention block; ``attend(xattn,
+    h)`` is its attention to the context (flash over the whole sequence,
+    or one decode step over the cached context K/V)."""
+    h = rms_norm(x, block["ln1"], cfg.norm_eps)
+    x = x + _gated(block["gate_attn"], attend(block["xattn"], h))
+    h = rms_norm(x, block["ln2"], cfg.norm_eps)
+    m = block["mlp"]
+    return x + _gated(block["gate_mlp"],
+                      swiglu_mlp(h, m["w_gate"], m["w_up"], m["w_down"]))
+
+
+def _self_layer_index(cfg: ArchConfig) -> list:
+    """The index of each self-attention layer in ``params["layers"]``, in
+    the order they run: i, or (group, j) for vlm."""
+    if cfg.family == "vlm":
+        return list(itertools.product(*map(range, vlm_group_shape(cfg))))
+    return list(range(cfg.n_layers))
+
+
+def _require_context(cfg: ArchConfig, context) -> None:
+    if context is None:
+        raise ValueError(f"{cfg.name} ({cfg.family}) needs its context "
+                         f"embeddings (B, {cfg.n_context_tokens}, "
+                         f"{cfg.d_model})")
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+            context: Optional[torch.Tensor] = None,
             collect_cache: bool = False):
     """tokens (B, S) → (logits (B, S, V), the MoE aux loss summed over
-    the layers (), 0 for the dense family) and, when ``collect_cache``,
-    the stacked per-layer (k, v), each (L, B, S, Hk, hd), for prefill."""
+    the layers (), 0 for the other families) and, when ``collect_cache``,
+    a :class:`DecodeCache` for prefill: the stacked per-layer
+    self-attention (k, v), each (L, B, S, Hk, hd), and with a context each
+    cross-attention layer's context (k, v), each (Lc, B, Nc, Hk, hd), as
+    the forward computed them.
+
+    context: (B, Nc, D) precomputed frontend embeddings. vlm raises
+    without it (the reference asserts); audio without it runs its
+    self-attention only, as the reference does."""
     _check_family(cfg)
+    if cfg.family == "vlm":
+        _require_context(cfg, context)
     B, S = tokens.shape
     x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, aux_l, (k, v) = _self_block(_layer(params["layers"], i), x, cfg,
-                                       positions)
+    ks, vs, cks, cvs = [], [], [], []
+    spg = vlm_group_shape(cfg)[1] if cfg.family == "vlm" else 0
+    for i in _self_layer_index(cfg):
+        layer = _layer(params["layers"], i)
+        ctx_kv = None
+        if cfg.family == "audio" and context is not None:
+            ctx_kv = _context_kv(layer["xattn"], context, cfg)
+        x, aux_l, (k, v) = _self_block(layer, x, cfg, positions, ctx_kv)
         aux = aux + aux_l
+        if spg and i[1] == spg - 1:           # the group's cross block
+            block = _layer(params["cross_layers"], i[0])
+            ctx_kv = _context_kv(block["xattn"], context, cfg)
+            x = _cross_block(block, x, cfg, lambda xa, h: _cross_attention(
+                xa, h, ctx_kv, cfg))
         if collect_cache:
             ks.append(k)
             vs.append(v)
+            if ctx_kv is not None:
+                cks.append(ctx_kv[0])
+                cvs.append(ctx_kv[1])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"].to(x.dtype)
     if collect_cache:
-        return logits, aux, (torch.stack(ks), torch.stack(vs))
+        return logits, aux, DecodeCache(
+            torch.stack(ks), torch.stack(vs),
+            torch.stack(cks) if cks else None,
+            torch.stack(cvs) if cvs else None)
     return logits, aux
 
 
@@ -282,15 +445,37 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 class DecodeCache(NamedTuple):
     k: torch.Tensor          # (L, B, S, Hk, hd) stacked self-attention K
     v: torch.Tensor
+    ctx_k: Optional[torch.Tensor] = None   # (Lc, B, Nc, Hk, hd) context K
+    ctx_v: Optional[torch.Tensor] = None
+
+
+def _cache_layers(cfg: ArchConfig) -> tuple[int, int]:
+    """(self-attention layers L, cross-attention layers Lc)."""
+    if cfg.family == "vlm":
+        n_groups, spg = vlm_group_shape(cfg)
+        return n_groups * spg, n_groups
+    if cfg.family == "audio":
+        return cfg.n_layers, cfg.n_layers
+    return cfg.n_layers, 0
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                device: torch.device | str,
                dtype: torch.dtype = COMPUTE_DTYPE) -> DecodeCache:
+    """Zero self-attention K/V of ``seq_len`` slots and, for vlm and
+    audio, zero context K/V of Nc slots (the prefill fills them)."""
     _check_family(cfg)
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
-    return DecodeCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))
+    L, Lc = _cache_layers(cfg)
+
+    def zeros(n, s):
+        return torch.zeros((n, batch, s, cfg.n_kv_heads, cfg.hd),
+                           dtype=dtype, device=device)
+
+    if Lc:
+        return DecodeCache(zeros(L, seq_len), zeros(L, seq_len),
+                           zeros(Lc, cfg.n_context_tokens),
+                           zeros(Lc, cfg.n_context_tokens))
+    return DecodeCache(zeros(L, seq_len), zeros(L, seq_len))
 
 
 def _decode_self(layer: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -307,29 +492,58 @@ def _decode_self(layer: dict, x: torch.Tensor, kc: torch.Tensor,
     return o.reshape(B, 1, cfg.q_dim) @ a["wo"].to(x.dtype)
 
 
+def _decode_cross(xattn: dict, x: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x (B, 1, D) attending to every slot of the context K/V ck, cv
+    (B, Nc, Hk, hd) → (B, 1, D)."""
+    B = x.shape[0]
+    q = (x @ xattn["wq"].to(x.dtype)).reshape(B, 1, cfg.n_heads, cfg.hd)
+    o = decode_attention(q, ck, cv, ck.shape[1] - 1, window=0)
+    return o.reshape(B, 1, cfg.q_dim) @ xattn["wo"].to(x.dtype)
+
+
 def decode_step(params: dict, cache: DecodeCache, tokens: torch.Tensor,
                 pos: int, cfg: ArchConfig) -> tuple[torch.Tensor, DecodeCache]:
     """One serve step: tokens (B, 1) at position ``pos`` → (logits
     (B, 1, V), cache). The reference returns an updated copy of the cache;
     here the new k and v are written into ``cache`` in place, which saves
-    a copy of the whole cache a step, and the same cache is returned."""
+    a copy of the whole cache a step, and the same cache is returned. The
+    context K/V are read, never written."""
     _check_family(cfg)
     pos = int(pos)
     x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
-    for i in range(cfg.n_layers):
+    spg = vlm_group_shape(cfg)[1] if cfg.family == "vlm" else 0
+    for c, i in enumerate(_self_layer_index(cfg)):
         layer = _layer(params["layers"], i)
         h = rms_norm(x, layer["ln1"], cfg.norm_eps)
-        x = x + _decode_self(layer, h, cache.k[i], cache.v[i], pos, cfg)
+        x = x + _decode_self(layer, h, cache.k[c], cache.v[c], pos, cfg)
+        if cfg.family == "audio":
+            h = rms_norm(x, layer["ln_x"], cfg.norm_eps)
+            x = x + _decode_cross(layer["xattn"], h, cache.ctx_k[c],
+                                  cache.ctx_v[c], cfg)
         h = rms_norm(x, layer["ln2"], cfg.norm_eps)
         x = x + _ffn(layer, h, cfg)[0]
+        if spg and i[1] == spg - 1:           # the group's cross block
+            g = i[0]
+            x = _cross_block(
+                _layer(params["cross_layers"], g), x, cfg,
+                lambda xa, h: _decode_cross(xa, h, cache.ctx_k[g],
+                                            cache.ctx_v[g], cfg))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"].to(x.dtype), cache
 
 
-def prefill(params: dict, tokens: torch.Tensor,
-            cfg: ArchConfig) -> tuple[torch.Tensor, DecodeCache]:
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+            context: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, DecodeCache]:
     """Run the full sequence once, collecting the per-layer K/V into a
-    prompt-sized cache, plus the last position's logits (B, 1, V)."""
-    logits, _, (ks, vs) = forward(params, tokens, cfg, collect_cache=True)
-    return logits[:, -1:], DecodeCache(ks.to(COMPUTE_DTYPE),
-                                       vs.to(COMPUTE_DTYPE))
+    prompt-sized cache, plus the last position's logits (B, 1, V). vlm
+    and audio need the context (B, Nc, D): the cache then also holds each
+    cross-attention layer's context K/V, (Lc, B, Nc, Hk, hd)."""
+    if cfg.family in CONTEXT_FAMILIES:
+        _require_context(cfg, context)
+    logits, _, kv = forward(params, tokens, cfg, context=context,
+                            collect_cache=True)
+    cache = DecodeCache(*(None if t is None else t.to(COMPUTE_DTYPE)
+                          for t in kv))
+    return logits[:, -1:], cache

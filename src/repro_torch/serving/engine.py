@@ -1,9 +1,10 @@
 """Batched serving engine over the PoFEL global model.
 
-Port of ``repro.serving.engine`` for the families ported so far (RWKV-6
-and the dense transformers): a static-batch generation loop over
+Port of ``repro.serving.engine``: a static-batch generation loop over
 ``Model.prefill`` / ``decode_step`` with per-request lengths, EOS
-handling and pluggable sampling.
+handling and pluggable sampling. A model that needs a context (vlm,
+audio) gets the reference's stub, ``0.1 * ones`` float32
+(``Model.stub_context``), in its prefill batch.
 
 Requests are left-padded into one batch. A transformer runs the padded
 prompts through one ``prefill`` at positions 0..max_p-1 with no padding
@@ -101,8 +102,10 @@ class ServingEngine:
                     logits, cache = self.model.decode_step(
                         self.params, cache, toks[:, i:i + 1], i)
             else:
-                logits, cache = self.model.prefill(self.params,
-                                                   {"tokens": toks})
+                batch = {"tokens": toks}
+                if self.model.needs_context():
+                    batch["context"] = self.model.stub_context(B)
+                logits, cache = self.model.prefill(self.params, batch)
                 cache = grow_cache(cache, budget)
             tok = self._sample(logits)
             for i, t in enumerate(tok[:, 0].tolist()):
@@ -134,14 +137,17 @@ class ServingEngine:
 def grow_cache(cache: Any, budget: int) -> Any:
     """A transformer's prompt-sized KV cache with ``budget`` zero slots
     added along the sequence axis: axis 2 of ``k`` and ``v``, each
-    (L, B, S, Hk, hd).
+    (L, B, S, Hk, hd). The context K/V (vlm, audio) have Nc slots and are
+    left as they are.
 
     The reference's ``_grow_cache`` pads the first axis whose size equals
-    the prompt length; when the layer count or the batch size equals it,
-    that is the wrong axis and the reference raises. The axis is named
-    here, so those batches serve."""
-    return type(cache)(*(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, budget))
-                         for t in cache))
+    the prompt length; when the layer count, the batch size or Nc equals
+    it, that is the wrong axis (and the reference raises, or pads the
+    context). The axis is named here, so those batches serve."""
+    def grow(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, budget))
+
+    return cache._replace(k=grow(cache.k), v=grow(cache.v))
 
 
 def serve_batch(model: Model, params: Any, prompts: List[List[int]],

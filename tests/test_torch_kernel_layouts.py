@@ -276,3 +276,51 @@ def test_flash_source_cases_match_the_wrapper():
     assert _cases(src, "dispatch_bwd_f32") == backward
     assert _cases(src, "dispatch_bwd_tc") == backward
     assert "Queue 2 item I" in kf.NO_BACKWARD_HEAD_DIMS[112]
+
+
+def _c_params(source: str, symbol: str) -> list:
+    """(type, name) of each parameter of the C entry ``symbol``."""
+    body = source.split(f'extern "C" int {symbol}(', 1)[1].split(")", 1)[0]
+    out = []
+    for p in (p.strip() for p in body.split(",")):
+        kind = ("pointer" if "*" in p else "long long"
+                if p.startswith("long long") else p.split()[0])
+        out.append((kind, p.split()[-1].lstrip("*")))
+    return out
+
+
+def test_flash_c_entries_match_their_ctypes_signatures():
+    """The ctypes argument types of both flash entry points follow the C
+    entries' parameter lists in csrc/flash_attention.cu; the forward takes
+    the keys' own length Skv after S, the backward one S for all."""
+    import ctypes
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    src = (Path(kf.__file__).parent / "csrc" / "flash_attention.cu"
+           ).read_text()
+    ctype = {"pointer": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int}
+    names = {}
+    for entry in ("flash_attention", "flash_attention_backward"):
+        _, symbol, argtypes = _build.SIGNATURES[entry]
+        params = _c_params(src, symbol)
+        assert [ctype[kind] for kind, _ in params] == argtypes
+        names[entry] = [name for _, name in params]
+    assert names["flash_attention"][-10:] == [
+        "B", "S", "Skv", "Hq", "Hk", "hd", "causal", "window", "dtype",
+        "stream"]
+    assert "Skv" not in names["flash_attention_backward"]
+
+
+def test_flash_backward_with_keys_of_their_own_length_on_the_cpu():
+    """The CPU runs the plain backward with Skv != Sq (dk, dv of the keys'
+    length); on the card the backward kernels take one S and the wrapper
+    names the ROADMAP item instead (tests/test_torch_kernels_cuda.py)."""
+    assert "Queue 2 item K" in kf.NO_BACKWARD_CROSS
+    q, k = torch.randn(1, 8, 2, 16), torch.randn(1, 12, 2, 16)
+    o = ops.flash_attention(q, k, k, causal=False)
+    lse = kf.flash_attention_lse_ref(q, k, causal=False)
+    dq, dk, dv = kf.flash_attention_backward(q, k, k, o, lse,
+                                             torch.ones_like(o),
+                                             causal=False)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape

@@ -1271,3 +1271,122 @@ def test_run_bhfl_hybrid_and_moe_on_card_go_through_kernels(cuda_device,
         before["flash_attention_backward"] == layers * steps
     assert after["flash_attention"] - before["flash_attention"] == \
         layers * (steps + 1)
+
+
+# keys of their own length (cross-attention), non-causal: (B, Sq, Skv, Hq,
+# Hk, hd, dtype) at chip_smoke.py's FLASH_CROSS_CASES (Llama-3.2-Vision's
+# and MusicGen's prefill and forward), a ragged Skv in a G = 4 group, and
+# Sq > Skv
+CROSS_CASES = [
+    (8, 57, 1024, 64, 8, 128, torch.bfloat16),
+    (8, 512, 1024, 64, 8, 128, torch.bfloat16),
+    (8, 57, 256, 24, 24, 64, torch.bfloat16),
+    (8, 512, 256, 24, 24, 64, torch.bfloat16),
+    (8, 512, 256, 24, 24, 64, torch.float32),
+    (2, 57, 100, 8, 2, 64, torch.bfloat16),
+    (2, 57, 100, 8, 2, 64, torch.float32),
+    (2, 512, 16, 8, 8, 32, torch.bfloat16),
+    (3, 5, 70, 4, 1, 112, torch.bfloat16),
+]
+
+
+def _cross_inputs(gen, dev, B, Sq, Skv, Hq, Hk, hd, dtype):
+    return (_randn(gen, dev, B, Sq, Hq, hd).to(dtype),
+            _randn(gen, dev, B, Skv, Hk, hd).to(dtype),
+            _randn(gen, dev, B, Skv, Hk, hd).to(dtype))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hk,hd,dtype", CROSS_CASES)
+def test_flash_keys_of_their_own_length_match_plain(cuda_device, B, Sq, Skv,
+                                                    Hq, Hk, hd, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq * Skv + hd)
+    q, k, v = _cross_inputs(gen, cuda_device, B, Sq, Skv, Hq, Hk, hd, dtype)
+    before = ops.launch_counts()["flash_attention"]
+    o = ops.flash_attention(q, k, v, causal=False)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    ref = tref.flash_attention_gqa_ref(q, k, v, causal=False)
+    torch.testing.assert_close(o, ref, **(BF16 if dtype == torch.bfloat16
+                                          else FP32))
+    assert torch.equal(o, ops.flash_attention(q, k, v, causal=False))
+
+
+def test_flash_keys_of_their_own_length_fold_under_vmap(cuda_device):
+    """A vmapped cross-attention folds the V batch members into the batch:
+    one launch, bit-identical to V separate ones."""
+    from torch.func import vmap
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    V, B, Sq, Skv, Hq, Hk, hd = 4, 2, 33, 80, 4, 2, 64
+    q = _randn(gen, cuda_device, V, B, Sq, Hq, hd).to(torch.bfloat16)
+    k, v = (_randn(gen, cuda_device, V, B, Skv, Hk, hd).to(torch.bfloat16)
+            for _ in range(2))
+    before = ops.launch_counts()
+    o, _ = vmap(kf._Attention.apply, in_dims=(0, 0, 0, None, None, None))(
+        q, k, v, False, 0, False)
+    assert _counts_delta(before)["flash_attention"] == 1
+    for i in range(V):
+        assert torch.equal(o[i], ops.flash_attention(q[i], k[i], v[i],
+                                                     causal=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_refuses_keys_of_their_own_length(cuda_device, dtype):
+    """The backward kernels take one S: with Skv != Sq the wrapper raises
+    and names ROADMAP Queue 2 item K, and does not fall back to the plain
+    version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = _cross_inputs(gen, cuda_device, 1, 64, 256, 2, 2, 64, dtype)
+    q.requires_grad_(True)
+    o = ops.flash_attention(q, k, v, causal=False)
+    before = ops.launch_counts()["flash_attention_backward"]
+    with pytest.raises(NotImplementedError, match="Queue 2 item K"):
+        o.sum().backward()
+    assert ops.launch_counts()["flash_attention_backward"] == before
+    with pytest.raises(ValueError, match="Skv 256 != Sq 64"):
+        ops.flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "musicgen-medium"])
+def test_cross_attention_forward_on_card_matches_cpu(cuda_device, name):
+    """The reduced cross-attention models with one set of weights (the vlm
+    gates nonzero) and one context on the card and the CPU: one flash
+    launch a self- and a cross-attention, logits within the bfloat16
+    rule."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import Model
+    cfg = get_config(name).reduced()
+    card = Model(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = card.init(gen)
+    for g in ("gate_attn", "gate_mlp"):
+        if g in params.get("cross_layers", {}):
+            params["cross_layers"][g] = torch.randn(
+                params["cross_layers"][g].shape, generator=gen,
+                device=cuda_device)
+    toks = torch.from_numpy(np.stack([np.arange(24) * 5 % 512,
+                                      np.arange(24) * 11 % 512]))
+    ctx = torch.randn(card.context_shape(2), generator=gen,
+                      device=cuda_device)
+    lh, _ = Model(cfg, device="cpu").forward(
+        _tree_to(params, "cpu"), {"tokens": toks, "context": ctx.cpu()})
+    before = ops.launch_counts()["flash_attention"]
+    shapes = ops.flash_launch_shapes()
+    lc, _ = card.forward(params, {"tokens": toks.to(cuda_device),
+                                  "context": ctx})
+    # vlm: one group of a self-attention layer and a cross block; audio:
+    # two layers, each with its cross-attention
+    want = 2 if cfg.family == "vlm" else 4
+    assert ops.launch_counts()["flash_attention"] - before == want
+    # half of them causal over the tokens, half to the Nc context keys
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd, "bfloat16")
+    self_key = (2, 24, 24, *heads, True, 0)
+    cross_key = (2, 24, cfg.n_context_tokens, *heads, False, 0)
+    after = ops.flash_launch_shapes()
+    assert {k: n - shapes.get(k, 0) for k, n in after.items()
+            if n != shapes.get(k, 0)} == {self_key: want // 2,
+                                          cross_key: want // 2}
+    diff = (lc.float().cpu() - lh.float()).abs()
+    assert torch.isfinite(lc).all()
+    assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02

@@ -261,6 +261,26 @@ def test_two_hybrid_and_moe_rounds_match_reference(name, compute):
                 else transformer_params_from_jax, compute)
 
 
+def test_audio_rounds_match_reference_without_a_context(compute):
+    """The reference's ``LMAdapter`` passes no context: an audio round
+    (the reduced MusicGen) runs the self-attention only and leaves the
+    cross-attention weights to their zero gradient and weight decay, as
+    ``jax.grad`` does; a vlm round refuses in both packages."""
+    ja, ta = _arch_adapters("musicgen-medium")
+    _two_rounds(ja, ta, transformer_params_from_jax, compute)
+    ttr, _ = make_token_dataset(16, 16, 64, seed=0)
+    vlm = tad.LMAdapter(get_config("llama-3.2-vision-90b").reduced(
+        d_model=64, vocab=64), device="cpu")
+    params = vlm.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="needs its context"):
+        vlm.local_train(params, Client(0, ttr))
+    jvlm = jad.LMAdapter(j_get_config("llama-3.2-vision-90b").reduced(
+        d_model=64, vocab=64))
+    with pytest.raises(AssertionError):
+        jvlm.local_train(jvlm.init(jax.random.key(0)),
+                         JClient(0, j_tokens(16, 16, 64, seed=0)[0]))
+
+
 def test_hybrid_batched_engine_matches_the_loop(monkeypatch):
     """The batched engine (``torch.func.vmap(vmap(grad))`` through the
     Mamba2 time loop and the shared block's attention) against the port's

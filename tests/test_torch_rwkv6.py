@@ -18,6 +18,7 @@ Tolerances:
   those inputs over time: within 2 % of its largest entry.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -265,21 +266,25 @@ def test_init_has_reference_layout():
 
 
 def test_unported_families_name_their_roadmap_item():
-    """The cross-attention families are the ones left (item 11c); the
-    hybrid and MoE families are ported."""
-    for arch in ("llama-3.2-vision-90b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 11c"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 11c"):
-            Model(j_get_config(arch), device="cpu")
+    """Every reference id is registered. The cross-attention families
+    (item 11c) build a ``Model`` whose parameter count, from
+    ``param_shapes`` with nothing allocated, is the reference's; the
+    hybrid and MoE families are ported; ``mnist-mlp``'s config is the
+    reference's, and ``Model`` refuses its family, naming ``run_bhfl``."""
+    want = {"llama-3.2-vision-90b": 87_666_794_536,
+            "musicgen-medium": 2_271_438_336}
+    for arch, n in want.items():
+        m = Model(get_config(arch), device="cpu")
+        assert m.cfg == get_config(arch) and m.needs_context()
+        assert m.n_params() == JModel(j_get_config(arch)).n_params() == n
     for arch in ("zamba2-7b", "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"):
         assert Model(get_config(arch), device="cpu").cfg.name == arch
     with pytest.raises(KeyError):
         get_config("gpt-5")
+    assert dataclasses.asdict(get_config("mnist-mlp")) == \
+        dataclasses.asdict(j_get_config("mnist-mlp"))
     with pytest.raises(NotImplementedError, match="run_bhfl"):
-        get_config("mnist-mlp")
+        Model(get_config("mnist-mlp"), device="cpu")
 
 
 def test_entry_points_default_to_the_card():
