@@ -135,9 +135,10 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     one more consortium round of each profiled (busy share).
 
 25. flash at hd 112 (Zamba2-7B's shared attention, 32 query and 32 kv
-    heads): phase 10 at (8, 512) and (8, 64), bf16 and fp32; the
-    backward wrapper refuses hd 112 on the card (ROADMAP Queue 2 item I);
-    then phase 10 at the MoE models' bf16 shapes: DeepSeek-MoE-16B's
+    heads): phase 10 at (8, 512) and (8, 64), bf16 and fp32, and phase
+    14's backward checks at (8, 512) bf16 and fp32 and (8, 64) bf16 (the
+    hd-128 tile on maps of hd extent 112, as the forward); then phase 10
+    at the MoE models' bf16 shapes: DeepSeek-MoE-16B's
     prefill (8, 57) and forward (8, 512), 16 query and 16 kv heads of
     128, and Phi-3.5-MoE's forward (8, 512), 32 query and 8 kv heads;
 26. hybrid serving: ``Model(get_config("zamba2-7b"))`` at full width and
@@ -171,8 +172,11 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     MusicGen-medium's (8, 57) and (8, 512) to 256 keys (24 over 24 heads
     of 64) in bf16 and once in fp32, a ragged Skv of 100 and Sq > Skv
     (512 queries to 16 keys): phase 10's checks and times, SDPA with
-    ``enable_gqa`` beside; the backward wrapper refuses Skv != Sq on the
-    card (ROADMAP Queue 2 item K); then the same checks at the two
+    ``enable_gqa`` beside; phase 14's backward checks with keys of their
+    own length: Llama-3.2-Vision's (8, 512) to 1024 keys, MusicGen's to
+    256 in bf16 and fp32, the trainer's folded (8, 64) to 256, the ragged
+    Skv and Sq > Skv (each backward row's launches are the calls of its
+    shape in phase 38); then the same checks at the two
     models' causal self-attention, (8, 57) and (8, 512) at 64 over 8
     heads of 128 and 24 over 24 of 64. Each row's launches are its own
     call's in phases 32-33 (``ops.flash_launch_shapes``): the check-only
@@ -195,6 +199,33 @@ CUDA build of PyTorch. It never imports JAX or the reference package
 35. an LM round of the reduced MusicGen on the loop engine, as phase 30:
     its rounds pass no context (the reference's ``LMAdapter``), so only
     the self-attention runs, one flash launch a layer.
+
+36. the PoFEL trainer: ``launch.train.train_reduced`` for yi-6b,
+    rwkv6-1.6b and llama-3.2-vision-90b at the reference launcher's
+    defaults (4 clusters, batch 8, seq 64, 3 rounds, sgd1; the vlm with
+    the ``0.1 * ones`` context): chains verified at height 3, finite
+    losses, and a round's launches exactly one folded flash (or wkv6)
+    forward and one backward call an attention layer (vlm: self and
+    cross) and one launch of each ME kernel a leaf; then the launcher's
+    CLI, ``python -m repro_torch.launch.train --arch musicgen-medium
+    --steps 2``, on the card by default;
+37. one reduced ``pofel_round`` of MusicGen-medium and Llama-3.2-Vision
+    (gates nonzero) on the card and on the CPU from one state: losses
+    within 5e-2, similarities within 1e-4, the same leader wherever the
+    CPU's top-2 margin is clear;
+38. full-width trainer rounds, batch 8, seq 64,
+    sgd1, the context: MusicGen-medium at full depth (2.27 B parameters:
+    96 flash forward launches and 96 backward calls a round, Skv 256 !=
+    Sq 64 in the cross half) and Zamba2-7B at 12 of its 81 layers and
+    C = 2 (two groups: 2 launches of each at hd 112; at C = 4 its
+    backward ran out of the card's memory): three rounds each (the second
+    with ``local_step`` and ``consensus`` timed apart, the third
+    profiled for the busy share), finite losses, the launches, the peak
+    memory;
+39. checkpoints: ``save_checkpoint`` / ``load_checkpoint`` of a MusicGen
+    trainer state (full width, 4 of its 48 layers) on the card; the next
+    round from the restored state is bit-identical to the next round
+    from the live one.
 
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
@@ -289,6 +320,11 @@ FLASH_112_CASES = ((8, 512, 32, 32, 112, "bfloat16", True, 0),
 FLASH_MOE_CASES = ((8, 57, 16, 16, 128, "bfloat16", True, 0),
                    (8, 512, 16, 16, 128, "bfloat16", True, 0),
                    (8, 512, 32, 8, 128, "bfloat16", True, 0))
+# the backward pair at the same heads: the hybrid trainer's (8, 512) and
+# (8, 64) in bf16, (8, 512) in fp32
+FLASH_112_BWD_CASES = ((8, 512, 32, 32, 112, "bfloat16", True, 0),
+                       (8, 512, 32, 32, 112, "float32", True, 0),
+                       (8, 64, 32, 32, 112, "bfloat16", True, 0))
 # Phi-3.5-MoE's forward at full width and 16 of its 32 layers
 PHI_LAYERS = 16
 # cross-attention, (B, Sq, Skv, Hq, Hk, hd, dtype), in the order of their
@@ -304,6 +340,17 @@ FLASH_CROSS_CASES = ((8, 57, 1024, 64, 8, 128, "bfloat16"),
                      (2, 512, 16, 8, 8, 32, "bfloat16"))
 # the first four are on the served models' path, the last three checks only
 CROSS_ON_PATH = 4
+# the backward pair with keys of their own length, (B, Sq, Skv, Hq, Hk,
+# hd, dtype): Llama-3.2-Vision's (8, 512) to 1024 keys, MusicGen's to 256
+# in bf16 and fp32, the PoFEL trainer's folded MusicGen call (four
+# clusters of 2 x 64 queries to 256 context frames), a ragged Skv and Sq >
+# Skv
+FLASH_CROSS_BWD_CASES = ((8, 512, 1024, 64, 8, 128, "bfloat16"),
+                         (8, 512, 256, 24, 24, 64, "bfloat16"),
+                         (8, 512, 256, 24, 24, 64, "float32"),
+                         (8, 64, 256, 24, 24, 64, "bfloat16"),
+                         (2, 57, 100, 8, 2, 64, "bfloat16"),
+                         (2, 512, 16, 8, 8, 32, "bfloat16"))
 # the same two models' self-attention (causal): Llama-3.2-Vision's prefill
 # and (8, 512) forward (64 query over 8 kv heads of 128), then MusicGen's
 # (24 over 24 heads of 64)
@@ -318,6 +365,23 @@ FAMILY_ROUNDS = (("zamba2-7b", "reference"), ("zamba2-7b", "batched"),
                  ("deepseek-moe-16b", "reference"))
 # the audio family's LM round (phase 35): its rounds pass no context
 CROSS_ROUNDS = (("musicgen-medium", "reference"),)
+# the PoFEL trainer (phases 36-39): the reference launcher's defaults
+TRAIN_C, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 64, 3
+TRAIN_REDUCED = ("yi-6b", "rwkv6-1.6b", "llama-3.2-vision-90b")
+TRAIN_AGREE = ("musicgen-medium", "llama-3.2-vision-90b")
+# bfloat16 models, card against CPU (tests/test_torch_pofel_trainer.py)
+TRAIN_LOSS_TOL, TRAIN_SIM_ATOL = 5e-2, 1e-4
+# the agreement round starts from replicas made to differ, as the CPU
+# test does: seeded noise of relative size TRAIN_DIVERGE[c] on cluster c
+TRAIN_DIVERGE = (0.15, 0.03, 0.09, 0.21)
+# full width: (arch, layers, clusters) — MusicGen-medium at full depth,
+# Zamba2-7B at 12 of its 81 layers (two groups: the shared block runs
+# twice) and 2 clusters: at 4 its backward needed more than the card's
+# 80 GB (the plain Mamba2 loop's saved states and the full-size gradient
+# of each use of a stacked float32 leaf)
+TRAIN_FULL = (("musicgen-medium", None, 4), ("zamba2-7b", 12, 2))
+# the checkpointed MusicGen state: full width, 4 of its 48 layers
+CKPT_LAYERS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -423,14 +487,22 @@ def entry(name, source, replaces, W, max_err, bit, k_us, p_us, b, lib_us,
             "library_us": lib_us, "call_us": call_us, **extra}
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn) -> tuple[list, int]:
     """Names of the device kernels one ``fn()`` call launches
-    (``torch.profiler``). A session that records no device activity at
-    all is taken again once: the profiler, not ``fn``, came back empty
-    (``fn`` is a kernel call whose outputs are checked apart)."""
+    (``torch.profiler``), and how many sessions were taken again. A
+    session that records no device activity at all is taken again after
+    a throwaway session (:func:`warm_profiler`), up to four sessions:
+    the profiler, not ``fn``, came back empty (``fn`` is a kernel call
+    whose outputs are checked apart; an H100 run saw two empty sessions
+    in a row). The retries go into the kernels line, so a flaky profiler
+    shows there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(2):
+    for attempt in range(4):
+        if attempt:
+            print("device_kernels: the profiler recorded no device activity; "
+                  "profiling the call again", flush=True)
+            warm_profiler(torch.device("cuda", torch.cuda.current_device()))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -439,9 +511,7 @@ def device_kernels(fn) -> list:
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
-        print("device_kernels: the profiler recorded no device activity; "
-              "profiling the call again", flush=True)
-    return names
+    return names, attempt
 
 
 def warm_profiler(dev) -> None:
@@ -465,7 +535,7 @@ def check_partials(W, gw) -> dict:
     out = ops.cosine_partials(W, gw)
     again = ops.cosine_partials(W, gw)
     torch.cuda.synchronize()
-    on_card = device_kernels(lambda: ops.cosine_partials(W, gw))
+    on_card, retries = device_kernels(lambda: ops.cosine_partials(W, gw))
     check(len(on_card) == 1 and "cosine_partials" in on_card[0],
           f"cosine_partials {tuple(W.shape)}: one call put {on_card} on the "
           f"card, want one cosine_partials kernel")
@@ -492,6 +562,7 @@ def check_partials(W, gw) -> dict:
         call_time_us(lambda: ops.cosine_partials(W, gw)),
         kernel_combine_us=graph_time_us(
             lambda: ops.batched_cosine_similarity(W, gw)),
+        profiler_retries=retries,
         library_call="torch.nn.functional.cosine_similarity, against "
                      "kernel_combine_us (kernel + combine)")
 
@@ -645,14 +716,16 @@ def phase_main_path(dev):
     return counts, run.runtime, round_ms, ref
 
 
-def device_time(fn, what: str):
+def device_time(fn, what: str, host: bool = True):
     """Run ``fn`` under ``torch.profiler``: (device ops, busy µs — the union
-    of the device's kernel and copy intervals —, {name: µs})."""
+    of the device's kernel and copy intervals —, {name: µs}). ``host``
+    False records the device alone (a run of many host ops, whose host
+    tracing would slow it by an order of magnitude)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -668,10 +741,10 @@ def device_time(fn, what: str):
     return len(spans), busy_us, by_name
 
 
-def device_busy(fn, what: str):
+def device_busy(fn, what: str, host: bool = True):
     """:func:`device_time` with the top 8 [name, µs] in place of the
     dict."""
-    n_ops, busy_us, by_name = device_time(fn, what)
+    n_ops, busy_us, by_name = device_time(fn, what, host)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return n_ops, busy_us, [[n[:80], round(t, 1)] for n, t in top]
 
@@ -1395,27 +1468,35 @@ def unmasked_pairs(S: int, causal: bool, window: int,
 
 def flash_bwd_bound_us(B: int, S: int, Hq: int, Hk: int, hd: int,
                        size: int, causal: bool, window: int,
-                       flop_per_s: float) -> tuple[float, str]:
-    """Read q, k, v, o, dO and L once, write dq, dk, dv once; 10·hd
-    operations for each unmasked (q, k) pair: five products over hd
-    (Q·Kᵀ again, dO·Vᵀ, dV, dQ, dK), a multiply-add a dim each."""
-    n_bytes = (4 * B * S * Hq * hd + 4 * B * S * Hk * hd) * size \
+                       flop_per_s: float,
+                       Skv: int | None = None) -> tuple[float, str]:
+    """Read q, k, v, o, dO and L once, write dq, dk, dv once: (q, o, dO,
+    dq)·Sq and (k, v, dk, dv)·Skv; 10·hd operations for each unmasked
+    (q, k) pair: five products over hd (Q·Kᵀ again, dO·Vᵀ, dV, dQ, dK), a
+    multiply-add a dim each; Sq·Skv pairs with keys of their own
+    length."""
+    Skv = S if Skv is None else Skv
+    n_bytes = (4 * B * S * Hq * hd + 4 * B * Skv * Hk * hd) * size \
         + 4 * B * Hq * S
     return bound_us(n_bytes, 10.0 * hd * B * Hq *
-                    unmasked_pairs(S, causal, window), flop_per_s)
+                    unmasked_pairs(S, causal, window, Skv), flop_per_s)
 
 
 def check_flash_backward(gen, dev, B: int, S: int, Hq: int, Hk: int,
                          hd: int, dtype_name: str, causal: bool,
-                         window: int) -> dict:
+                         window: int, Skv: int | None = None) -> dict:
+    """The backward kernel pair from S queries to S keys, or to ``Skv``
+    keys of their own length, against the plain backward, timed beside
+    it, the bound and the backward of SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels.ref import flash_attention_backward_ref
     dtype = getattr(torch, dtype_name)
+    Skv = S if Skv is None else Skv
     q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, S, Hk, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Hk, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Hk, hd, generator=gen, device=dev).to(dtype)
     d_o = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dtype)
     o, lse = kf._forward(q, k, v, causal, window, want_lse=True)
     kw = dict(causal=causal, window=window)
@@ -1429,8 +1510,8 @@ def check_flash_backward(gen, dev, B: int, S: int, Hq: int, Hk: int,
     bit = all(torch.equal(a, b) for a, b in zip(out, again))
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(out, ref))
-    tag = f"flash backward {(B, S, Hq, Hk, hd)} {dtype_name} causal " \
-          f"{causal} window {window}"
+    tag = f"flash backward {(B, S, Hq, Hk, hd)} Skv {Skv} {dtype_name} " \
+          f"causal {causal} window {window}"
     check(bit, f"{tag}: two launches on one input differ")
     check(all(torch.allclose(a.float(), b.float(),
                              **FLASH_GRAD_TOL[dtype_name])
@@ -1464,7 +1545,8 @@ def check_flash_backward(gen, dev, B: int, S: int, Hq: int, Hk: int,
     check(lib_err <= 2e-2,
           f"{tag}: the SDPA backward yardstick does not compute the same "
           f"function (relative error {lib_err})")
-    plain_reps = dict(reps=2, samples=5) if S * S * B * Hq > 1 << 24 else {}
+    plain_reps = (dict(reps=2, samples=5) if S * Skv * B * Hq > 1 << 24
+                  else {})
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return entry(
         "flash_attention_backward",
@@ -1476,9 +1558,9 @@ def check_flash_backward(gen, dev, B: int, S: int, Hq: int, Hk: int,
         graph_time_us(lambda: flash_attention_backward_ref(
             q, k, v, o, lse, d_o, **kw), **plain_reps),
         flash_bwd_bound_us(B, S, Hq, Hk, hd, q.element_size(), causal,
-                           window, peak),
+                           window, peak, Skv),
         call_time_us(library), call_time_us(kernel),
-        kv_heads=Hk, causal=causal, window=window,
+        kv_heads=Hk, kv_len=Skv, causal=causal, window=window,
         library_relative_err=lib_err,
         library_footing="eager: one call of each, CUDA events around it; "
                         "call_us is the kernel's on that footing",
@@ -1489,15 +1571,16 @@ def check_flash_backward(gen, dev, B: int, S: int, Hq: int, Hk: int,
                      "(CUDA events around one call)")
 
 
-def phase_flash_backward(dev) -> list:
+def phase_flash_backward(dev, cases=FLASH_BWD_CASES, seed: int = 5) -> list:
     import torch
-    gen = torch.Generator(device=dev).manual_seed(5)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    for case in FLASH_BWD_CASES:
+    for case in cases:
         row = check_flash_backward(gen, dev, *case)
         row["eager_vs_library"] = row["call_us"] / row["library_us"]
         print(f"kernel flash_attention_backward {row['shape']} Hk "
-              f"{row['kv_heads']} {row['dtype']} causal {row['causal']} "
+              f"{row['kv_heads']} Skv {row['kv_len']} {row['dtype']} causal "
+              f"{row['causal']} "
               f"window {row['window']}: max_abs_err {row['max_abs_err']:.3e}"
               f" bit-identical {row['bit_identical']} | kernel "
               f"{row['kernel_us']:.2f} us (training forward "
@@ -2206,11 +2289,12 @@ def phase_sharded_me(batched_rt) -> dict:
 
 # -- slice 10: the Zamba2 hybrid and the MoE family ------------------------
 
-def phase_flash_112(dev) -> list:
+def phase_flash_112(dev) -> tuple[list, list]:
     """Flash attention at Zamba2-7B's shared attention (32 query and 32 kv
     heads of 112): phase 10's checks and times at its (8, 512) forward
-    and a (8, 64) prefill-size call, bf16 and fp32; then the backward
-    wrapper must refuse hd 112 on the card (ROADMAP Queue 2 item I)."""
+    and a (8, 64) prefill-size call, bf16 and fp32; then phase 14's
+    checks and times of the backward pair at FLASH_112_BWD_CASES. Returns
+    (forward rows, backward rows)."""
     import torch
     from repro_torch.kernels import ops
     rows = phase_flash(dev, FLASH_112_CASES, seed=112)
@@ -2223,20 +2307,7 @@ def phase_flash_112(dev) -> list:
     print(f"flash (8, 512, 32, 32, 128) bf16 causal, the hd 112 rows' heads "
           f"at hd 128: kernel {t128:.2f} us", flush=True)
     del q, k, v
-    q = torch.randn(1, 64, 2, 112, device=dev, dtype=torch.bfloat16,
-                    requires_grad=True)
-    o = ops.flash_attention(q, q.detach(), q.detach())
-    try:
-        o.sum().backward()
-    except NotImplementedError as e:
-        check("Queue 2 item I" in str(e),
-              f"flash backward at hd 112 raised without naming its ROADMAP "
-              f"item: {e}")
-        print(f"flash backward at hd 112 refuses: {e}", flush=True)
-    else:
-        raise SmokeFailure("flash backward at hd 112 ran: no kernel is built "
-                           "for it")
-    return rows
+    return rows, phase_flash_backward(dev, FLASH_112_BWD_CASES, seed=1120)
 
 
 def moe_forward(model, params) -> dict:
@@ -2403,35 +2474,18 @@ def phase_family_rounds(dev, runs=FAMILY_ROUNDS,
 
 # -- slice 11: the cross-attention families ------------------------------
 
-def phase_flash_cross(dev) -> list:
+def phase_flash_cross(dev) -> tuple[list, list]:
     """Flash attention with keys of their own length (FLASH_CROSS_CASES,
-    non-causal, window 0): phase 10's checks and times; then the backward
-    wrapper must refuse Skv != Sq on the card (ROADMAP Queue 2 item K)."""
-    import torch
-    from repro_torch.kernels import ops
+    non-causal, window 0): phase 10's checks and times; then phase 14's
+    checks and times of the backward pair at FLASH_CROSS_BWD_CASES.
+    Returns (forward rows, backward rows)."""
     rows = phase_flash(dev, [(B, Sq, Hq, Hk, hd, dt, False, 0, Skv)
                              for B, Sq, Skv, Hq, Hk, hd, dt
                              in FLASH_CROSS_CASES], seed=1024)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    q = torch.randn(1, 64, 2, 64, generator=gen, device=dev).to(
-        torch.bfloat16).requires_grad_(True)
-    k = torch.randn(1, 256, 2, 64, generator=gen, device=dev).to(
-        torch.bfloat16)
-    o = ops.flash_attention(q, k, k, causal=False)
-    before = ops.launch_counts()["flash_attention_backward"]
-    try:
-        o.sum().backward()
-    except NotImplementedError as e:
-        check("Queue 2 item K" in str(e),
-              f"flash backward with Skv != Sq raised without naming its "
-              f"ROADMAP item: {e}")
-        print(f"flash backward with Skv != Sq refuses: {e}", flush=True)
-    else:
-        raise SmokeFailure("flash backward with Skv != Sq ran: no kernel "
-                           "is built for it")
-    check(ops.launch_counts()["flash_attention_backward"] == before,
-          "flash backward with Skv != Sq launched a kernel")
-    return rows
+    return rows, phase_flash_backward(
+        dev, [(B, Sq, Hq, Hk, hd, dt, False, 0, Skv)
+              for B, Sq, Skv, Hq, Hk, hd, dt in FLASH_CROSS_BWD_CASES],
+        seed=1025)
 
 
 def flash_key(row) -> tuple:
@@ -2687,7 +2741,359 @@ def phase_consortium(dev) -> dict:
     return out
 
 
+# -- slice 12: the PoFEL trainer and checkpoints ----------------------------
+
+def trainer_round_launches(model, n_leaves: int) -> dict:
+    """Kernel launches of one PoFEL round: under ``torch.func.vmap`` the
+    clusters fold into one forward launch and one backward call a layer
+    of each model kernel; Eq. 1 and Eq. 2 one launch each a leaf."""
+    cfg = model.cfg
+    attn = 0 if cfg.rwkv else attention_layers(cfg, model.needs_context())
+    wkv = cfg.n_layers if cfg.rwkv else 0
+    return {"cosine_partials": n_leaves, "weighted_aggregate": n_leaves,
+            "wkv6": wkv, "flash_attention": attn, "wkv6_backward": wkv,
+            "flash_attention_backward": attn}
+
+
+def trainer_leaves(tree) -> int:
+    from repro_torch.core.serialization import leaves_with_paths
+    return len(leaves_with_paths(tree))
+
+
+def phase_train_reduced(dev) -> dict:
+    """``launch.train.train_reduced`` on the card at the reference
+    launcher's defaults (TRAIN_C clusters, batch TRAIN_BATCH, seq
+    TRAIN_SEQ, TRAIN_STEPS rounds, sgd1) for TRAIN_REDUCED: a chain
+    verified at the height of the rounds, finite losses, and exactly the
+    launches of :func:`trainer_round_launches` a round; then the CLI,
+    ``python -m repro_torch.launch.train --arch musicgen-medium --steps
+    2``, on the card by default."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.model_api import Model
+    out = {}
+    for arch in TRAIN_REDUCED:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train.train_reduced(arch, TRAIN_STEPS, TRAIN_C, TRAIN_BATCH,
+                                  TRAIN_SEQ, 0, "sgd1", device=dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        model = Model(get_config(arch).reduced(), device="cpu")
+        per_round = trainer_round_launches(
+            model, trainer_leaves(run.state.global_params))
+        check(run.ledger.height == TRAIN_STEPS and run.ledger.verify_chain(),
+              f"trainer {arch}: the chain does not verify at height "
+              f"{TRAIN_STEPS}")
+        check(all(bool(torch.isfinite(m.loss).all()) for m in run.metrics),
+              f"trainer {arch}: a loss is not finite")
+        want = {k: v * TRAIN_STEPS for k, v in per_round.items()}
+        check(counts == want, f"trainer {arch}: launches {counts}, want "
+              f"{want}")
+        out[arch] = {"launches": counts, "per_round": per_round,
+                     "wall_s": wall,
+                     "losses": [float(m.loss.mean()) for m in run.metrics],
+                     "leaders": [int(m.leader) for m in run.metrics],
+                     "backward_shapes": {str(k): v for k, v in
+                                         ops.flash_backward_launch_shapes()
+                                         .items()}}
+        print(f"trainer {arch} reduced: {TRAIN_STEPS} rounds in {wall:.2f} "
+              f"s, chain verified at height {run.ledger.height}, launches "
+              f"a round {per_round}", flush=True)
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "musicgen-medium", "--steps", "2"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(done.returncode == 0
+          and "chain verified at height 2" in done.stdout
+          and "device=cuda" in done.stdout,
+          f"the launcher CLI failed: {done.stdout[-2000:]}"
+          f"{done.stderr[-2000:]}")
+    print(f"launcher CLI on the card ({time.perf_counter() - t0:.1f} s):\n"
+          f"{done.stdout.strip()}", flush=True)
+    return out
+
+
+def diverged(replicas, seed: int = 1):
+    """The replicas with seeded noise on every leaf: relative size
+    TRAIN_DIVERGE[c] of the leaf's rms (at least 1e-2) for cluster c,
+    added in float32 and cast back to the leaf's dtype (the CPU test's
+    ``_diverged``, on torch's generator)."""
+    import torch
+    from repro_torch.fl import pofel_trainer as pt
+    gen = torch.Generator().manual_seed(seed)
+    rel = torch.tensor(TRAIN_DIVERGE)
+
+    def leaf(x):
+        x32 = x.to(torch.float32)
+        rms = max(float(x32[0].pow(2).mean().sqrt()), 1e-2)
+        scale = (rel * rms).view(-1, *([1] * (x.dim() - 1)))
+        noise = torch.randn(x32.shape, generator=gen)
+        return (x32 + scale * noise).to(x.dtype)
+    return pt._map(leaf, replicas)
+
+
+def phase_train_agreement(dev) -> None:
+    """One reduced PoFEL round on the card and on the CPU from the same
+    state (the vlm gates set nonzero, so its cross blocks take part;
+    the replicas made to differ by :func:`diverged`, so the similarities
+    spread) and batch, with the launcher's context: losses within
+    TRAIN_LOSS_TOL, similarities within TRAIN_SIM_ATOL and the same
+    leader. Fails if the CPU's similarities spread over less than
+    10 × TRAIN_SIM_ATOL or its top two are within 2 × TRAIN_SIM_ATOL: the
+    comparison would not tell a right Eq. 2 or leader from a wrong one."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import (TokenBatchSpec,
+                                         synthetic_token_batches)
+    from repro_torch.fl import pofel_trainer as pt
+    from repro_torch.launch.train import round_batch
+    from repro_torch.models.model_api import Model
+    for arch in TRAIN_AGREE:
+        cfg = get_config(arch).reduced()
+        cpu, card = Model(cfg, device="cpu"), Model(cfg, device=dev)
+        tcfg = pt.PoFELTrainConfig(n_clusters=TRAIN_C, inner_lr=1e-2)
+        state = pt.init_train_state(cpu, tcfg,
+                                    torch.Generator().manual_seed(0))
+        cross = state.global_params.get("cross_layers", {})
+        gen = torch.Generator().manual_seed(1)
+        for g in ("gate_attn", "gate_mlp"):
+            if g in cross:
+                cross[g].copy_(torch.randn(cross[g].shape, generator=gen))
+        state = state._replace(cluster_params=diverged(state.cluster_params))
+        on_card = pt.PoFELTrainState(
+            tree_to(state.cluster_params, dev),
+            tree_to(state.global_params, dev),
+            tree_to(state.outer_momentum, dev), state.btsv_history.to(dev),
+            state.round.to(dev))
+        raw = next(synthetic_token_batches(
+            TokenBatchSpec(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), seed=0))
+        lam = torch.ones((TRAIN_C,))
+        got = pt.pofel_round(card, on_card,
+                             round_batch(raw, card, TRAIN_C, dev),
+                             lam.to(dev), tcfg)[1]
+        want = pt.pofel_round(cpu, state, round_batch(raw, cpu, TRAIN_C,
+                                                      "cpu"), lam, tcfg)[1]
+        gl, wl = got.loss.cpu(), want.loss
+        gs, ws = got.similarities.cpu(), want.similarities
+        top = torch.sort(ws, descending=True).values
+        spread, margin = float(top[0] - top[-1]), float(top[0] - top[1])
+        check(spread > 10 * TRAIN_SIM_ATOL and margin > 2 * TRAIN_SIM_ATOL,
+              f"trainer agreement {arch}: the CPU's similarities {ws} "
+              f"spread {spread:.2e} (top two {margin:.2e}), too little to "
+              f"hold the card's to {TRAIN_SIM_ATOL}")
+        check(float((gl - wl).abs().max()) <= TRAIN_LOSS_TOL,
+              f"trainer agreement {arch}: losses {gl} vs {wl}")
+        check(float((gs - ws).abs().max()) <= TRAIN_SIM_ATOL,
+              f"trainer agreement {arch}: similarities {gs} vs {ws}")
+        check(int(got.leader) == int(want.leader),
+              f"trainer agreement {arch}: leader {int(got.leader)} vs "
+              f"{int(want.leader)}")
+        print(f"trainer agreement {arch}: losses within "
+              f"{float((gl - wl).abs().max()):.2e}, similarities "
+              f"{[round(float(x), 6) for x in ws]} (spread {spread:.2e}, "
+              f"top two {margin:.2e}) within "
+              f"{float((gs - ws).abs().max()):.2e}, leader "
+              f"{int(got.leader)} on both", flush=True)
+
+
+def trainer_full_cfg(arch: str, layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                           n_layers=layers)
+
+
+def phase_train_full(dev, arch: str, layers, clusters: int) -> dict:
+    """Three sgd1 PoFEL rounds of ``arch`` at full width (``layers`` of its
+    layers, or all), ``clusters`` clusters sharing a batch of TRAIN_BATCH
+    sequences of TRAIN_SEQ tokens, with the launcher's context: the first
+    plain, the second with
+    ``local_step`` and ``consensus`` timed apart (a synchronize around
+    each), the third under ``torch.profiler`` (busy share against the
+    second's wall time). Finite losses and exactly the launches of
+    :func:`trainer_round_launches` a round; the peak memory."""
+    import torch
+    from repro_torch.data.tokens import (TokenBatchSpec,
+                                         synthetic_token_batches)
+    from repro_torch.fl import pofel_trainer as pt
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import round_batch
+    from repro_torch.models.model_api import Model
+    cfg = trainer_full_cfg(arch, layers)
+    model = Model(cfg, device=dev)
+    tcfg = pt.PoFELTrainConfig(n_clusters=clusters, inner_lr=1e-2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = pt.init_train_state(model, tcfg,
+                                torch.Generator(device=dev).manual_seed(0))
+    n_leaves = trainer_leaves(state.global_params)
+    per_round = trainer_round_launches(model, n_leaves)
+    stream = synthetic_token_batches(
+        TokenBatchSpec(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), seed=0)
+    lam = torch.ones((clusters,), device=dev)
+    parts = {"local_step": 0.0, "consensus": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            return res
+        return run
+
+    walls, losses, shapes = [], [], {}
+    box = {"state": state}
+    del state
+
+    def one_round():
+        b = round_batch(next(stream), model, clusters, dev)
+        box["state"], m = pt.pofel_round(model, box["state"], b, lam, tcfg)
+        torch.cuda.synchronize()
+        box["metrics"] = m
+
+    for k in range(3):
+        ops.reset_launch_counts()
+        if k == 1:
+            inner = (pt.local_step, pt.consensus)
+            pt.local_step = timed(inner[0], "local_step")
+            pt.consensus = timed(inner[1], "consensus")
+        t0 = time.perf_counter()
+        try:
+            if k == 2:
+                n_ops, busy_us, top = device_busy(
+                    one_round, f"trainer {arch}", host=False)
+            else:
+                one_round()
+        finally:
+            if k == 1:
+                pt.local_step, pt.consensus = inner
+        walls.append(time.perf_counter() - t0)
+        m = box["metrics"]
+        losses.append([float(x) for x in m.loss.cpu()])
+        counts = ops.launch_counts()
+        check(counts == per_round, f"trainer {arch} round {k}: launches "
+              f"{counts}, want {per_round}")
+        check(bool(torch.isfinite(m.loss).all())
+              and bool(torch.isfinite(m.similarities).all()),
+              f"trainer {arch} round {k}: losses {m.loss} similarities "
+              f"{m.similarities}")
+        for key, n in ops.flash_backward_launch_shapes().items():
+            shapes[key] = shapes.get(key, 0) + n
+    check(parts["local_step"] > 0 and parts["consensus"] > 0,
+          f"trainer {arch}: round 2 timed local_step {parts['local_step']} "
+          f"s and consensus {parts['consensus']} s; pofel_round did not "
+          f"call them through the module")
+    round_ms = walls[1] * 1e3
+    out = {"arch": arch, "layers": cfg.n_layers, "params": model.n_params(),
+           "clusters": clusters, "leaves": n_leaves, "per_round": per_round,
+           "round_ms": [w * 1e3 for w in walls],
+           "local_step_share": parts["local_step"] / walls[1],
+           "consensus_share": parts["consensus"] / walls[1],
+           "local_step_ms": parts["local_step"] * 1e3,
+           "consensus_ms": parts["consensus"] * 1e3,
+           "busy_us": busy_us, "busy_share": busy_us / (round_ms * 1e3),
+           "device_ops": n_ops, "top_us": top,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "losses": losses, "backward_shapes": shapes}
+    print(f"trainer {arch} full width, {cfg.n_layers} layers, "
+          f"{out['params']:,} parameters, C = {clusters}: rounds "
+          f"{[round(w, 1) for w in out['round_ms']]} ms; local_step "
+          f"{out['local_step_ms']:.1f} ms ({out['local_step_share']:.3f}), "
+          f"consensus {out['consensus_ms']:.1f} ms "
+          f"({out['consensus_share']:.3f}); busy share "
+          f"{out['busy_share']:.4f}; peak {out['peak_gb']:.1f} GB; launches "
+          f"a round {per_round}", flush=True)
+    print(f"trainer {arch} " + json.dumps(
+        {k: v for k, v in out.items() if k != "backward_shapes"}),
+          flush=True)
+    return out
+
+
+def phase_checkpoint(dev) -> dict:
+    """``checkpoint.save_checkpoint`` / ``load_checkpoint`` of a MusicGen
+    trainer state on the card (full width, CKPT_LAYERS of its 48 layers,
+    after one round): the restored state equals the live one leaf for
+    leaf, and the next round from each is bit-identical (similarities,
+    losses, every global leaf)."""
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.serialization import leaves_with_paths
+    from repro_torch.data.tokens import (TokenBatchSpec,
+                                         synthetic_token_batches)
+    from repro_torch.fl import pofel_trainer as pt
+    from repro_torch.launch.train import round_batch
+    from repro_torch.models.model_api import Model
+    cfg = trainer_full_cfg("musicgen-medium", CKPT_LAYERS)
+    model = Model(cfg, device=dev)
+    tcfg = pt.PoFELTrainConfig(n_clusters=TRAIN_C, inner_lr=1e-2)
+    state = pt.init_train_state(model, tcfg,
+                                torch.Generator(device=dev).manual_seed(0))
+    stream = synthetic_token_batches(
+        TokenBatchSpec(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), seed=0)
+    lam = torch.ones((TRAIN_C,), device=dev)
+    state, _ = pt.pofel_round(model, state,
+                              round_batch(next(stream), model, TRAIN_C, dev),
+                              lam, tcfg)
+    where = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(where, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        payload = save_checkpoint(where, int(state.round), state)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = load_checkpoint(where, int(state.round), state)
+        t_load = time.perf_counter() - t0
+        size = payload.stat().st_size
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    for (path, a), (_, b) in zip(leaves_with_paths(state),
+                                 leaves_with_paths(restored)):
+        check(a.dtype == b.dtype and a.device == b.device
+              and torch.equal(a, b),
+              f"checkpoint: {path} does not come back as it was saved")
+    b = round_batch(next(stream), model, TRAIN_C, dev)
+    s1, m1 = pt.pofel_round(model, state, b, lam, tcfg)
+    s2, m2 = pt.pofel_round(model, restored, b, lam, tcfg)
+    check(torch.equal(m1.similarities, m2.similarities)
+          and torch.equal(m1.loss, m2.loss)
+          and int(m1.leader) == int(m2.leader),
+          f"checkpoint: the round after a restore differs: similarities "
+          f"{m1.similarities} vs {m2.similarities}")
+    for (path, a), (_, b2) in zip(leaves_with_paths(s1.global_params),
+                                  leaves_with_paths(s2.global_params)):
+        check(torch.equal(a, b2),
+              f"checkpoint: global {path} differs after the next round")
+    out = {"layers": cfg.n_layers, "params": model.n_params(),
+           "bytes": size, "save_s": t_save, "load_s": t_load}
+    print(f"checkpoint MusicGen-medium {cfg.n_layers} layers, "
+          f"{out['params']:,} parameters, C = {TRAIN_C}: {size / 1e9:.2f} GB"
+          f" saved in {t_save:.2f} s, loaded and verified in {t_load:.2f} s;"
+          f" the next round is bit-identical", flush=True)
+    return out
+
+
+def trainer_backward_launches(rows: list, runs: list) -> None:
+    """Give each backward row the flash backward calls of its own shape
+    in the trainer's rounds ``runs`` (0 for a row no trainer call has)."""
+    for row in rows:
+        row["launches"] = sum(r["backward_shapes"].get(flash_key(row), 0)
+                              for r in runs)
+        row["on_path"] = row["launches"] > 0
+
+
+def stamp(t0: float, what: str) -> None:
+    print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2710,6 +3116,7 @@ def main() -> int:
               flush=True)
     print(f"tensor cores: {check_tensor_cores()}", flush=True)
     warm_profiler(dev)
+    stamp(t_start, "phases 1-2")
     # 3. ME kernels
     rows = phase_kernels(dev)
     # 4. main path
@@ -2791,11 +3198,12 @@ def main() -> int:
         row["batched_lm_launches"] = lm_counts[row["name"]]
     for row in fold_rows:
         row["launches"] = lm_counts[row.pop("launches_key")]
+    stamp(t_start, "phases 3-24")
     # 25. flash at hd 112; 26. Zamba2-7B serving; 27. DeepSeek-MoE-16B
     # serving and its routing; 28. Phi-3.5-MoE at 16 layers; each model
     # freed before the next is built
     torch.cuda.empty_cache()
-    f112_rows = phase_flash_112(dev)
+    f112_rows, f112_bwd_rows = phase_flash_112(dev)
     moe_rows = phase_flash(dev, FLASH_MOE_CASES, seed=129)
     zamba = phase_serving(dev, "zamba2-7b", "flash_attention")
     torch.cuda.empty_cache()
@@ -2815,11 +3223,12 @@ def main() -> int:
                                  deepseek["forward_launches"],
                                  phi["forward_launches"])):
         row["launches"] = n
+    stamp(t_start, "phases 25-30")
     # 31. flash with keys of their own length; 32. MusicGen-medium
     # serving; 33. Llama-3.2-Vision-90B at 30 layers; each model freed
     # before the next is built
     torch.cuda.empty_cache()
-    cross_rows = phase_flash_cross(dev)
+    cross_rows, cross_bwd_rows = phase_flash_cross(dev)
     xself_rows = phase_flash(dev, FLASH_XSELF_CASES, seed=57)
     musicgen = phase_serving(dev, "musicgen-medium", "flash_attention")
     torch.cuda.empty_cache()
@@ -2844,9 +3253,35 @@ def main() -> int:
     for row in rows:
         row["family_lm_launches"] = {k: v["launches"][row["name"]]
                                      for k, v in fam.items()}
+    # 36. the PoFEL trainer, reduced, and its launcher CLI; 37. one round
+    # on the card against the CPU; 38. full width: MusicGen-medium and
+    # Zamba2-7B at 12 layers, each freed before the next; 39. checkpoints
+    stamp(t_start, "phases 31-35")
+    torch.cuda.empty_cache()
+    treduced = phase_train_reduced(dev)
+    phase_train_agreement(dev)
+    stamp(t_start, "phases 36-37")
+    tfull = {}
+    for arch, layers, clusters in TRAIN_FULL:
+        tfull[arch] = phase_train_full(dev, arch, layers, clusters)
+        torch.cuda.empty_cache()
+        stamp(t_start, f"phase 38 {arch}")
+    phase_checkpoint(dev)
+    stamp(t_start, "phase 39")
+    # the new backward rows: the trainer rounds' calls of their shapes
+    trainer_backward_launches(f112_bwd_rows + cross_bwd_rows,
+                              list(tfull.values()))
+    for row in f112_bwd_rows + cross_bwd_rows:
+        print(f"flash backward {flash_key(row)}: {row['launches']} calls in "
+              f"the full-width trainer rounds", flush=True)
+    for row in rows + flash_bwd_rows + wkv_bwd_rows:
+        row["trainer_launches_a_round"] = {
+            a: v["per_round"][row["name"]]
+            for a, v in {**treduced, **tfull}.items()}
     print(json.dumps({"kernels": rows + wkv_rows + flash_rows + wkv_bwd_rows
                       + flash_bwd_rows + fold_rows + f112_rows
-                      + moe_rows + cross_rows + xself_rows}),
+                      + f112_bwd_rows + moe_rows + cross_rows + xself_rows
+                      + cross_bwd_rows}),
           flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,9 @@ durable layer the assumption needs:
   forms :func:`save_snapshot` / :func:`load_snapshot`) — integrity-
   digested chain snapshots in the style of ``repro.checkpoint``: the
   manifest carries ``sha256(serialized payload)`` and restore refuses a
-  tampered file. (The reference can co-locate the node's last global
-  model as a checkpoint; the port's checkpoint module is not ported yet,
-  so the port snapshots the ledger alone.)
+  tampered file. With a model tree the node's last global model goes
+  beside it as a ``repro_torch.checkpoint`` checkpoint at step = chain
+  height, as the reference co-locates it.
 * :func:`rejoin_ledger` — the catch-up half of a rejoin: adopt the best
   reachable peer chain via ``Ledger.sync_from`` (fork-choice fallback on
   diverged history).
@@ -291,12 +291,9 @@ def restore_ledger(snap: LedgerSnapshot,
 
 def save_snapshot(directory: str | Path, ledger: Ledger,
                   model_tree: Any = None) -> Path:
-    """Persist ``ledger`` under ``directory``; returns the manifest path.
-    A ``model_tree`` raises: model checkpoints are not ported yet."""
-    if model_tree is not None:
-        raise NotImplementedError(
-            "model checkpoints are not ported yet (ROADMAP Queue 1 item "
-            "13, checkpoint); snapshot the ledger alone")
+    """Persist ``ledger`` (and, optionally, ``model_tree`` as a
+    ``repro_torch.checkpoint`` checkpoint at step = chain height) under
+    ``directory``. Returns the manifest path."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     snap = snapshot_ledger(ledger)
@@ -304,25 +301,29 @@ def save_snapshot(directory: str | Path, ledger: Ledger,
     manifest.write_text(json.dumps({
         "node_id": snap.node_id, "height": snap.height, "head": snap.head,
         "digest": snap.digest, "payload": snap.payload}, indent=2))
+    if model_tree is not None:
+        from repro_torch.checkpoint import save_checkpoint
+        save_checkpoint(directory, step=ledger.height, tree=model_tree)
     return manifest
 
 
 def load_snapshot(directory: str | Path, node_id: int,
                   public_keys: Optional[Dict[int, crypto.Point]] = None,
                   model_template: Any = None) -> Tuple[Ledger, Any]:
-    """Restore a node's ledger from :func:`save_snapshot` output; the
-    second item is None. A ``model_template`` raises: model checkpoints
-    are not ported yet."""
-    if model_template is not None:
-        raise NotImplementedError(
-            "model checkpoints are not ported yet (ROADMAP Queue 1 item "
-            "13, checkpoint); restore the ledger alone")
+    """Restore a node's ledger (and, with ``model_template``, its last
+    checkpointed global model) from :func:`save_snapshot` output."""
     directory = Path(directory)
     d = json.loads((directory / f"ledger_{node_id}.json").read_text())
     snap = LedgerSnapshot(node_id=int(d["node_id"]), height=int(d["height"]),
                           head=d["head"], digest=d["digest"],
                           payload=d["payload"])
-    return restore_ledger(snap, public_keys), None
+    ledger = restore_ledger(snap, public_keys)
+    model = None
+    if model_template is not None:
+        from repro_torch.checkpoint import load_checkpoint
+        model = load_checkpoint(directory, step=ledger.height,
+                                template=model_template)
+    return ledger, model
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 
 The PyTorch port's counterpart of ``repro.core.serialization``. A model
 is a tree of tensors: a dict (nested dicts allowed) whose leaves are
-tensors, numpy arrays or scalars, or a bare tensor.
+tensors, numpy arrays or scalars, or a bare tensor. A NamedTuple of such
+trees is a tree too (the PoFEL trainer's state), as JAX flattens it:
+fields in declaration order, spelled ``.name``.
 
 HCDS commits to H(nonce || model) and every block carries the sha256 of
 each model's bytes, so the encoding must match the reference's byte for
@@ -25,20 +27,29 @@ import torch
 _MAGIC = b"RPR0"
 
 
-def _leaves_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(keystr path, leaf) pairs in tree order (dict keys sorted, as JAX
-    flattens dicts)."""
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def leaves_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(keystr path, leaf) pairs in JAX's flatten order: dict keys sorted
+    at each level, NamedTuple fields in declaration order."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += _leaves_with_paths(tree[k], f"{prefix}[{k!r}]")
+            out += leaves_with_paths(tree[k], f"{prefix}[{k!r}]")
+        return out
+    if _is_namedtuple(tree):
+        out = []
+        for name in tree._fields:
+            out += leaves_with_paths(getattr(tree, name), f"{prefix}.{name}")
         return out
     return [(prefix, tree)]
 
 
 def _sorted_leaves(tree: Any) -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in canonical sorted-keypath order."""
-    return sorted(_leaves_with_paths(tree), key=lambda kv: kv[0])
+    return sorted(leaves_with_paths(tree), key=lambda kv: kv[0])
 
 
 def _is_bf16(leaf: Any) -> bool:
@@ -65,11 +76,18 @@ def flatten_pytree(tree: Any) -> torch.Tensor:
                       for _, leaf in _sorted_leaves(tree)])
 
 
-def _rebuild(template: Any, leaves: dict, prefix: str = "") -> Any:
+def rebuild(template: Any, leaves: dict, prefix: str = "") -> Any:
+    """A tree shaped like ``template`` whose leaves are ``leaves[path]``
+    (paths as :func:`leaves_with_paths` spells them)."""
     if isinstance(template, dict):
-        return {k: _rebuild(v, leaves, f"{prefix}[{k!r}]")
+        return {k: rebuild(v, leaves, f"{prefix}[{k!r}]")
                 for k, v in template.items()}
+    if _is_namedtuple(template):
+        return type(template)(*(rebuild(getattr(template, n), leaves,
+                                        f"{prefix}.{n}")
+                                for n in template._fields))
     return leaves[prefix]
+
 
 
 def unflatten_pytree(flat: Any, template: Any) -> Any:
@@ -90,7 +108,7 @@ def unflatten_pytree(flat: Any, template: Any) -> Any:
         chunk = flat[off:off + n].reshape(tuple(leaf.shape))
         leaves[path] = chunk.to(device=leaf.device, dtype=leaf.dtype)
         off += n
-    return _rebuild(template, leaves)
+    return rebuild(template, leaves)
 
 
 def serialize_pytree(tree: Any) -> bytes:

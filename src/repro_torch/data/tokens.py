@@ -1,10 +1,10 @@
-"""Synthetic token data for the LM workloads of a BHFL round (a numpy
-copy of ``repro.data.tokens``: ``TokenDataset`` and
-``make_token_dataset``; the launcher's ``TokenBatchSpec`` and
-``synthetic_token_batches`` come with the distributed path).
+"""Synthetic token data (a numpy copy of ``repro.data.tokens``): the
+finite ``TokenDataset`` of the LM workloads of a BHFL round
+(``make_token_dataset``), and the endless zipf-ish stream of the PoFEL
+trainer's launcher (``TokenBatchSpec``, ``synthetic_token_batches``).
 
-Batch order is ``np.random.default_rng(seed)`` over the rows, as in the
-reference, so both packages see the same batches bit for bit.
+Every draw is ``np.random.default_rng(seed)``, as in the reference, so
+both packages see the same batches bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +13,17 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+
+
+@dataclass(frozen=True)
+class TokenBatchSpec:
+    batch: int
+    seq_len: int
+    vocab_size: int
+
+    def shapes(self) -> dict[str, tuple]:
+        return {"tokens": (self.batch, self.seq_len),
+                "labels": (self.batch, self.seq_len)}
 
 
 @dataclass
@@ -64,3 +75,17 @@ def make_token_dataset(n_seqs: int = 256, seq_len: int = 32,
                       p=probs).astype(np.int32)
     return (TokenDataset(toks[:n_seqs], vocab_size),
             TokenDataset(toks[n_seqs:], vocab_size))
+
+
+def synthetic_token_batches(spec: TokenBatchSpec, seed: int = 0,
+                            ) -> Iterator[dict[str, np.ndarray]]:
+    """Endless {tokens, labels} (batch, seq_len) int32 batches, labels
+    shifted by one, from a zipf-like marginal over the vocab."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, spec.vocab_size + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(spec.vocab_size, size=(spec.batch, spec.seq_len + 1),
+                          p=probs).astype(np.int32)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

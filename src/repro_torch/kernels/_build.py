@@ -41,7 +41,7 @@ SIGNATURES = {
                         [_P, _P, _P, _P, _P, *[_L] * 9, *[_I] * 9, _P]),
     "flash_attention_backward": (
         "flash_attention", "repro_flash_attention_backward",
-        [*[_P] * 10, *[_L] * 12, *[_I] * 8, _P]),
+        [*[_P] * 10, *[_L] * 12, *[_I] * 9, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 

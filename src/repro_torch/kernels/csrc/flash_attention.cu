@@ -972,6 +972,15 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
 //    dK and dV summed over them (fp32: one block walks them all; bf16: a
 //    cluster of blocks shares them, below).
 // What bounds it: operations (10 hd a pair: Q.K^T, dO.V^T, dV, dQ, dK).
+// Keys of their own length (cross-attention, Skv != S, never causal or
+// windowed), as in the forward: k, v and dk, dv have Skv rows, the key
+// loops and masks run to Skv, the grids of dq and of the (L, D) scratch
+// run over the S queries, those of dkdv over Skv's key tiles. hd 112
+// (Zamba2-7B): fp32 has its own case (7 output dims a thread, out_dim);
+// bf16 runs the hd-128 tile on tensor maps of hd extent 112, as the
+// forward does, so every product sees zeros in columns 112-127; D sums
+// the 112 columns of O and dO that exist, 112 columns of dQ, dK and dV
+// are stored, and the scale is 1/sqrt(112).
 //
 // fp32 (flash_bwd_*_f32), on CUDA cores; 32-key tiles of dkdv. The thread
 // map is the fp32 forward's: 128 threads, thread t owns rows
@@ -997,9 +1006,9 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ bool unmasked(int qpos, int kpos, int S,
+__device__ __forceinline__ bool unmasked(int qpos, int kpos, int S, int Skv,
                                          int causal, int window) {
-  bool ok = kpos < S && qpos < S;
+  bool ok = kpos < Skv && qpos < S;
   if (causal) ok = ok && qpos >= kpos;
   if (window > 0) ok = ok && qpos - kpos < window;
   return ok;
@@ -1089,8 +1098,8 @@ __global__ void __launch_bounds__(NT)
                  float* __restrict__ dq, float* __restrict__ delta, long long qsb,
                  long long qss, long long qsh, long long ksb, long long kss,
                  long long ksh, long long vsb, long long vss, long long vsh,
-                 long long dsb, long long dss, long long dsh, int S, int Hq,
-                 int Hk, int causal, int window, float scale) {
+                 long long dsb, long long dss, long long dsh, int S, int Skv,
+                 int Hq, int Hk, int causal, int window, float scale) {
   constexpr int P = HD + 4, DPT = HD / 16, RN = BBQ / 8, CN = BBK / 16;
   constexpr int WP = BBK + 4;
   extern __shared__ float4 smem4[];
@@ -1145,14 +1154,14 @@ __global__ void __launch_bounds__(NT)
     const int lo = q0 - window + 1;
     kt_begin = lo > 0 ? lo / BBK : 0;
   }
-  const int kt_end = ((causal ? q_last + 1 : S) + BBK - 1) / BBK;
+  const int kt_end = ((causal ? q_last + 1 : Skv) + BBK - 1) / BBK;
   const float* kb = k + b * ksb + hk * ksh;
   const float* vb = v + b * vsb + hk * vsh;
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BBK;
     __syncthreads();  // every thread is done with the previous tile
-    stage_rows<HD>(sk, kb, kss, k0, BBK, S);
-    stage_rows<HD>(sv, vb, vss, k0, BBK, S);
+    stage_rows<HD>(sk, kb, kss, k0, BBK, Skv);
+    stage_rows<HD>(sv, vb, vss, k0, BBK, Skv);
     __syncthreads();
     float sc[RN][CN], dp[RN][CN];
 #pragma unroll
@@ -1166,7 +1175,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int c = 0; c < CN; ++c) {
         const int kpos = k0 + ln + 16 * c;
-        const float p = unmasked(qpos, kpos, S, causal, window)
+        const float p = unmasked(qpos, kpos, S, Skv, causal, window)
                             ? expf(fmaf(sc[r][c], scale, -Lr[r]))
                             : 0.f;
         sds[(rg + 8 * r) * WP + ln + 16 * c] = p * (dp[r][c] - Dr[r]);
@@ -1202,8 +1211,9 @@ __global__ void __launch_bounds__(NT)
                    float* __restrict__ dk, float* __restrict__ dv, long long qsb,
                    long long qss, long long qsh, long long ksb, long long kss,
                    long long ksh, long long vsb, long long vss, long long vsh,
-                   long long dsb, long long dss, long long dsh, int S, int Hq,
-                   int Hk, int causal, int window, float scale) {
+                   long long dsb, long long dss, long long dsh, int S,
+                   int Skv, int Hq, int Hk, int causal, int window,
+                   float scale) {
   constexpr int P = HD + 4, DPT = HD / 16, RN = BBK / 8, CN = BQ2 / 16;
   constexpr int WP = BQ2 + 4;
   extern __shared__ float4 smem4[];
@@ -1223,11 +1233,12 @@ __global__ void __launch_bounds__(NT)
   const int b = blockIdx.z;
   const int G = Hq / Hk;
 
-  stage_rows<HD>(sk, k + b * ksb + hk * ksh, kss, k0, BBK, S);
-  stage_rows<HD>(sv, v + b * vsb + hk * vsh, vss, k0, BBK, S);
+  stage_rows<HD>(sk, k + b * ksb + hk * ksh, kss, k0, BBK, Skv);
+  stage_rows<HD>(sv, v + b * vsb + hk * vsh, vss, k0, BBK, Skv);
 
-  // the query tiles that see at least one key of this tile
-  const int k_last = min(k0 + BBK, S) - 1;
+  // the query tiles that see at least one key of this tile (a window
+  // only with Skv == S)
+  const int k_last = min(k0 + BBK, Skv) - 1;
   const int qt_begin = causal ? k0 / BQ2 : 0;
   int q_end = S;  // one past the last query that sees a key here
   if (window > 0) q_end = min(S, k_last + window);
@@ -1266,7 +1277,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int c = 0; c < CN; ++c) {
           const int col = ln + 16 * c;
-          const float p = unmasked(q0 + col, kpos, S, causal, window)
+          const float p = unmasked(q0 + col, kpos, S, Skv, causal, window)
                               ? expf(fmaf(sc[r][c], scale, -sL[col]))
                               : 0.f;
           sp[(rg + 8 * r) * WP + col] = p;
@@ -1282,8 +1293,9 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int r = 0; r < RN; ++r) {
     const int kpos = k0 + rg + 8 * r;
-    if (kpos >= S) continue;
-    const long long at = ((static_cast<long long>(b) * S + kpos) * Hk + hk) * HD;
+    if (kpos >= Skv) continue;
+    const long long at =
+        ((static_cast<long long>(b) * Skv + kpos) * Hk + hk) * HD;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       dk[at + out_dim<HD>(ln, i)] = ak[r][i] * scale;
@@ -1296,7 +1308,8 @@ template <int HD>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* d_o, void* dq, void* dk,
                void* dv, float* delta, const long long* st, int B, int S,
-               int Hq, int Hk, int causal, int window, cudaStream_t stream) {
+               int Skv, int Hq, int Hk, int causal, int window,
+               cudaStream_t stream) {
   constexpr int dq_bytes = dq_smem_floats<HD>() * 4;
   constexpr int kv_bytes = dkdv_smem_floats<HD>() * 4;
   static bool dq_in[64] = {}, kv_in[64] = {};
@@ -1312,30 +1325,31 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                         stream>>>(
       tq, tk, tv, static_cast<const float*>(o), lse, tdo, static_cast<float*>(dq),
       delta, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], S, Hq, Hk, causal, window, scale);
+      st[9], st[10], st[11], S, Skv, Hq, Hk, causal, window, scale);
   e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
-  flash_bwd_dkdv_f32<HD><<<dim3((S + BBK - 1) / BBK, Hk, B), NT, kv_bytes,
+  flash_bwd_dkdv_f32<HD><<<dim3((Skv + BBK - 1) / BBK, Hk, B), NT, kv_bytes,
                           stream>>>(
       tq, tk, tv, lse, delta, tdo, static_cast<float*>(dk), static_cast<float*>(dv),
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], S, Hq, Hk, causal, window, scale);
+      st[10], st[11], S, Skv, Hq, Hk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                  const float* lse, const void* d_o, void* dq, void* dk,
                  void* dv, float* delta, const long long* st, int B, int S,
-                 int Hq, int Hk, int hd, int causal, int window,
+                 int Skv, int Hq, int Hk, int hd, int causal, int window,
                  cudaStream_t s) {
   switch (hd) {
 #define REPRO_HD(N)                                                        \
   case N:                                                                  \
     return launch_bwd_f32<N>(q, k, v, o, lse, d_o, dq, dk, dv, delta, st, B, \
-                             S, Hq, Hk, causal, window, s);
+                             S, Skv, Hq, Hk, causal, window, s);
     REPRO_HD(16)
     REPRO_HD(32)
     REPRO_HD(64)
+    REPRO_HD(112)
     REPRO_HD(128)
 #undef REPRO_HD
     default:
@@ -1471,10 +1485,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-// Grid (S/64, Hq, B), one warpgroup a block. ld: (B*Hq, S_pad) pairs
-// (L log2 e, D), S_pad = S rounded up to whole tiles, written here for
-// every row of the block's tile (zeros past S). dq contiguous.
-template <int HD>
+// Grid (S/64, Hq, B), one warpgroup a block; Skv keys. ld: (B*Hq, S_pad)
+// pairs (L log2 e, D), S_pad = S rounded up to whole tiles, written here
+// for every query row of the block's tile (zeros past S). o, dq
+// contiguous (B, S, Hq, OD): the first OD <= HD columns of the tile (OD <
+// HD: the maps' hd extent is OD and the rest of a row reads as zeros, so
+// D sums OD columns and OD columns of dQ are stored).
+template <int HD, int OD = HD>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_wg(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mk,
@@ -1485,8 +1502,9 @@ __global__ void __launch_bounds__(NT)
                     const __nv_bfloat16* __restrict__ d_o, long long dsb,
                     long long dss, long long dsh,
                     const float* __restrict__ lse, float* __restrict__ ld,
-                    __nv_bfloat16* __restrict__ dq, int S, int S_pad, int Hq,
-                    int Hk, int causal, int window, float scale2) {
+                    __nv_bfloat16* __restrict__ dq, int S, int Skv,
+                    int S_pad, int Hq, int Hk, int causal, int window,
+                    float scale2) {
   using C = Tc<HD>;
   constexpr int ST = KV_STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -1512,7 +1530,7 @@ __global__ void __launch_bounds__(NT)
     const int lo = q0 - window + 1;
     kt_begin = lo > 0 ? lo / TK : 0;
   }
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;  // causal: Skv == S
   const int n_tiles = (k_end + TK - 1) / TK - kt_begin;
 
   if (tid == 0) {
@@ -1537,18 +1555,19 @@ __global__ void __launch_bounds__(NT)
   }
 
   // D of the tile's rows from device memory: two threads a row, halves of
-  // HD in order, then one butterfly add (both end with the same bits)
+  // OD in order (16-byte loads: OD / 2 is a multiple of 8), then one
+  // butterfly add (both end with the same bits)
   {
     const int r = tid >> 1, pos = q0 + r;
     float acc = 0.f;
     if (pos < S) {
       const __nv_bfloat16* orow =
-          o + ((static_cast<long long>(b) * S + pos) * Hq + hq) * HD +
-          (tid & 1) * (HD / 2);
+          o + ((static_cast<long long>(b) * S + pos) * Hq + hq) * OD +
+          (tid & 1) * (OD / 2);
       const __nv_bfloat16* drow = d_o + b * dsb + pos * dss + hq * dsh +
-                                  (tid & 1) * (HD / 2);
+                                  (tid & 1) * (OD / 2);
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {
+      for (int c = 0; c < OD / 16; ++c) {
         const uint4 ov = reinterpret_cast<const uint4*>(orow)[c];
         const uint4 dv = reinterpret_cast<const uint4*>(drow)[c];
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -1610,7 +1629,7 @@ __global__ void __launch_bounds__(NT)
 
     // s[4c + 2i + e]: row r0 + 8i, key k0 + 8c + cq + e. P = 2^(s scale2
     // - L log2 e), 0 where masked; dS = P (dP - D) into dp
-    const bool edge = k0 + TK > S || (causal && k0 + TK - 1 > q0) ||
+    const bool edge = k0 + TK > Skv || (causal && k0 + TK - 1 > q0) ||
                       (window > 0 && q0 + TQ - 1 - k0 >= window);
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
@@ -1618,7 +1637,7 @@ __global__ void __launch_bounds__(NT)
       float p = fast_exp2(fmaf(s[x], scale2, -Lr[i]));
       if (edge) {
         const int kpos = k0 + 8 * (x >> 2) + cq + (x & 1);
-        bool ok = kpos < S;
+        bool ok = kpos < Skv;
         if (causal) ok = ok && qpos[i] >= kpos;
         if (window > 0) ok = ok && qpos[i] - kpos < window;
         p = ok ? p : 0.f;
@@ -1633,9 +1652,9 @@ __global__ void __launch_bounds__(NT)
   for (int i = 0; i < 2; ++i) {
     if (qpos[i] >= S) continue;
     __nv_bfloat16* row =
-        dq + ((static_cast<long long>(b) * S + qpos[i]) * Hq + hq) * HD + cq;
+        dq + ((static_cast<long long>(b) * S + qpos[i]) * Hq + hq) * OD + cq;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
+    for (int c = 0; c < OD / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) = __floats2bfloat162_rn(
           acc[4 * c + 2 * i] * mult, acc[4 * c + 2 * i + 1] * mult);
   }
@@ -1673,11 +1692,12 @@ __device__ __forceinline__ int fold_idx(int row, int col) {
   return row * HD + (col ^ ((row & (SPAN - 1)) << 3));
 }
 
-// Grid x = CL x (key tiles x Hk x B), clusters of CL blocks along x:
-// cluster c takes key tile c / (B Hk), batch (c / Hk) % B, kv head c % Hk;
-// its rank takes its run of the (head, query tile) pairs. dk, dv
-// contiguous (B, S, Hk, HD); ld as flash_bwd_dq_wg wrote it.
-template <int HD>
+// Grid x = CL x (key tiles of Skv x Hk x B), clusters of CL blocks along
+// x: cluster c takes key tile c / (B Hk), batch (c / Hk) % B, kv head c %
+// Hk; its rank takes its run of the (head, query tile) pairs, query tiles
+// of S. dk, dv contiguous (B, Skv, Hk, OD), OD <= HD as in
+// flash_bwd_dq_wg; ld as flash_bwd_dq_wg wrote it.
+template <int HD, int OD = HD>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap mq,
                       const __grid_constant__ CUtensorMap mk,
@@ -1686,9 +1706,9 @@ __global__ void __launch_bounds__(NT)
                       int perm_k, int perm_v, int perm_do,
                       const float* __restrict__ ld,
                       __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int S_pad,
-                      int B, int Hq, int Hk, int causal, int window,
-                      float scale2) {
+                      __nv_bfloat16* __restrict__ dv, int S, int Skv,
+                      int S_pad, int B, int Hq, int Hk, int causal,
+                      int window, float scale2) {
   using C = Tc<HD>;
   constexpr int QS = Q_STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -1703,7 +1723,7 @@ __global__ void __launch_bounds__(NT)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int CL = static_cast<int>(gridDim.x) /
-                 ((S_pad / TK) * Hk * B);             // blocks a cluster
+                 (((Skv + TK - 1) / TK) * Hk * B);    // blocks a cluster
   const int rank = static_cast<int>(cluster_rank());
   const int cid = blockIdx.x / CL;
   const int kt = cid / (B * Hk);
@@ -1712,8 +1732,9 @@ __global__ void __launch_bounds__(NT)
   const int G = Hq / Hk;
   const int k0 = kt * TK;
 
-  // the query tiles that see this key tile; pairs (g, tile) in order
-  const int k_last = min(k0 + TK, S) - 1;
+  // the query tiles that see this key tile; pairs (g, tile) in order (a
+  // causal mask or a window only with Skv == S)
+  const int k_last = min(k0 + TK, Skv) - 1;
   const int qt_begin = causal ? k0 / TQ : 0;
   const int q_end = window > 0 ? min(S, k_last + window) : S;
   const int nq = (q_end + TQ - 1) / TQ - qt_begin;
@@ -1779,7 +1800,7 @@ __global__ void __launch_bounds__(NT)
 
     const float4* lds = reinterpret_cast<const float4*>(
         gbase + (sld - base) + stage * LD_BYTES);
-    const bool edge = q0 + TQ > S || k0 + TK > S ||
+    const bool edge = q0 + TQ > S || k0 + TK > Skv ||
                       (causal && q0 < k0 + TK - 1) ||
                       (window > 0 && q0 + TQ - 1 - k0 >= window);
 #pragma unroll
@@ -1793,7 +1814,7 @@ __global__ void __launch_bounds__(NT)
         float p = fast_exp2(fmaf(s[x], scale2, -l2));
         if (edge) {
           const int kp = kpos[(x >> 1) & 1], qp = q0 + 8 * c + cq + e;
-          bool ok = kp < S && qp < S;
+          bool ok = kp < Skv && qp < S;
           if (causal) ok = ok && qp >= kp;
           if (window > 0) ok = ok && qp - kp < window;
           p = ok ? p : 0.f;
@@ -1840,7 +1861,7 @@ __global__ void __launch_bounds__(NT)
       a.z += t.z;
       a.w += t.w;
     }
-    if (pos < S) {
+    if (pos < Skv && col < OD) {
       const float m = which ? 1.f : mult;
       __nv_bfloat162 lo2 = __floats2bfloat162_rn(a.x * m, a.y * m);
       __nv_bfloat162 hi2 = __floats2bfloat162_rn(a.z * m, a.w * m);
@@ -1849,7 +1870,7 @@ __global__ void __launch_bounds__(NT)
       pk.y = *reinterpret_cast<uint32_t*>(&hi2);
       *reinterpret_cast<uint2*>(
           (which ? dv : dk) +
-          ((static_cast<long long>(b) * S + pos) * Hk + hk) * HD + col) = pk;
+          ((static_cast<long long>(b) * Skv + pos) * Hk + hk) * OD + col) = pk;
     }
   }
   // no block leaves while another reads its shared memory
@@ -1857,12 +1878,13 @@ __global__ void __launch_bounds__(NT)
 }
 
 // CL: the blocks a cluster takes a key tile's (head, query tile) pairs
-// with, as many as the longest key tile has, up to MAX_CL
-int dkdv_cluster(int S, int G, int causal, int window) {
+// with, as many as the longest key tile (of Skv keys) has, query tiles of
+// S, up to MAX_CL
+int dkdv_cluster(int S, int Skv, int G, int causal, int window) {
   int most = 0;
-  const int n_kt = (S + TK - 1) / TK;
+  const int n_kt = (Skv + TK - 1) / TK;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TK, k_last = std::min(k0 + TK, S) - 1;
+    const int k0 = kt * TK, k_last = std::min(k0 + TK, Skv) - 1;
     const int qt_begin = causal ? k0 / TQ : 0;
     const int q_end = window > 0 ? std::min(S, k_last + window) : S;
     most = std::max(most, G * ((q_end + TQ - 1) / TQ - qt_begin));
@@ -1870,39 +1892,44 @@ int dkdv_cluster(int S, int G, int causal, int window) {
   return most >= 4 ? 4 : most >= 2 ? 2 : 1;
 }
 
-template <int HD>
+// HD is the tile's hd, OD <= HD the operands' (see flash_bwd_dq_wg)
+template <int HD, int OD>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                   const float* lse, const void* d_o, void* dq, void* dk,
                   void* dv, float* ld, const long long* st, int B, int S,
-                  int Hq, int Hk, int causal, int window,
+                  int Skv, int Hq, int Hk, int causal, int window,
                   cudaStream_t stream) {
   static_assert(TQ == TK, "one box shape serves q, k, v and dO");
   constexpr int dq_bytes = Bw<HD>::DQ_SMEM;
   constexpr int kv_bytes = Bw<HD>::KV_SMEM;
   static bool dq_in[64] = {}, kv_in[64] = {};
-  int e = opt_in(flash_bwd_dq_wg<HD>, dq_bytes, dq_in);
-  if (e == 0) e = opt_in(flash_bwd_dkdv_wg<HD>, kv_bytes, kv_in);
+  int e = opt_in(flash_bwd_dq_wg<HD, OD>, dq_bytes, dq_in);
+  if (e == 0) e = opt_in(flash_bwd_dkdv_wg<HD, OD>, kv_bytes, kv_in);
   if (e != 0) return e;
   CUtensorMap mq, mk, mv, mdo;
   int pq = 0, pk = 0, pv = 0, pdo = 0;
-  if ((e = encode_map<HD>(&mq, &pq, q, Hq, S, B, st[0], st[1], st[2])) ||
-      (e = encode_map<HD>(&mk, &pk, k, Hk, S, B, st[3], st[4], st[5])) ||
-      (e = encode_map<HD>(&mv, &pv, v, Hk, S, B, st[6], st[7], st[8])) ||
-      (e = encode_map<HD>(&mdo, &pdo, d_o, Hq, S, B, st[9], st[10], st[11])))
+  if ((e = encode_map<HD, OD>(&mq, &pq, q, Hq, S, B, st[0], st[1], st[2])) ||
+      (e = encode_map<HD, OD>(&mk, &pk, k, Hk, Skv, B, st[3], st[4],
+                              st[5])) ||
+      (e = encode_map<HD, OD>(&mv, &pv, v, Hk, Skv, B, st[6], st[7],
+                              st[8])) ||
+      (e = encode_map<HD, OD>(&mdo, &pdo, d_o, Hq, S, B, st[9], st[10],
+                              st[11])))
     return e;
   // scores scaled into the log2 domain: P = 2^(s scale2 - L log2 e)
-  const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  const float scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(OD));
   const int n_t = (S + TQ - 1) / TQ, S_pad = n_t * TQ;
+  const int n_kt = (Skv + TK - 1) / TK;
   using bf = __nv_bfloat16;
-  flash_bwd_dq_wg<HD><<<dim3(n_t, Hq, B), NT, dq_bytes, stream>>>(
+  flash_bwd_dq_wg<HD, OD><<<dim3(n_t, Hq, B), NT, dq_bytes, stream>>>(
       mq, mk, mv, mdo, pq, pk, pv, pdo, static_cast<const bf*>(o),
       static_cast<const bf*>(d_o), st[9], st[10], st[11], lse, ld,
-      static_cast<bf*>(dq), S, S_pad, Hq, Hk, causal, window, scale2);
+      static_cast<bf*>(dq), S, Skv, S_pad, Hq, Hk, causal, window, scale2);
   e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
-  const int cl = dkdv_cluster(S, Hq / Hk, causal, window);
+  const int cl = dkdv_cluster(S, Skv, Hq / Hk, causal, window);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(cl) * n_t * Hk * B);
+  cfg.gridDim = dim3(static_cast<unsigned>(cl) * n_kt * Hk * B);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = kv_bytes;
   cfg.stream = stream;
@@ -1914,9 +1941,10 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = static_cast<int>(cudaLaunchKernelEx(
-      &cfg, flash_bwd_dkdv_wg<HD>, mq, mk, mv, mdo, pq, pk, pv, pdo,
+      &cfg, flash_bwd_dkdv_wg<HD, OD>, mq, mk, mv, mdo, pq, pk, pv, pdo,
       static_cast<const float*>(ld), static_cast<bf*>(dk),
-      static_cast<bf*>(dv), S, S_pad, B, Hq, Hk, causal, window, scale2));
+      static_cast<bf*>(dv), S, Skv, S_pad, B, Hq, Hk, causal, window,
+      scale2));
   if (e != 0) return e;
   return static_cast<int>(cudaGetLastError());
 }
@@ -1924,16 +1952,19 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
 int dispatch_bwd_tc(const void* q, const void* k, const void* v,
                     const void* o, const float* lse, const void* d_o,
                     void* dq, void* dk, void* dv, float* delta,
-                    const long long* st, int B, int S, int Hq, int Hk, int hd,
-                    int causal, int window, cudaStream_t s) {
+                    const long long* st, int B, int S, int Skv, int Hq,
+                    int Hk, int hd, int causal, int window, cudaStream_t s) {
+  // hd 112 on the hd-128 tile, as the forward (flash_fwd_tc)
   switch (hd) {
-#define REPRO_HD(N)                                                          \
-  case N:                                                                    \
-    return launch_bwd_tc<N>(q, k, v, o, lse, d_o, dq, dk, dv, delta, st, B, \
-                            S, Hq, Hk, causal, window, s);
+#define REPRO_HD(N)                                                         \
+  case N:                                                                   \
+    return launch_bwd_tc<N == 112 ? 128 : N, N>(                            \
+        q, k, v, o, lse, d_o, dq, dk, dv, delta, st, B, S, Skv, Hq, Hk,     \
+        causal, window, s);
     REPRO_HD(16)
     REPRO_HD(32)
     REPRO_HD(64)
+    REPRO_HD(112)
     REPRO_HD(128)
 #undef REPRO_HD
     default:
@@ -1976,35 +2007,39 @@ extern "C" int repro_flash_attention(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward of repro_flash_attention (training). q, k, v as given to
-// it (each through its strides, unit over hd), o its output and lse what
-// it wrote; d_o (B, S, Hq, hd) through its strides (dsb, dss, dsh). Writes
-// dq (B, S, Hq, hd), dk and dv (B, S, Hk, hd), contiguous, in the inputs'
-// dtype (0 fp32 on CUDA cores, 1 bf16 on the tensor cores: every base and
-// used stride of q, k, v and d_o a multiple of 16 bytes), and uses delta,
-// fp32 scratch of 2 B Hq S_pad floats, S_pad = S rounded up to a multiple
-// of 64 (fp32: D = dO . O as (B, Hq, S); bf16: (L log2 e, D) pairs as
-// (B, Hq, S_pad, 2)). Two launches (dQ, then dK and dV; bf16's second in
-// clusters); returns cudaGetLastError() after each, cudaErrorInvalidValue
-// for another dtype or hd, -(CUresult) if a tensor map cannot be encoded
-// and -1000 if libcuda has no cuTensorMapEncodeTiled.
+// The backward of repro_flash_attention (training). q (B, S, Hq, hd), k
+// and v (B, Skv, Hk, hd) as given to it (each through its strides, unit
+// over hd; Skv != S only without causality or a window), o its output
+// and lse what it wrote; d_o (B, S, Hq, hd) through its strides (dsb, dss,
+// dsh). Writes dq (B, S, Hq, hd), dk and dv (B, Skv, Hk, hd), contiguous,
+// in the inputs' dtype (0 fp32 on CUDA cores, 1 bf16 on the tensor cores:
+// every base and used stride of q, k, v and d_o a multiple of 16 bytes),
+// and uses delta, fp32 scratch of 2 B Hq S_pad floats, S_pad = S rounded
+// up to a multiple of 64 (fp32: D = dO . O as (B, Hq, S); bf16: (L log2 e,
+// D) pairs as (B, Hq, S_pad, 2)). Two launches (dQ, then dK and dV; bf16's
+// second in clusters); returns cudaGetLastError() after each,
+// cudaErrorInvalidValue for another dtype or hd or a mask with Skv != S,
+// -(CUresult) if a tensor map cannot be encoded and -1000 if libcuda has
+// no cuTensorMapEncodeTiled.
 extern "C" int repro_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* d_o, void* dq, void* dk, void* dv,
     void* delta, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss, long long vsh,
-    long long dsb, long long dss, long long dsh, int B, int S, int Hq, int Hk,
-    int hd, int causal, int window, int dtype, void* stream) {
+    long long dsb, long long dss, long long dsh, int B, int S, int Skv,
+    int Hq, int Hk, int hd, int causal, int window, int dtype, void* stream) {
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, dsb, dss, dsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (Skv != S && (causal || window > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_bwd_f32(q, k, v, o, l, d_o, dq, dk, dv, dl, st, B, S, Hq,
-                            Hk, hd, causal, window, s);
+    return dispatch_bwd_f32(q, k, v, o, l, d_o, dq, dk, dv, dl, st, B, S, Skv,
+                            Hq, Hk, hd, causal, window, s);
   if (dtype == 1)
-    return dispatch_bwd_tc(q, k, v, o, l, d_o, dq, dk, dv, dl, st, B, S, Hq,
-                           Hk, hd, causal, window, s);
+    return dispatch_bwd_tc(q, k, v, o, l, d_o, dq, dk, dv, dl, st, B, S, Skv,
+                           Hq, Hk, hd, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

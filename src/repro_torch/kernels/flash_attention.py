@@ -32,12 +32,13 @@ blocks of a thread-block cluster (:func:`dkdv_cluster`) and folded in
 rank order, the same 16-byte rule for q, k, v and dO as the forward;
 float32 on CUDA cores), counted in ``backward_launches``; on the CPU
 the forward and backward are the plain versions
-(``ref.flash_attention_backward_ref``). With Skv ≠ Sq the backward
-kernels are not built yet and raise on the card (ROADMAP Queue 2 item
-K); on the CPU the plain backward runs. Serving never takes that route:
+(``ref.flash_attention_backward_ref``). The backward takes every head
+dim and mask the forward takes, keys of their own length (Skv ≠ Sq, dk
+and dv of Skv rows) and hd 112 included. Serving never takes that route:
 one launch a layer, no L written. Under ``torch.func.vmap`` (the batched
-FEL engine) both Functions fold the vmapped axis into the batch and
-launch once for the whole batch.
+FEL engine, the PoFEL trainer's clusters) both Functions fold the
+vmapped axis into the batch, k and v with their own length, and launch
+once for the whole batch.
 """
 
 from __future__ import annotations
@@ -50,13 +51,7 @@ from repro_torch.kernels.ref import (flash_attention_backward_ref,
                                      flash_attention_gqa_ref,
                                      flash_attention_lse_ref)
 
-HEAD_DIMS = (16, 32, 64, 112, 128)
-# head dims the forward takes but the backward kernels do not yet
-NO_BACKWARD_HEAD_DIMS = {112: "ROADMAP Queue 2 item I: the flash backward "
-                              "at head dim 112"}
-# keys of a length of their own, which the backward kernels do not take yet
-NO_BACKWARD_CROSS = ("ROADMAP Queue 2 item K: the flash backward with a key "
-                     "length of its own")
+HEAD_DIMS = (16, 32, 64, 112, 128)     # forward and backward alike
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65_535         # the kernel's grid is (Sq / 64, Hq, B)
 TMA_ALIGN = 16               # bytes: TMA's base and stride granule
@@ -65,8 +60,15 @@ NO_ENCODER = -1000           # the C entry's code for a missing libcuda call
 launches = 0            # forward kernel launches
 backward_launches = 0   # backward calls (each the dQ and the dK/dV kernel)
 # forward kernel launches by call: (B, Sq, Skv, Hq, Hk, hd, dtype name,
-# causal, window) → count
+# causal, window) → count; backward calls the same way
 shape_launches: dict = {}
+backward_shape_launches: dict = {}
+
+
+def _call_key(q, k, causal: bool, window: int) -> tuple:
+    B, S, Hq, hd = q.shape
+    return (B, S, k.shape[1], Hq, k.shape[2], hd,
+            str(q.dtype).split(".")[-1], bool(causal), int(window))
 
 
 def _check(q, k, v, causal, window) -> None:
@@ -123,15 +125,18 @@ TILE = 64                    # queries and keys of a backward tile
 MAX_CLUSTER = 4              # blocks of a bfloat16 dK/dV cluster
 
 
-def dkdv_cluster(S: int, G: int, causal: bool, window: int) -> int:
+def dkdv_cluster(S: int, G: int, causal: bool, window: int,
+                 Skv: int | None = None) -> int:
     """Blocks of a cluster of the bfloat16 dK/dV kernel
     (csrc/flash_attention.cu: dkdv_cluster): the (head, query tile) pairs
     that see a key tile are cut into this many runs, as many as the
-    longest key tile has pairs, up to :data:`MAX_CLUSTER`."""
+    longest key tile has pairs, up to :data:`MAX_CLUSTER`. Key tiles of
+    ``Skv`` keys (default S), query tiles of S queries."""
+    Skv = S if Skv is None else Skv
     most = 0
-    for kt in range(-(-S // TILE)):
+    for kt in range(-(-Skv // TILE)):
         k0 = kt * TILE
-        k_last = min(k0 + TILE, S) - 1
+        k_last = min(k0 + TILE, Skv) - 1
         qt_begin = k0 // TILE if causal else 0
         q_end = min(S, k_last + window) if window > 0 else S
         most = max(most, G * (-(-q_end // TILE) - qt_begin))
@@ -190,8 +195,7 @@ def _forward(q, k, v, causal: bool, window: int, want_lse: bool):
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    key = (B, S, Skv, Hq, Hk, hd, str(q.dtype).split(".")[-1], bool(causal),
-           int(window))
+    key = _call_key(q, k, causal, window)
     shape_launches[key] = shape_launches.get(key, 0) + 1
     return o, lse
 
@@ -200,24 +204,19 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
                              window: int = 0):
     """The gradient of :func:`flash_attention`: (dq, dk, dv) in q's dtype,
     from the forward's output ``o`` and row logsumexp ``lse`` (B, Hq, Sq)
-    and the output gradient ``d_o`` (B, Sq, Hq, hd). On the card k and v
-    must have q's sequence length (:data:`NO_BACKWARD_CROSS`)."""
+    and the output gradient ``d_o`` (B, Sq, Hq, hd); dk and dv have the
+    keys' own length Skv."""
     B, S, Hq, hd = q.shape
-    Hk = k.shape[2]
+    Skv, Hk = k.shape[1], k.shape[2]
+    if Skv != S and (causal or window > 0):
+        raise ValueError(f"flash_attention_backward takes keys of their own "
+                         f"length (Skv {Skv} != Sq {S}) only with "
+                         f"causal=False and window 0")
     if q.device.type == "cpu":
         return flash_attention_backward_ref(q, k, v, o, lse, d_o,
                                             causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for {q.device}")
-    if hd in NO_BACKWARD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash attention backward kernel: hd {hd} is not built yet "
-            f"({NO_BACKWARD_HEAD_DIMS[hd]}); the forward takes it")
-    if k.shape[1] != S:
-        raise NotImplementedError(
-            f"flash attention backward kernel: keys of their own length "
-            f"(Skv {k.shape[1]} != Sq {S}) are not built yet "
-            f"({NO_BACKWARD_CROSS}); the forward takes them")
     if d_o.shape != q.shape or d_o.dtype != q.dtype or d_o.stride(3) != 1:
         raise ValueError(f"flash attention backward kernel needs d_o of "
                          f"shape {tuple(q.shape)} and dtype {q.dtype} with "
@@ -240,7 +239,7 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
     global backward_launches
     fn = _build.entry_point("flash_attention_backward")
     dq = torch.empty((B, S, Hq, hd), device=q.device, dtype=q.dtype)
-    dk = torch.empty((B, S, Hk, hd), device=q.device, dtype=q.dtype)
+    dk = torch.empty((B, Skv, Hk, hd), device=q.device, dtype=q.dtype)
     dv = torch.empty_like(dk)
     delta = torch.empty(backward_scratch_floats(B, S, Hq), device=q.device,
                         dtype=torch.float32)
@@ -250,8 +249,8 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
                  lse.data_ptr(), d_o.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *d_o.stride()[:3], B, S, Hq, Hk, hd, int(causal), window,
-                 DTYPES[q.dtype], stream)
+                 *d_o.stride()[:3], B, S, Skv, Hq, Hk, hd, int(causal),
+                 window, DTYPES[q.dtype], stream)
     if err == NO_ENCODER:
         raise RuntimeError("flash attention backward kernel: libcuda has no "
                            "cuTensorMapEncodeTiled")
@@ -262,6 +261,8 @@ def flash_attention_backward(q, k, v, o, lse, d_o, *, causal: bool = True,
         raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"CUDA error {err}")
     backward_launches += 1
+    key = _call_key(q, k, causal, window)
+    backward_shape_launches[key] = backward_shape_launches.get(key, 0) + 1
     return dq, dk, dv
 
 

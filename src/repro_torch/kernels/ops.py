@@ -55,6 +55,12 @@ def flash_launch_shapes() -> Dict[tuple, int]:
     return dict(_fa.shape_launches)
 
 
+def flash_backward_launch_shapes() -> Dict[tuple, int]:
+    """Flash backward calls by call, keyed as :func:`flash_launch_shapes`;
+    they sum to ``launch_counts()["flash_attention_backward"]``."""
+    return dict(_fa.backward_shape_launches)
+
+
 def reset_launch_counts() -> None:
     _cs.launches = 0
     _wa.launches = 0
@@ -63,8 +69,10 @@ def reset_launch_counts() -> None:
     _wkv.backward_launches = 0
     _fa.backward_launches = 0
     _fa.shape_launches.clear()
+    _fa.backward_shape_launches.clear()
 
 
 __all__ = ["batched_cosine_similarity", "combine_partials", "cosine_partials",
-           "flash_attention", "flash_launch_shapes", "launch_counts",
+           "flash_attention", "flash_backward_launch_shapes",
+           "flash_launch_shapes", "launch_counts",
            "reset_launch_counts", "weighted_aggregate", "wkv6_recurrence"]

@@ -11,6 +11,8 @@ through ``Model`` (``repro_torch.configs.NOT_PORTED``).
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     logits, aux = model.forward(params, {"tokens": tokens})
     batch = {"tokens": tokens}              # vlm, audio: and "context"
+    loss = model.loss(params, {**batch, "labels": labels},
+                      FwdOptions(remat=False))   # or no options
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 """
@@ -28,6 +30,7 @@ from repro_torch.configs import NOT_PORTED
 from repro_torch.models import ssm_models, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import COMPUTE_DTYPE
+from repro_torch.models.transformer import FwdOptions, check_options
 
 # default weight of the auxiliary (load-balancing) loss term; eval paths
 # that recombine (logits, aux) outside Model.loss must use the same value
@@ -115,9 +118,12 @@ class Model:
                                 dtype=torch.float32, device=self.device)
 
     # -- forward / loss -------------------------------------------------------
-    def forward(self, params: dict,
-                batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """(logits (B, S, V), aux loss ())."""
+    def forward(self, params: dict, batch: dict,
+                opts: Optional[FwdOptions] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(logits (B, S, V), aux loss ()). ``opts`` as the reference's,
+        within what :func:`transformer.check_options` takes."""
+        check_options(opts)
         if self.cfg.rwkv or self.cfg.family == "hybrid":
             fwd = (ssm_models.rwkv_forward if self.cfg.rwkv
                    else ssm_models.hybrid_forward)
@@ -127,8 +133,9 @@ class Model:
                                    context=_context(batch))
 
     def loss(self, params: dict, batch: dict,
+             opts: Optional[FwdOptions] = None,
              aux_weight: float = DEFAULT_AUX_WEIGHT) -> torch.Tensor:
-        logits, aux = self.forward(params, batch)
+        logits, aux = self.forward(params, batch, opts)
         return _token_ce_loss(logits, batch["labels"]) + aux_weight * aux
 
     # -- serving --------------------------------------------------------------

@@ -18,9 +18,14 @@ per-layer KV caches stacked on a leading layer axis and attends over the
 whole cache, and over the context K/V the prefill computed, as the
 reference.
 
-Not ported: the reference's rematerialization and its mesh levers in
-``FwdOptions`` (ROADMAP Queue 1 item 15; the MoE FFN runs the
-reference's ``gather`` combine).
+:class:`FwdOptions` carries the reference's options by name. Its
+rematerialization and its mesh levers are not ported (ROADMAP Queue 1
+item 15, the mesh half): ``torch.utils.checkpoint`` does not compose with
+``torch.func.grad``, which the PoFEL trainer differentiates through, and
+one card has no mesh, so :func:`check_options` refuses ``remat=True`` and
+any lever off its default (the MoE FFN runs the reference's ``gather``
+combine). The flash kernel keeps its own tiles, so ``q_block`` and
+``kv_block`` change nothing.
 
 :func:`transformer_params_from_jax` carries the reference's weights
 over bit for bit.
@@ -44,6 +49,43 @@ from repro_torch.models.moe import MoEConfig, moe_ffn
 from repro_torch.models.params_io import tree_from_numpy
 
 PARAM_DTYPE = torch.bfloat16
+
+
+class FwdOptions(NamedTuple):
+    """The reference's forward options (``repro.models.transformer.
+    FwdOptions``), fields and defaults alike; see :func:`check_options`."""
+    seq_shard_axis: Optional[str] = None    # Megatron-SP residual sharding
+    dp_axes: tuple = ("data",)              # batch-dim axes inside a cluster
+    remat: bool = True
+    q_block: int = 256
+    kv_block: int = 512
+    parallel_q: bool = False
+    gather_kv: bool = False
+    weight_gather: bool = False
+    expert_axis: Optional[str] = None
+
+
+# the options that only a device mesh gives meaning to
+MESH_LEVERS = ("seq_shard_axis", "parallel_q", "gather_kv", "weight_gather",
+               "expert_axis")
+
+
+def check_options(opts: Optional[FwdOptions]) -> None:
+    """Refuse what the port does not run: ``remat=True`` and any mesh
+    lever off its default (ROADMAP Queue 1 item 15). None is no options,
+    as ``FwdOptions(remat=False)``."""
+    if opts is None:
+        return
+    if opts.remat:
+        raise NotImplementedError(
+            "FwdOptions(remat=True): rematerialization is not ported "
+            "(torch.utils.checkpoint does not compose with torch.func.grad; "
+            "ROADMAP Queue 1 item 15); pass FwdOptions(remat=False)")
+    for name in MESH_LEVERS:
+        if getattr(opts, name) != FwdOptions._field_defaults[name]:
+            raise NotImplementedError(
+                f"FwdOptions({name}={getattr(opts, name)!r}) is a mesh lever; "
+                f"one card has no mesh (ROADMAP Queue 1 item 15)")
 
 
 FAMILIES = ("dense", "moe", "vlm", "audio")

@@ -16,7 +16,10 @@ that the kernels' rounding and order fit the tolerance the card is held
 to (``chip_smoke.py`` FLASH_GRAD_TOL["bfloat16"], rtol/atol 2e-2: one
 rounding of a float32 result to bfloat16 and the products' bfloat16
 operands), at G = 1, 4 and 8, causal, windows shorter and longer than a
-tile, non-causal, and S that is not a multiple of the 64-row tile.
+tile, non-causal, and S that is not a multiple of the 64-row tile; and
+with keys of their own length (Skv != Sq: key tiles of Skv, query tiles
+of Sq) and at hd 112 (the hd-128 tile with columns 112-127 zero, D over
+the 112 columns that exist).
 """
 
 import math
@@ -41,8 +44,8 @@ def _parts(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
-def _mask(qpos, kpos, S, causal, window):
-    ok = (qpos[:, None] < S) & (kpos[None, :] < S)
+def _mask(qpos, kpos, S, Skv, causal, window):
+    ok = (qpos[:, None] < S) & (kpos[None, :] < Skv)
     if causal:
         ok &= qpos[:, None] >= kpos[None, :]
     if window > 0:
@@ -50,21 +53,22 @@ def _mask(qpos, kpos, S, causal, window):
     return ok
 
 
-def _tile(x, t0, S):
-    """Rows [t0, t0 + 64) of (B, S, H, hd) as (B, H, 64, hd) float32,
-    zeros past S (TMA's fill)."""
-    out = torch.zeros(x.shape[0], x.shape[2], T, x.shape[3])
+def _tile(x, t0, S, width):
+    """Rows [t0, t0 + 64) of (B, S, H, hd) as (B, H, 64, width) float32,
+    zeros past S and past hd (TMA's fill)."""
+    out = torch.zeros(x.shape[0], x.shape[2], T, width)
     n = min(T, S - t0)
-    out[:, :, :n] = x[:, t0:t0 + n].transpose(1, 2).float()
+    out[:, :, :n, :x.shape[3]] = x[:, t0:t0 + n].transpose(1, 2).float()
     return out
 
 
 def flash_backward_kernel_order(q, k, v, o, lse, d_o, causal, window):
     B, S, Hq, hd = q.shape
-    Hk = k.shape[2]
+    Skv, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
+    W = 128 if hd == 112 else hd      # the tile's width
     scale2 = LOG2E / math.sqrt(hd)
-    n_t = -(-S // T)
+    n_t, n_kt = -(-S // T), -(-Skv // T)
     # D = Σ dO·O of every row: two halves of hd in order, then added
     prod = d_o.float() * o.float()
     halves = []
@@ -82,11 +86,11 @@ def flash_backward_kernel_order(q, k, v, o, lse, d_o, causal, window):
     def p_ds(sc, dp, qpos, kpos, Lq, Dq, keys_are_rows):
         """P and dS of a tile; rows keys (dK/dV) or queries (dQ)."""
         if keys_are_rows:
-            ok = _mask(qpos, kpos, S, causal, window).T
+            ok = _mask(qpos, kpos, S, Skv, causal, window).T
             p = torch.exp2(sc * scale2 - Lq[..., None, :])
             ds = p * (dp - Dq[..., None, :])
         else:
-            ok = _mask(qpos, kpos, S, causal, window)
+            ok = _mask(qpos, kpos, S, Skv, causal, window)
             p = torch.exp2(sc * scale2 - Lq[..., :, None])
             ds = p * (dp - Dq[..., :, None])
         p = torch.where(ok, p, torch.zeros(()))
@@ -97,29 +101,31 @@ def flash_backward_kernel_order(q, k, v, o, lse, d_o, causal, window):
     for qt in range(n_t):
         q0 = qt * T
         qpos = torch.arange(q0, q0 + T)
-        Qt, dOt = _tile(q, q0, S), _tile(d_o, q0, S)
+        Qt, dOt = _tile(q, q0, S, W), _tile(d_o, q0, S, W)
         Lq, Dq = L2p[..., q0:q0 + T], Dp[..., q0:q0 + T]
         q_last = min(q0 + T, S) - 1
         kt_begin = max(0, q0 - window + 1) // T if window > 0 else 0
-        kt_end = -(-((q_last + 1) if causal else S) // T)
-        acc = torch.zeros(B, Hq, T, hd)
+        kt_end = -(-((q_last + 1) if causal else Skv) // T)
+        acc = torch.zeros(B, Hq, T, W)
         for kt in range(kt_begin, kt_end):
             k0 = kt * T
-            Kt, Vt = _tile(k, k0, S)[:, kvh], _tile(v, k0, S)[:, kvh]
+            Kt, Vt = (_tile(k, k0, Skv, W)[:, kvh],
+                      _tile(v, k0, Skv, W)[:, kvh])
             _, ds = p_ds(Qt @ Kt.transpose(2, 3), dOt @ Vt.transpose(2, 3),
                          qpos, torch.arange(k0, k0 + T), Lq, Dq, False)
             for part in _parts(ds):
                 acc = acc + part @ Kt
         n = min(T, S - q0)
-        dq[:, q0:q0 + n] = (acc * (scale2 / LOG2E)).transpose(1, 2)[:, :n]
+        dq[:, q0:q0 + n] = (acc * (scale2 / LOG2E)).transpose(
+            1, 2)[:, :n, :, :hd]
 
-    dk, dv = torch.zeros(B, S, Hk, hd), torch.zeros(B, S, Hk, hd)
-    cl = kf.dkdv_cluster(S, G, causal, window)
-    for kt in range(n_t):
+    dk, dv = torch.zeros(B, Skv, Hk, hd), torch.zeros(B, Skv, Hk, hd)
+    cl = kf.dkdv_cluster(S, G, causal, window, Skv)
+    for kt in range(n_kt):
         k0 = kt * T
         kpos = torch.arange(k0, k0 + T)
-        Kt, Vt = _tile(k, k0, S), _tile(v, k0, S)
-        k_last = min(k0 + T, S) - 1
+        Kt, Vt = _tile(k, k0, Skv, W), _tile(v, k0, Skv, W)
+        k_last = min(k0 + T, Skv) - 1
         qt_begin = k0 // T if causal else 0
         q_end = min(S, k_last + window) if window > 0 else S
         nq = -(-q_end // T) - qt_begin
@@ -128,11 +134,12 @@ def flash_backward_kernel_order(q, k, v, o, lse, d_o, causal, window):
         for rank in range(cl):
             run = pairs[len(pairs) * rank // cl:len(pairs) * (rank + 1) // cl]
             assert len(pairs) < 2 or len(run) < len(pairs)
-            ak, av = torch.zeros(B, Hk, T, hd), torch.zeros(B, Hk, T, hd)
+            ak, av = torch.zeros(B, Hk, T, W), torch.zeros(B, Hk, T, W)
             for g, qt in run:
                 q0 = qt * T
                 heads = torch.arange(Hk) * G + g
-                Qt, dOt = _tile(q, q0, S)[:, heads], _tile(d_o, q0, S)[:, heads]
+                Qt, dOt = (_tile(q, q0, S, W)[:, heads],
+                           _tile(d_o, q0, S, W)[:, heads])
                 p, ds = p_ds(Kt @ Qt.transpose(2, 3), Vt @ dOt.transpose(2, 3),
                              torch.arange(q0, q0 + T), kpos,
                              L2p[:, heads, q0:q0 + T],
@@ -146,13 +153,16 @@ def flash_backward_kernel_order(q, k, v, o, lse, d_o, causal, window):
         sk, sv = fk[0], fv[0]
         for rank in range(1, cl):
             sk, sv = sk + fk[rank], sv + fv[rank]
-        n = min(T, S - k0)
-        dk[:, k0:k0 + n] = (sk * (scale2 / LOG2E)).transpose(1, 2)[:, :n]
-        dv[:, k0:k0 + n] = sv.transpose(1, 2)[:, :n]
+        n = min(T, Skv - k0)
+        dk[:, k0:k0 + n] = (sk * (scale2 / LOG2E)).transpose(
+            1, 2)[:, :n, :, :hd]
+        dv[:, k0:k0 + n] = sv.transpose(1, 2)[:, :n, :, :hd]
     return (dq.to(torch.bfloat16), dk.to(torch.bfloat16),
             dv.to(torch.bfloat16))
 
 
+# (B, S, Hq, Hk, hd, causal, window): G = 4, 8 and 1; S around a tile and
+# 513; a window shorter than a tile, one longer; non-causal
 # (B, S, Hq, Hk, hd, causal, window): G = 4, 8 and 1; S around a tile and
 # 513; a window shorter than a tile, one longer; non-causal
 CASES = [(2, 130, 8, 2, 64, True, 0), (1, 65, 8, 1, 32, True, 0),
@@ -160,18 +170,23 @@ CASES = [(2, 130, 8, 2, 64, True, 0), (1, 65, 8, 1, 32, True, 0),
          (1, 513, 8, 1, 16, True, 0), (1, 200, 4, 1, 64, True, 40),
          (1, 130, 4, 1, 64, True, 7), (2, 100, 4, 2, 32, False, 0),
          (1, 70, 2, 1, 128, True, 0)]
+# (B, S, Hq, Hk, hd, causal, window, Skv): keys of their own length,
+# non-causal (more keys, fewer, ragged, one short tile), and hd 112
+OWN_KEYS_AND_HD112 = [
+    (1, 64, 4, 4, 64, False, 0, 256), (2, 57, 8, 2, 64, False, 0, 100),
+    (1, 200, 4, 4, 32, False, 0, 16), (1, 33, 2, 1, 128, False, 0, 80),
+    (1, 130, 4, 4, 112, True, 0, 130), (2, 64, 2, 2, 112, True, 0, 64),
+    (1, 70, 2, 1, 112, True, 9, 70), (1, 40, 2, 2, 112, False, 0, 90)]
 
 
-@pytest.mark.parametrize("B,S,Hq,Hk,hd,causal,window", CASES)
-def test_bf16_backward_kernel_order_matches_plain(B, S, Hq, Hk, hd, causal,
-                                                  window):
+def _check_order(B, S, Skv, Hq, Hk, hd, causal, window):
     rng = np.random.default_rng(S * 10 + Hq + hd)
 
     def bf(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(torch.bfloat16)
 
-    q, k, v = bf(B, S, Hq, hd), bf(B, S, Hk, hd), bf(B, S, Hk, hd)
+    q, k, v = bf(B, S, Hq, hd), bf(B, Skv, Hk, hd), bf(B, Skv, Hk, hd)
     d_o = bf(B, S, Hq, hd)
     o = flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
     lse = flash_attention_lse_ref(q, k, causal=causal, window=window)
@@ -182,3 +197,16 @@ def test_bf16_backward_kernel_order_matches_plain(B, S, Hq, Hk, hd, causal,
         assert a.shape == b.shape and torch.isfinite(a.float()).all(), name
         torch.testing.assert_close(a.float(), b.float(), **BF16_GRAD_TOL,
                                    msg=name)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,hd,causal,window", CASES)
+def test_bf16_backward_kernel_order_matches_plain(B, S, Hq, Hk, hd, causal,
+                                                  window):
+    _check_order(B, S, S, Hq, Hk, hd, causal, window)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,hd,causal,window,Skv",
+                         OWN_KEYS_AND_HD112)
+def test_bf16_backward_kernel_order_own_keys_and_hd112(B, S, Hq, Hk, hd,
+                                                       causal, window, Skv):
+    _check_order(B, S, Skv, Hq, Hk, hd, causal, window)

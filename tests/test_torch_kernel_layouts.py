@@ -201,6 +201,18 @@ def test_flash_dkdv_cluster_is_pinned(S, G, causal, window, want):
     """As many blocks as the longest key tile has (head, query tile)
     pairs, up to four: the pairs are cut into that many runs."""
     assert kf.dkdv_cluster(S, G, causal, window) == want <= kf.MAX_CLUSTER
+    assert kf.dkdv_cluster(S, G, causal, window, S) == want
+
+
+# (Sq, Skv, G) -> blocks of a cluster for non-causal keys of their own
+# length: every key tile of Skv is seen by all of Sq's query tiles
+@pytest.mark.parametrize("S,Skv,G,want", [
+    (64, 16, 1, 1), (64, 16, 2, 2), (512, 1024, 1, 4), (57, 100, 1, 1),
+    (57, 100, 4, 4), (100, 57, 1, 2), (512, 16, 8, 4), (64, 256, 3, 2),
+    (512, 256, 24, 4)])
+def test_flash_dkdv_cluster_counts_pairs_over_sq(S, Skv, G, want):
+    assert kf.dkdv_cluster(S, G, False, 0, Skv) == want <= kf.MAX_CLUSTER
+    assert want == min(4, 1 << (G * -(-S // kf.TILE)).bit_length() - 1)
 
 
 @pytest.mark.parametrize("B,S,Hq", [(8, 512, 32), (1, 1000, 8), (8, 16, 2),
@@ -265,17 +277,16 @@ def _cases(source: str, function: str) -> set:
 
 
 def test_flash_source_cases_match_the_wrapper():
-    """The forward's case list is the wrapper's HEAD_DIMS; both backward
-    case lists lack exactly the head dims the wrapper refuses to
-    differentiate on the card (hd 112: ROADMAP Queue 2 item I)."""
+    """The forward's case list and both backward case lists are the
+    wrapper's HEAD_DIMS: every head dim the forward takes is
+    differentiated on the card, hd 112 included."""
     from pathlib import Path
     src = (Path(kf.__file__).parent / "csrc" / "flash_attention.cu"
            ).read_text()
     assert _cases(src, "dispatch_hd") == set(kf.HEAD_DIMS)
-    backward = set(kf.HEAD_DIMS) - set(kf.NO_BACKWARD_HEAD_DIMS)
-    assert _cases(src, "dispatch_bwd_f32") == backward
-    assert _cases(src, "dispatch_bwd_tc") == backward
-    assert "Queue 2 item I" in kf.NO_BACKWARD_HEAD_DIMS[112]
+    assert _cases(src, "dispatch_bwd_f32") == set(kf.HEAD_DIMS)
+    assert _cases(src, "dispatch_bwd_tc") == set(kf.HEAD_DIMS)
+    assert not hasattr(kf, "NO_BACKWARD_HEAD_DIMS")
 
 
 def _c_params(source: str, symbol: str) -> list:
@@ -291,8 +302,8 @@ def _c_params(source: str, symbol: str) -> list:
 
 def test_flash_c_entries_match_their_ctypes_signatures():
     """The ctypes argument types of both flash entry points follow the C
-    entries' parameter lists in csrc/flash_attention.cu; the forward takes
-    the keys' own length Skv after S, the backward one S for all."""
+    entries' parameter lists in csrc/flash_attention.cu; both take the
+    keys' own length Skv after S."""
     import ctypes
     from pathlib import Path
     from repro_torch.kernels import _build
@@ -309,14 +320,22 @@ def test_flash_c_entries_match_their_ctypes_signatures():
     assert names["flash_attention"][-10:] == [
         "B", "S", "Skv", "Hq", "Hk", "hd", "causal", "window", "dtype",
         "stream"]
-    assert "Skv" not in names["flash_attention_backward"]
+    assert names["flash_attention_backward"][-10:] == [
+        "B", "S", "Skv", "Hq", "Hk", "hd", "causal", "window", "dtype",
+        "stream"]
 
 
 def test_flash_backward_with_keys_of_their_own_length_on_the_cpu():
     """The CPU runs the plain backward with Skv != Sq (dk, dv of the keys'
-    length); on the card the backward kernels take one S and the wrapper
-    names the ROADMAP item instead (tests/test_torch_kernels_cuda.py)."""
-    assert "Queue 2 item K" in kf.NO_BACKWARD_CROSS
+    length); nothing is refused any more: the card's kernels take Skv too
+    (tests/test_torch_kernels_cuda.py), only a causal or windowed mask
+    with Skv != Sq is refused, as the forward refuses it."""
+    assert not hasattr(kf, "NO_BACKWARD_CROSS")
+    with pytest.raises(ValueError, match="Skv 12 != Sq 8"):
+        kf.flash_attention_backward(*(torch.zeros(1, n, 2, 16)
+                                      for n in (8, 12, 12, 8)),
+                                    torch.zeros(1, 2, 8),
+                                    torch.zeros(1, 8, 2, 16))
     q, k = torch.randn(1, 8, 2, 16), torch.randn(1, 12, 2, 16)
     o = ops.flash_attention(q, k, k, causal=False)
     lse = kf.flash_attention_lse_ref(q, k, causal=False)

@@ -87,6 +87,30 @@ def test_kernels_match_plain(cuda_device, n, d, dtype):
          "flash_attention_backward": 0}
 
 
+# leaves past 2^31 bytes (float32) and past 2^31 elements (bfloat16): the
+# trainer's Eq. 1 and Eq. 2 run on (C, n) views of whole stacked leaves
+@pytest.mark.parametrize("n,d,dtype", [(2, 2 ** 28 + 64, torch.float32),
+                                       (4, 2 ** 29 + 2048, torch.bfloat16)])
+def test_kernels_match_plain_past_2_31(cuda_device, n, d, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    W = _randn(gen, cuda_device, n, d).to(dtype)
+    assert W.numel() * W.element_size() > 2 ** 31
+    w = torch.arange(1, n + 1, device=cuda_device, dtype=torch.float32)
+    gw = ops.weighted_aggregate(W, w)
+    want = tref.weighted_aggregate_ref(W, w)
+    torch.testing.assert_close(gw, want, **FP32)
+    # the last columns, where a 32-bit offset would wrap
+    assert torch.equal(gw[-4096:], ops.weighted_aggregate(
+        W[:, -4096:].contiguous(), w))
+    del want
+    g = gw.to(dtype)
+    dot, wsq, gsq = ops.cosine_partials(W, g)
+    rdot, rwsq, rgsq = tref.cosine_partials_ref(W, g)
+    torch.testing.assert_close(dot, rdot, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(wsq, rwsq, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gsq, rgsq, rtol=1e-4, atol=0)
+
+
 def _agg_views(dev, n, d, dtype, view):
     """W (n, d) as asked: "whole" a tensor of its own, "row" the rows
     big[1:] of an (n + 1, d) tensor, "elem" a view one element into a flat
@@ -1188,18 +1212,44 @@ def test_flash_hd112_windows_and_non_causal(cuda_device, causal, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_refuses_hd112(cuda_device, dtype):
-    """The backward kernels have no hd 112 case: the wrapper raises and
-    names ROADMAP Queue 2 item I, and does not fall back to the plain
-    version."""
+def test_flash_backward_hd112_autograd_matches_plain(cuda_device, dtype):
+    """Autograd through the op at hd 112 launches the backward pair once
+    and matches the plain backward."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     q, k, v = (t.requires_grad_(True) for t in
                _flash_inputs(gen, cuda_device, 1, 64, 2, 2, 112, dtype))
     o = ops.flash_attention(q, k, v)
     before = ops.launch_counts()["flash_attention_backward"]
-    with pytest.raises(NotImplementedError, match="Queue 2 item I"):
-        o.sum().backward()
-    assert ops.launch_counts()["flash_attention_backward"] == before
+    o.sum().backward()
+    assert ops.launch_counts()["flash_attention_backward"] == before + 1
+    lse = tref.flash_attention_lse_ref(q.detach(), k.detach())
+    want = tref.flash_attention_backward_ref(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse,
+        torch.ones_like(o))
+    for a, b in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_GRAD[dtype])
+
+
+# Zamba2-7B's shared attention (32 heads of 112) and ragged lengths, G 1,
+# 2 and 8, causal and windowed, in both types
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hk,causal,window", [
+    (8, 512, 32, 32, True, 0), (8, 64, 32, 32, True, 0),
+    (2, 1, 2, 2, True, 0), (2, 57, 4, 4, True, 0), (1, 130, 8, 1, True, 0),
+    (2, 513, 4, 2, True, 0), (2, 333, 8, 2, True, 40),
+    (2, 100, 4, 4, False, 0)])
+def test_flash_backward_hd112_matches_plain(cuda_device, B, S, Hq, Hk,
+                                            causal, window, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * S + Hq + 112)
+    q, k, v = _flash_inputs(gen, cuda_device, B, S, Hq, Hk, 112, dtype)
+    d_o = _randn(gen, cuda_device, B, S, Hq, 112).to(dtype)
+    got, want = _flash_grads(q, k, v, d_o, causal, window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_GRAD[dtype],
+                                   msg=name)
+    again, _ = _flash_grads(q, k, v, d_o, causal, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("name", ["zamba2-7b", "deepseek-moe-16b",
@@ -1331,20 +1381,79 @@ def test_flash_keys_of_their_own_length_fold_under_vmap(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_refuses_keys_of_their_own_length(cuda_device, dtype):
-    """The backward kernels take one S: with Skv != Sq the wrapper raises
-    and names ROADMAP Queue 2 item K, and does not fall back to the plain
-    version."""
+def test_flash_backward_own_keys_autograd_matches_plain(cuda_device, dtype):
+    """Autograd through a cross-attention (Skv != Sq) launches the
+    backward pair once, dk and dv of the keys' length, within tolerance
+    of the plain backward. A causal mask with Skv != Sq stays refused."""
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     q, k, v = _cross_inputs(gen, cuda_device, 1, 64, 256, 2, 2, 64, dtype)
-    q.requires_grad_(True)
+    for t in (q, k, v):
+        t.requires_grad_(True)
     o = ops.flash_attention(q, k, v, causal=False)
     before = ops.launch_counts()["flash_attention_backward"]
-    with pytest.raises(NotImplementedError, match="Queue 2 item K"):
-        o.sum().backward()
-    assert ops.launch_counts()["flash_attention_backward"] == before
+    o.sum().backward()
+    assert ops.launch_counts()["flash_attention_backward"] == before + 1
+    assert k.grad.shape == k.shape and v.grad.shape == v.shape
+    lse = tref.flash_attention_lse_ref(q.detach(), k.detach(), causal=False)
+    want = tref.flash_attention_backward_ref(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse,
+        torch.ones_like(o), causal=False)
+    for a, b in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_GRAD[dtype])
     with pytest.raises(ValueError, match="Skv 256 != Sq 64"):
         ops.flash_attention(q, k, v, causal=True)
+
+
+# the trainer's cross-attention shapes (Llama-3.2-Vision, MusicGen, the
+# folded (8, 64 -> 256) of four clusters), ragged Skv, Sq > Skv
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hk,hd,dtype", [
+    (8, 512, 1024, 64, 8, 128, torch.bfloat16),
+    (8, 512, 256, 24, 24, 64, torch.bfloat16),
+    (8, 512, 256, 24, 24, 64, torch.float32),
+    (8, 64, 256, 24, 24, 64, torch.bfloat16),
+    (2, 57, 100, 8, 2, 64, torch.bfloat16),
+    (2, 57, 100, 8, 2, 64, torch.float32),
+    (2, 512, 16, 8, 8, 32, torch.bfloat16),
+    (2, 512, 16, 8, 8, 32, torch.float32),
+    (3, 5, 70, 4, 1, 112, torch.bfloat16),
+    (3, 5, 70, 4, 1, 112, torch.float32)])
+def test_flash_backward_keys_of_their_own_length_match_plain(
+        cuda_device, B, Sq, Skv, Hq, Hk, hd, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq * Skv + hd + 7)
+    q, k, v = _cross_inputs(gen, cuda_device, B, Sq, Skv, Hq, Hk, hd, dtype)
+    d_o = _randn(gen, cuda_device, B, Sq, Hq, hd).to(dtype)
+    got, want = _flash_grads(q, k, v, d_o, False, 0)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_GRAD[dtype],
+                                   msg=name)
+    again, _ = _flash_grads(q, k, v, d_o, False, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_backward_keys_of_their_own_length_fold_under_vmap(
+        cuda_device):
+    """A vmapped cross-attention backward folds the V batch members into
+    the batch: one backward call, bit-identical to V separate ones."""
+    from torch.func import vmap
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    V, B, Sq, Skv, Hq, Hk, hd = 4, 2, 64, 256, 4, 2, 64
+    q = _randn(gen, cuda_device, V, B, Sq, Hq, hd).to(torch.bfloat16)
+    k, v = (_randn(gen, cuda_device, V, B, Skv, Hk, hd).to(torch.bfloat16)
+            for _ in range(2))
+    d_o = _randn(gen, cuda_device, V, B, Sq, Hq, hd).to(torch.bfloat16)
+    o, lse = vmap(kf._Attention.apply, in_dims=(0, 0, 0, None, None, None))(
+        q, k, v, False, 0, True)
+    before = ops.launch_counts()
+    grads = vmap(kf._AttentionBackward.apply,
+                 in_dims=(0, 0, 0, 0, 0, 0, None, None))(
+        q, k, v, o, lse, d_o, False, 0)
+    assert _counts_delta(before)["flash_attention_backward"] == 1
+    for i in range(V):
+        one = kf.flash_attention_backward(q[i], k[i], v[i], o[i], lse[i],
+                                          d_o[i], causal=False)
+        assert all(torch.equal(a[i], b) for a, b in zip(grads, one))
 
 
 @pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "musicgen-medium"])
