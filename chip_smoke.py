@@ -227,6 +227,27 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     round from the restored state is bit-identical to the next round
     from the live one.
 
+40. the analyzer: ``python -m repro_torch.analysis src/repro_torch`` on
+    this machine (no JAX) exits 0; its files analyzed and suppressed;
+41. the serving launcher: ``launch.serve.serve_reduced`` for starcoder2-3b,
+    deepseek-moe-16b, rwkv6-1.6b, zamba2-7b, musicgen-medium and
+    llama-3.2-vision-90b at the CLI's defaults (batch 4, prompts of 32,
+    16 new tokens, greedy, seed 0), twice: exactly the path's launches
+    (flash once an attention layer in a dense, MoE, vlm or audio prefill,
+    and in the hybrid's prefill, a forward, once a group; wkv6 once a
+    layer in the RWKV-6 prefill, each replayed prompt step and each
+    decode step), the same tokens twice, the same call on the CPU with
+    the card's weights held to phase 9's rule; then ``python -m
+    repro_torch.launch.serve`` with its defaults on the card; the
+    prefill and per-token times beside the card's name and power limit;
+42. AdamW: the reduced MusicGen's params, native and float32, through 3
+    ``adamw_update`` steps with ``warmup_cosine_lr`` on the card and the
+    CPU, clipped and not: within the float32 tolerance (bfloat16 leaves
+    within one rounding), the moments' dtypes by the reference's rule;
+    then one clipped update over MusicGen-medium's full 2.27 B bfloat16
+    parameters with seeded gradients: float32 moments, bfloat16 params,
+    finite values, its time and peak memory.
+
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
 line, when there is no CUDA device or any check fails.
@@ -382,6 +403,15 @@ TRAIN_DIVERGE = (0.15, 0.03, 0.09, 0.21)
 TRAIN_FULL = (("musicgen-medium", None, 4), ("zamba2-7b", 12, 2))
 # the checkpointed MusicGen state: full width, 4 of its 48 layers
 CKPT_LAYERS = 4
+# the serving launcher (phase 41): one arch of each family its CLI offers,
+# at the CLI's defaults (batch 4, prompts of 32, 16 new tokens, greedy)
+SERVE_ARCHS = ("starcoder2-3b", "deepseek-moe-16b", "rwkv6-1.6b",
+               "zamba2-7b", "musicgen-medium", "llama-3.2-vision-90b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
+# AdamW card against CPU (phase 42): float32 within the tolerance of
+# tests/test_torch_optim.py (the gradient norm sums in another order)
+ADAMW_STEPS = 3
+ADAMW_RTOL, ADAMW_ATOL = 2e-5, 2e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -1258,36 +1288,48 @@ def phase_serving_agreement(dev, arch: str) -> None:
     reqs = serving_requests(cfg.vocab_size)
     done = ServingEngine(cpu, cpu_params, device="cpu").generate(reqs)
     forced = np.asarray([c.tokens for c in done], np.int32)
+    hold_to_cpu(f"serving agreement {arch}", card, params, cpu, cpu_params,
+                reqs, forced)
+
+
+def hold_to_cpu(tag: str, card, params, cpu, cpu_params, reqs,
+                forced) -> None:
+    """Phase 9's rule: both models teacher-forced along ``forced``, the
+    CPU's greedy tokens (B, n) for ``reqs``: logits within LOGIT_ATOL (mean
+    LOGIT_MEAN), and the same argmax wherever the CPU's top-2 margin
+    exceeds 2 * LOGIT_ATOL. A MoE model's card run takes the CPU run's
+    expert choices (``RoutingTape``), and its own choices must agree
+    wherever the CPU's router margin is clear."""
+    import torch
     with RoutingTape() as tape:
         lh = teacher_forced(cpu, cpu_params, reqs, forced)
-    if cfg.family == "moe":
+    if cpu.cfg.family == "moe":
         with tape:
             lc = teacher_forced(card, params, reqs, forced)
         check(tape.at == len(tape.tape) and tape.mismatched == 0,
-              f"serving agreement {arch}: {tape.mismatched} tokens route to "
+              f"{tag}: {tape.mismatched} tokens route to "
               f"other experts on the card where the CPU's router margin is "
               f"clear")
-        print(f"serving agreement {arch}: routing of {tape.tokens} tokens "
+        print(f"{tag}: routing of {tape.tokens} tokens "
               f"over {len(tape.tape)} router calls, {tape.flipped} chose "
               f"other experts on the card, none where the margin is clear",
               flush=True)
     else:
         lc = teacher_forced(card, params, reqs, forced)
     check(torch.equal(lh.argmax(-1), torch.from_numpy(forced).long()),
-          f"serving agreement {arch}: the CPU's greedy tokens are not its "
-          f"argmax")
+          f"{tag}: the CPU's greedy tokens are not its argmax")
     diff = (lc - lh).abs()
     check(float(diff.max()) <= LOGIT_ATOL
           and float(diff.mean()) <= LOGIT_MEAN,
-          f"serving agreement {arch}: logits differ by {float(diff.max())} "
+          f"{tag}: logits differ by {float(diff.max())} "
           f"(mean {float(diff.mean())})")
     top2 = lh.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_ATOL
     same = lc.argmax(-1) == lh.argmax(-1)
     check(bool(same[clear].all()),
-          f"serving agreement {arch}: {int((~same & clear).sum())} "
+          f"{tag}: {int((~same & clear).sum())} "
           f"clear-margin steps pick another token on the card")
-    print(f"serving agreement {arch}: {N_REQUESTS} x {NEW_TOKENS} steps, "
+    print(f"{tag}: {forced.shape[0]} x {forced.shape[1]} steps, "
           f"logits max diff {float(diff.max()):.4f} (mean "
           f"{float(diff.mean()):.5f}); argmax equal at {int(same.sum())} of "
           f"{same.numel()} steps, {int(clear.sum())} with a clear margin",
@@ -3088,6 +3130,220 @@ def trainer_backward_launches(rows: list, runs: list) -> None:
         row["on_path"] = row["launches"] > 0
 
 
+# -- slice 13: the analyzer, the serving launcher, AdamW --------------------
+
+def phase_analysis() -> str:
+    """``python -m repro_torch.analysis src/repro_torch`` on this machine,
+    which has no JAX: exit 0 (no finding beyond the baseline); its summary
+    line (files analyzed, noqa-suppressed, baselined)."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = done.stdout.strip().splitlines()
+    last = lines[-1] if lines else ""
+    check(done.returncode == 0 and last.startswith("0 finding(s)"),
+          f"the analyzer exited {done.returncode}: {done.stdout[-2000:]}"
+          f"{done.stderr[-2000:]}")
+    print(f"analyzer on src/repro_torch ({time.perf_counter() - t0:.1f} s, "
+          f"exit 0): {last}", flush=True)
+    return last
+
+
+def launcher_launches(cfg) -> dict:
+    """The kernel launches of one ``serve_reduced`` at SERVE_PROMPT and
+    SERVE_GEN: RWKV-6 runs wkv6 once a layer in the prefill's forward,
+    in each of the prompt's replayed steps and in each of the SERVE_GEN - 1
+    decode steps; every other family launches flash only in its timed
+    prefill, once an attention layer (the hybrid's prefill is a forward,
+    once a group; its replay and decode attention are plain)."""
+    if cfg.rwkv:
+        return {"wkv6": cfg.n_layers * (1 + SERVE_PROMPT + SERVE_GEN - 1)}
+    return {"flash_attention": attention_layers(cfg)}
+
+
+def phase_launcher(dev) -> dict:
+    """``launch.serve.serve_reduced`` on the card for one arch of each
+    family the CLI offers, at its defaults (SERVE_BATCH requests of
+    SERVE_PROMPT tokens, SERVE_GEN new ones, greedy, seed 0, the weights
+    it makes at seed 0): exactly :func:`launcher_launches`, the same tokens
+    on a second run; the same call on the CPU with the card's weights,
+    held to phase 9's rule (:func:`hold_to_cpu`); then the CLI, ``python
+    -m repro_torch.launch.serve`` with its defaults, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving import GenerationRequest
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).reduced()
+        card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+        params = card.init(torch.Generator(device=dev).manual_seed(0))
+        want = {k: 0 for k in ops.launch_counts()}
+        want.update(launcher_launches(cfg))
+        runs = []
+        for attempt in range(2):
+            ops.reset_launch_counts()
+            runs.append(serve.serve_reduced(
+                arch, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, 0, 0.0,
+                device=dev, params=params))
+            counts = ops.launch_counts()
+            check(counts == want, f"launcher {arch}: launches {counts}, "
+                  f"want {want}")
+        tokens = runs[0].tokens
+        check(tokens.shape == (SERVE_BATCH, SERVE_GEN)
+              and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              f"launcher {arch}: tokens {tokens.shape}")
+        check(np.array_equal(tokens, runs[1].tokens),
+              f"launcher {arch}: a second identical run gave other tokens")
+        cpu_params = tree_to(params, "cpu")
+        host = serve.serve_reduced(arch, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                                   0, 0.0, device="cpu", params=cpu_params)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+        reqs = [GenerationRequest(i, prompts[i], SERVE_GEN)
+                for i in range(SERVE_BATCH)]
+        hold_to_cpu(f"launcher {arch} card vs CPU", card, params, cpu,
+                    cpu_params, reqs, host.tokens)
+        out[arch] = {
+            "launches": {k: v for k, v in want.items() if v},
+            "prefill_ms": [r.prefill_s * 1e3 for r in runs],
+            "ms_per_decoded_token": [r.decode_s * 1e3 / (SERVE_GEN - 1)
+                                     for r in runs],
+            "tokens_equal_cpu": int((tokens == host.tokens).sum())}
+        print(f"launcher {arch}: prefill {SERVE_PROMPT} x {SERVE_BATCH} "
+              f"{out[arch]['prefill_ms'][1]:.2f} ms, "
+              f"{out[arch]['ms_per_decoded_token'][1]:.2f} ms per decoded "
+              f"token (second run; first {out[arch]['prefill_ms'][0]:.2f} / "
+              f"{out[arch]['ms_per_decoded_token'][0]:.2f}), launches "
+              f"{out[arch]['launches']}, {out[arch]['tokens_equal_cpu']} of "
+              f"{tokens.size} tokens as on the CPU", flush=True)
+        del card, params
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(done.returncode == 0 and done.stdout.startswith(
+        f"arch=starcoder2-3b reduced | prefill {SERVE_PROMPT} toks × "
+        f"{SERVE_BATCH} reqs"),
+          f"the serving CLI failed: {done.stdout[-2000:]}"
+          f"{done.stderr[-2000:]}")
+    print(f"serving CLI on the card ({time.perf_counter() - t0:.1f} s):\n"
+          f"{done.stdout.strip()}", flush=True)
+    print(f"launcher times on {nvidia_smi()}: " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def adamw_agrees(tag: str, card, host) -> None:
+    """Card against CPU leaf by leaf: the same dtypes; float32 within
+    ADAMW_RTOL / ADAMW_ATOL, bfloat16 within one bfloat16 rounding."""
+    import torch
+    from repro_torch.core.serialization import leaves_with_paths
+    for (path, a), (_, b) in zip(leaves_with_paths(card),
+                                 leaves_with_paths(host)):
+        check(a.dtype == b.dtype, f"{tag} {path}: {a.dtype} on the card, "
+              f"{b.dtype} on the CPU")
+        rtol, atol = ((ADAMW_RTOL, ADAMW_ATOL) if a.dtype == torch.float32
+                      else (2 ** -7, 1e-6))
+        check(torch.allclose(a.cpu().float(), b.float(), rtol=rtol,
+                             atol=atol),
+              f"{tag} {path}: differs by "
+              f"{float((a.cpu().float() - b.float()).abs().max())}")
+
+
+def phase_adamw(dev) -> dict:
+    """AdamW: the reduced MusicGen's params (native dtypes, and cast to
+    float32) through ADAMW_STEPS updates with ``warmup_cosine_lr`` on the
+    card and on the CPU from the same seeded gradients, clipped and not:
+    leaf by leaf within :func:`adamw_agrees`, and the moments' dtypes by
+    the reference's rule (a bfloat16 leaf's are float32 when clipped,
+    bfloat16 when not). Then one clipped update over MusicGen-medium's
+    full 2.27 B bfloat16 parameters from a fresh state with seeded
+    gradients, twice (the first with the allocator cold): float32 moments,
+    params in their dtypes, finite values; its time and peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fl import pofel_trainer as pt
+    from repro_torch.models.model_api import Model
+    from repro_torch.optim import adamw_init, adamw_update, warmup_cosine_lr
+    lr = warmup_cosine_lr(1e-2, 1, ADAMW_STEPS)
+    base = Model(get_config("musicgen-medium").reduced(),
+                 device="cpu").init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    grads = [pt._map(lambda p: torch.randn(p.shape, generator=gen), base)
+             for _ in range(ADAMW_STEPS)]
+    for label, cast in (("native", None), ("float32", torch.float32)):
+        for clip in (1.0, None):
+            tag = f"adamw reduced {label} clip={clip}"
+            sides = {}
+            for where in ("cpu", dev):
+                p = pt._map(lambda t: t.to(where, cast or t.dtype), base)
+                st = adamw_init(p)
+                for g in grads:
+                    g = pt._map(lambda t, q: t.to(where, q.dtype), g, p)
+                    p, st = adamw_update(g, st, p, lr=lr, grad_clip=clip)
+                sides[str(where)] = (p, st)
+            (hp, hs), (cp, cs) = sides["cpu"], sides[str(dev)]
+            adamw_agrees(tag, {"params": cp, "mu": cs.mu, "nu": cs.nu},
+                         {"params": hp, "mu": hs.mu, "nu": hs.nu})
+            moment_dtypes = {str(t.dtype) for t in pt._leaves(cs.mu)}
+            param_dtypes = {str(t.dtype) for t in pt._leaves(cp)}
+            for t, b0 in zip(pt._leaves(cs.mu) + pt._leaves(cs.nu),
+                             2 * pt._leaves(base)):
+                b0 = b0.to(cast or b0.dtype)
+                want = (torch.promote_types(b0.dtype, torch.float32)
+                        if clip is not None else b0.dtype)
+                check(t.dtype == want, f"{tag}: a moment is {t.dtype}, want "
+                      f"{want} for a {b0.dtype} leaf")
+            print(f"{tag}: {ADAMW_STEPS} steps card vs CPU agree; params "
+                  f"{sorted(param_dtypes)}, moments {sorted(moment_dtypes)}",
+                  flush=True)
+
+    cfg = get_config("musicgen-medium")
+    model = Model(cfg, device=dev)
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    grads = pt._map(lambda p: torch.randn(p.shape, generator=gen, device=dev,
+                                          dtype=p.dtype), params)
+    n = sum(t.numel() for t in pt._leaves(params))
+    lr = warmup_cosine_lr(3e-4, 100, 10_000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for attempt in range(2):
+        state = adamw_init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, state = adamw_update(grads, state, params, lr=lr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for t, p in zip(pt._leaves(new), pt._leaves(params)):
+            check(t.dtype == p.dtype and bool(torch.isfinite(t).all()),
+                  f"adamw full width: a param leaf is {t.dtype} or not "
+                  f"finite")
+        for t in pt._leaves(state.mu) + pt._leaves(state.nu):
+            check(t.dtype == torch.float32 and bool(torch.isfinite(t).all()),
+                  f"adamw full width: a moment is {t.dtype} or not finite")
+        del new, state
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    dtypes = sorted({str(t.dtype) for t in pt._leaves(params)})
+    out = {"params": n, "param_dtypes": dtypes, "ms": times, "peak_gb": peak}
+    print(f"adamw full width MusicGen-medium, {n:,} parameters {dtypes}: "
+          f"one clipped update {times[1]:.1f} ms (first {times[0]:.1f} ms), "
+          f"moments float32, peak {peak:.1f} GB on {nvidia_smi()}",
+          flush=True)
+    del params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def stamp(t0: float, what: str) -> None:
     print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
 
@@ -3268,6 +3524,16 @@ def main() -> int:
         stamp(t_start, f"phase 38 {arch}")
     phase_checkpoint(dev)
     stamp(t_start, "phase 39")
+    # 40. the analyzer; 41. the serving launcher, card against CPU, and its
+    # CLI; 42. AdamW, reduced card against CPU, then at MusicGen's width
+    torch.cuda.empty_cache()
+    phase_analysis()
+    launcher = phase_launcher(dev)
+    phase_adamw(dev)
+    stamp(t_start, "phases 40-42")
+    for row in wkv_rows + flash_rows:
+        row["launcher_launches"] = {a: v["launches"].get(row["name"], 0)
+                                    for a, v in launcher.items()}
     # the new backward rows: the trainer rounds' calls of their shapes
     trainer_backward_launches(f112_bwd_rows + cross_bwd_rows,
                               list(tfull.values()))

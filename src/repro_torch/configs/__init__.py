@@ -1,4 +1,5 @@
-"""Architecture registry of the port (counterpart of ``repro.configs``).
+"""Architecture and input-shape registry of the port (counterpart of
+``repro.configs``).
 
 The ids are the reference's, and every one of them is registered.
 ``mnist-mlp`` is there for completeness, as in the reference: the FL
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.shapes import INPUT_SHAPES, InputShape
 from repro_torch.models.config import ArchConfig
 
 ARCH_IDS = [
@@ -55,4 +57,5 @@ def get_config(arch_id: str) -> ArchConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "NOT_PORTED", "get_config"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "NOT_PORTED",
+           "get_config"]

@@ -1,0 +1,27 @@
+"""Assigned input shapes (port of ``repro.configs.shapes``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+    # long-context decode runs full-attention archs with a sliding window
+    needs_subquadratic: bool = False
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode",
+                            needs_subquadratic=True),
+}
+
+# window used when a full-attention arch runs long_500k
+LONG_CONTEXT_WINDOW = 8_192

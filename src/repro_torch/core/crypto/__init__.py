@@ -324,7 +324,13 @@ def dsign(digest: bytes, private_key: int) -> Signature:
         if r == 0:
             retry += 1
             continue
-        s = _inv_mod(k, _N) * (z + r * private_key) % _N
+        # RA203, deliberate: CPython integer multiply is value-dependent,
+        # inherent in the pure-Python big-int ECDSA signer. It runs in the
+        # simulator's host control plane, where no network observer can
+        # time single signing calls, and RFC 6979 nonces remove the
+        # nonce-leak amplification that makes ECDSA timing attacks
+        # practical. Revisit if dsign is ever exposed as a remote service.
+        s = _inv_mod(k, _N) * (z + r * private_key) % _N  # noqa: RA203
         if s == 0:
             retry += 1
             continue

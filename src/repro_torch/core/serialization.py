@@ -27,6 +27,13 @@ import torch
 _MAGIC = b"RPR0"
 
 
+def map_tree(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def _is_namedtuple(tree: Any) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 

@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core.btsv import BTSVConfig, btsv_round, init_history
 from repro_torch.core.serialization import leaves_with_paths, rebuild
+from repro_torch.core.serialization import map_tree as _map
 from repro_torch.kernels import ops
 from repro_torch.models.model_api import Model
 from repro_torch.models.params_io import tree_from_numpy
@@ -81,13 +82,6 @@ class ConsensusMetrics(NamedTuple):
     leader: torch.Tensor        # () int32 — e*(k)
     vote_weights: torch.Tensor  # (C,) WV^i(k)
     scores: torch.Tensor        # (C,) BTS scores
-
-
-def _map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of one structure."""
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 def _leaves(tree) -> list:
