@@ -248,6 +248,27 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     parameters with seeded gradients: float32 moments, bfloat16 params,
     finite values, its time and peak memory.
 
+43. the dry run: ``python -m repro_torch.launch.dryrun --all
+    --both-meshes`` as a process (80 combinations on a fake process
+    group of 512 ranks, nothing allocated), then with ``--device cpu``:
+    every combination OK, the rows equal but for ``build_s``, no
+    collective term; the yi-6b ``train_4k`` rows of baseline and zero3
+    (``python -m repro_torch.launch.hillclimb``) on both meshes;
+44. the specs' steps on ``launch.mesh.make_host_mesh()`` (a world-size-1
+    NCCL group): MusicGen-medium's ``build_train_setup(...).step`` at
+    full width and depth, C = 4, batch 8 × 64, seeded weights, three
+    rounds with ``FwdOptions(remat=True)`` (192 flash forward launches
+    and 96 backward calls a round) and three without: round times, peak
+    memory, losses and similarities within float32 rounding, the same
+    leader where the top two are clear; yi-6b's decode step at full width
+    (B 128, S 8) bit-identical to ``Model.decode_step``;
+45. remat: the Zamba2-7B trainer at 12 of 81 layers with remat at C = 4
+    (out of memory without remat; an out-of-memory is recorded with its
+    peak) and C = 2 (beside phase 38's run without remat); the reduced
+    rwkv6, yi, zamba2, deepseek-moe, musicgen and llama-vision models'
+    remat gradients on the card within the bfloat16 rule of the CPU's,
+    each rematerialized block's forward kernel launched once more.
+
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
 line, when there is no CUDA device or any check fails.
@@ -268,11 +289,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor-core) and dense
-# bf16 tensor-core peaks
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
+# H100 SXM5 data sheet: HBM3 bandwidth, fp32 (non-tensor-core) and dense
+# bf16 tensor-core peaks, as the port's roofline names them
+from repro_torch.launch.roofline import (  # noqa: E402
+    H100_SXM5_BF16_DENSE_FLOP_PER_S as BF16_FLOP_PER_S,
+    H100_SXM5_FP32_FLOP_PER_S as FP32_FLOP_PER_S,
+    H100_SXM5_HBM3_BYTES_PER_S as HBM_BYTES_PER_S)
 SHAPES = ((8, 101_770), (50, 101_770))
 # ME in phases 23-24: 6 nodes a scenario, committees of 16 and 32; float32,
 # the MLP's dtype
@@ -411,6 +433,19 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
 # AdamW card against CPU (phase 42): float32 within the tolerance of
 # tests/test_torch_optim.py (the gradient norm sums in another order)
 ADAMW_STEPS = 3
+# slice 14 (phases 43-45): the dry run's combos (10 archs × 4 shapes × 2
+# meshes); the specs' train step (MusicGen-medium, C = 4, batch 8 × 64)
+# and decode step (yi-6b, B 128, S 8) on the 1×1 card mesh; Zamba2-7B's
+# trainer at 12 layers with remat at C = 4 and 2; the reduced six
+# families' gradients with remat against those without, on the card
+DRYRUN_COMBOS = 80
+SPECS_TRAIN = ("musicgen-medium", 64, 8, 4)
+SPECS_DECODE = ("yi-6b", 8, 128)
+# (arch, layers, clusters, may run out of memory): C = 4 ran out without
+# remat (PR 22); only that run may end out of memory
+REMAT_ZAMBA = (("zamba2-7b", 12, 4, True), ("zamba2-7b", 12, 2, False))
+REMAT_GRAD_ARCHS = ("rwkv6-1.6b", "yi-6b", "zamba2-7b", "deepseek-moe-16b",
+                    "musicgen-medium", "llama-3.2-vision-90b")
 ADAMW_RTOL, ADAMW_ATOL = 2e-5, 2e-6
 
 
@@ -2785,16 +2820,20 @@ def phase_consortium(dev) -> dict:
 
 # -- slice 12: the PoFEL trainer and checkpoints ----------------------------
 
-def trainer_round_launches(model, n_leaves: int) -> dict:
+def trainer_round_launches(model, n_leaves: int,
+                           remat: bool = False) -> dict:
     """Kernel launches of one PoFEL round: under ``torch.func.vmap`` the
     clusters fold into one forward launch and one backward call a layer
-    of each model kernel; Eq. 1 and Eq. 2 one launch each a leaf."""
+    of each model kernel; Eq. 1 and Eq. 2 one launch each a leaf. With
+    remat each rematerialized block launches its forward once more, in
+    the backward (the hybrid's shared attention is not rematerialized)."""
     cfg = model.cfg
     attn = 0 if cfg.rwkv else attention_layers(cfg, model.needs_context())
     wkv = cfg.n_layers if cfg.rwkv else 0
+    again = 2 if remat and cfg.family != "hybrid" else 1
     return {"cosine_partials": n_leaves, "weighted_aggregate": n_leaves,
-            "wkv6": wkv, "flash_attention": attn, "wkv6_backward": wkv,
-            "flash_attention_backward": attn}
+            "wkv6": again * wkv, "flash_attention": again * attn,
+            "wkv6_backward": wkv, "flash_attention_backward": attn}
 
 
 def trainer_leaves(tree) -> int:
@@ -2943,6 +2982,37 @@ def phase_train_agreement(dev) -> None:
               f"{int(got.leader)} on both", flush=True)
 
 
+class ForwardMemory:
+    """What the forward of ``Model.loss`` leaves alive for the backward,
+    under whatever transform calls it (``vmap(grad_and_value)`` in the
+    trainer): the card's allocated bytes at the loss's return less those
+    at its call, and the allocated bytes at its return; the largest over
+    the calls made while it is on. A wrapper on the model's class, whose
+    ``loss`` ``local_step`` looks up at each call."""
+
+    def __init__(self, model, dev):
+        self.cls, self.dev = type(model), dev
+        self.held = self.end = 0
+
+    def __enter__(self):
+        import torch
+        self.inner = inner = self.cls.__dict__["loss"]
+
+        def loss(model, *a, **kw):
+            before = torch.cuda.memory_allocated(self.dev)
+            value = inner(model, *a, **kw)
+            end = torch.cuda.memory_allocated(self.dev)
+            self.held = max(self.held, end - before)
+            self.end = max(self.end, end)
+            return value
+
+        self.cls.loss = loss
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.loss = self.inner
+
+
 def trainer_full_cfg(arch: str, layers):
     import dataclasses
     from repro_torch.configs import get_config
@@ -2951,7 +3021,8 @@ def trainer_full_cfg(arch: str, layers):
                                                            n_layers=layers)
 
 
-def phase_train_full(dev, arch: str, layers, clusters: int) -> dict:
+def phase_train_full(dev, arch: str, layers, clusters: int,
+                     opts=None) -> dict:
     """Three sgd1 PoFEL rounds of ``arch`` at full width (``layers`` of its
     layers, or all), ``clusters`` clusters sharing a batch of TRAIN_BATCH
     sequences of TRAIN_SEQ tokens, with the launcher's context: the first
@@ -2974,7 +3045,8 @@ def phase_train_full(dev, arch: str, layers, clusters: int) -> dict:
     state = pt.init_train_state(model, tcfg,
                                 torch.Generator(device=dev).manual_seed(0))
     n_leaves = trainer_leaves(state.global_params)
-    per_round = trainer_round_launches(model, n_leaves)
+    per_round = trainer_round_launches(model, n_leaves,
+                                       opts is not None and opts.remat)
     stream = synthetic_token_batches(
         TokenBatchSpec(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), seed=0)
     lam = torch.ones((clusters,), device=dev)
@@ -2996,10 +3068,12 @@ def phase_train_full(dev, arch: str, layers, clusters: int) -> dict:
 
     def one_round():
         b = round_batch(next(stream), model, clusters, dev)
-        box["state"], m = pt.pofel_round(model, box["state"], b, lam, tcfg)
+        box["state"], m = pt.pofel_round(model, box["state"], b, lam, tcfg,
+                                         opts)
         torch.cuda.synchronize()
         box["metrics"] = m
 
+    fwd = ForwardMemory(model, dev)
     for k in range(3):
         ops.reset_launch_counts()
         if k == 1:
@@ -3008,11 +3082,12 @@ def phase_train_full(dev, arch: str, layers, clusters: int) -> dict:
             pt.consensus = timed(inner[1], "consensus")
         t0 = time.perf_counter()
         try:
-            if k == 2:
-                n_ops, busy_us, top = device_busy(
-                    one_round, f"trainer {arch}", host=False)
-            else:
-                one_round()
+            with fwd:
+                if k == 2:
+                    n_ops, busy_us, top = device_busy(
+                        one_round, f"trainer {arch}", host=False)
+                else:
+                    one_round()
         finally:
             if k == 1:
                 pt.local_step, pt.consensus = inner
@@ -3034,7 +3109,8 @@ def phase_train_full(dev, arch: str, layers, clusters: int) -> dict:
           f"call them through the module")
     round_ms = walls[1] * 1e3
     out = {"arch": arch, "layers": cfg.n_layers, "params": model.n_params(),
-           "clusters": clusters, "leaves": n_leaves, "per_round": per_round,
+           "clusters": clusters, "remat": opts is not None and opts.remat,
+           "leaves": n_leaves, "per_round": per_round,
            "round_ms": [w * 1e3 for w in walls],
            "local_step_share": parts["local_step"] / walls[1],
            "consensus_share": parts["consensus"] / walls[1],
@@ -3043,14 +3119,18 @@ def phase_train_full(dev, arch: str, layers, clusters: int) -> dict:
            "busy_us": busy_us, "busy_share": busy_us / (round_ms * 1e3),
            "device_ops": n_ops, "top_us": top,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "fwd_held_gb": fwd.held / 1e9, "fwd_end_gb": fwd.end / 1e9,
            "losses": losses, "backward_shapes": shapes}
     print(f"trainer {arch} full width, {cfg.n_layers} layers, "
-          f"{out['params']:,} parameters, C = {clusters}: rounds "
+          f"{out['params']:,} parameters, C = {clusters}, remat "
+          f"{out['remat']}: rounds "
           f"{[round(w, 1) for w in out['round_ms']]} ms; local_step "
           f"{out['local_step_ms']:.1f} ms ({out['local_step_share']:.3f}), "
           f"consensus {out['consensus_ms']:.1f} ms "
           f"({out['consensus_share']:.3f}); busy share "
-          f"{out['busy_share']:.4f}; peak {out['peak_gb']:.1f} GB; launches "
+          f"{out['busy_share']:.4f}; peak {out['peak_gb']:.1f} GB, the "
+          f"forward holding {out['fwd_held_gb']:.3f} GB for the backward "
+          f"({out['fwd_end_gb']:.3f} GB allocated at its end); launches "
           f"a round {per_round}", flush=True)
     print(f"trainer {arch} " + json.dumps(
         {k: v for k, v in out.items() if k != "backward_shapes"}),
@@ -3344,6 +3424,316 @@ def phase_adamw(dev) -> dict:
     return out
 
 
+# -- slice 14: the dry run, the specs' steps, remat ---------------------------
+
+def launcher_process(*argv, timeout: int = 300) -> tuple:
+    """``python -m`` ``argv`` from the repo root: (stdout, seconds)."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(done.returncode == 0, f"{' '.join(argv)} exited "
+          f"{done.returncode}: {done.stdout[-2000:]}{done.stderr[-3000:]}")
+    return done.stdout, time.perf_counter() - t0
+
+
+def phase_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun --all --both-meshes`` as a
+    process on the card's device type, then with ``--device cpu``: every
+    combination built, rows equal but for ``build_s``; the yi-6b
+    ``train_4k`` rows of baseline (the dry run's) and zero3 (``python -m
+    repro_torch.launch.hillclimb``) on both meshes."""
+    where = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    rows, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        out = where / f"{device}.json"
+        stdout, secs[device] = launcher_process(
+            "repro_torch.launch.dryrun", "--all", "--both-meshes",
+            "--device", device, "--json", str(out))
+        check(f"{DRYRUN_COMBOS} combos OK, 0 failed" in stdout,
+              f"dry run on {device}: {stdout[-500:]}")
+        rows[device] = json.loads(out.read_text())
+
+    def strip(r):
+        return [{k: v for k, v in x.items() if k != "build_s"} for x in r]
+    check(strip(rows["cuda"]) == strip(rows["cpu"]),
+          "the dry run's rows differ between the cuda and cpu meshes")
+    check(all(r["collective_s"] is None and "item 15" in r["collective_note"]
+              for r in rows["cuda"]), "a row has a collective term")
+    yi = {("baseline", r["mesh"]): r for r in rows["cuda"]
+          if r["arch"] == "yi-6b" and r["shape"] == "train_4k"}
+    for multi in ((), ("--multi-pod",)):
+        out = where / "hillclimb.json"
+        _, secs["hillclimb"] = launcher_process(
+            "repro_torch.launch.hillclimb", "--arch", "yi-6b", "--shape",
+            "train_4k", "--profile", "zero3", "--json", str(out), *multi)
+    for r in json.loads(out.read_text()):
+        yi[("zero3", r["mesh"])] = r
+    for (profile, mesh), r in sorted(yi.items()):
+        print(f"dry run yi-6b train_4k {profile} {mesh}: "
+              f"{r['arg_gb_per_dev']:.3f} GB of arguments a device, compute "
+              f"{r['compute_s'] * 1e3:.1f} ms, memory "
+              f"{r['memory_s'] * 1e3:.2f} ms, {r['dominant']}-bound",
+              flush=True)
+    print(f"dry run: {len(rows['cuda'])} combos OK on cuda in "
+          f"{secs['cuda']:.1f} s, on cpu in {secs['cpu']:.1f} s (processes);"
+          f" rows equal but build_s; hillclimb zero3 "
+          f"{secs['hillclimb']:.1f} s", flush=True)
+    return {"combos": len(rows["cuda"]), "seconds": secs}
+
+
+def phase_specs_steps(dev) -> dict:
+    """The specs' steps on ``make_host_mesh()`` (a world-size-1 NCCL
+    group): SPECS_TRAIN's trainer at full width and depth, C clusters,
+    seeded weights materialized as ``init_train_state`` does, three
+    rounds through ``build_train_setup(...).step`` with remat and three
+    without from the same state and batches: the round times, peak
+    memory, the bytes the forward holds for the backward (fewer with
+    remat: :class:`ForwardMemory`), flash launches a round, leaders;
+    losses and similarities
+    equal (float32 rounding at most), the same leader where the top two
+    are clear. Then SPECS_DECODE's decode step at full width against
+    ``Model.decode_step`` on the same weights and a cache of its own:
+    bit-identical logits."""
+    import torch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.tokens import (TokenBatchSpec,
+                                         synthetic_token_batches)
+    from repro_torch.fl import pofel_trainer as pt
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import (build_decode_setup,
+                                          build_train_setup)
+    from repro_torch.launch.train import round_batch
+    from repro_torch.models.transformer import FwdOptions
+    mesh = make_host_mesh()
+    arch, seq, batch, clusters = SPECS_TRAIN
+    shape = InputShape("mini_train", seq, batch, "train")
+    tcfg = pt.PoFELTrainConfig(n_clusters=clusters)
+    out = {}
+    for remat in (True, False):
+        setup = build_train_setup(arch, mesh, shape, tcfg,
+                                  FwdOptions(remat=remat))
+        model = setup.model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = pt.init_train_state(
+            model, tcfg, torch.Generator(device=dev).manual_seed(0))
+        stream = synthetic_token_batches(
+            TokenBatchSpec(batch, seq, model.cfg.vocab_size), seed=0)
+        lam = torch.ones((clusters,), device=dev)
+        walls, launches, metrics = [], [], []
+        fwd = ForwardMemory(model, dev)
+        for _ in range(TRAIN_STEPS):
+            b = round_batch(next(stream), model, clusters, dev)
+            b = {k: v.to(torch.int32) if k != "context" else v
+                 for k, v in b.items()}
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fwd:
+                state, m = setup.step(state, b, lam)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(ops.launch_counts())
+            metrics.append(m)
+            check(bool(torch.isfinite(m.loss).all())
+                  and bool(torch.isfinite(m.similarities).all()),
+                  f"specs step {arch} remat {remat}: {m}")
+        want = trainer_round_launches(model, trainer_leaves(
+            state.global_params), remat)
+        check(all(n == want for n in launches), f"specs step {arch} remat "
+              f"{remat}: launches {launches}, want {want} a round")
+        out[remat] = {"round_ms": [w * 1e3 for w in walls],
+                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                      "fwd_held_gb": fwd.held / 1e9,
+                      "fwd_end_gb": fwd.end / 1e9, "launches": want,
+                      "losses": [m.loss.cpu() for m in metrics],
+                      "sims": [m.similarities.cpu() for m in metrics],
+                      "leaders": [int(m.leader) for m in metrics]}
+        print(f"specs step {arch} full width, C = {clusters}, remat {remat}: "
+              f"rounds {[round(w * 1e3, 1) for w in walls]} ms, peak "
+              f"{out[remat]['peak_gb']:.1f} GB (the forward holding "
+              f"{out[remat]['fwd_held_gb']:.3f} GB for the backward, "
+              f"{out[remat]['fwd_end_gb']:.3f} GB allocated at its end), "
+              f"flash "
+              f"{want['flash_attention']} forward and "
+              f"{want['flash_attention_backward']} backward launches a "
+              f"round, leaders {out[remat]['leaders']}", flush=True)
+        del state, setup, model, metrics
+    on, off = out[True], out[False]
+    loss_err = max(float((a - b).abs().max())
+                   for a, b in zip(on["losses"], off["losses"]))
+    sim_err = max(float((a - b).abs().max())
+                  for a, b in zip(on["sims"], off["sims"]))
+    check(on["fwd_held_gb"] < off["fwd_held_gb"],
+          f"specs step {arch}: the forward holds {on['fwd_held_gb']} GB "
+          f"for the backward with remat, {off['fwd_held_gb']} GB without")
+    check(loss_err <= 1e-6 and sim_err <= 1e-6,
+          f"specs step {arch}: remat against none, losses within {loss_err},"
+          f" similarities within {sim_err}")
+    for k, s in enumerate(off["sims"]):
+        top = torch.sort(s, descending=True).values
+        if float(top[0] - top[1]) > 2e-6:
+            check(on["leaders"][k] == off["leaders"][k],
+                  f"specs step {arch} round {k}: leader {on['leaders'][k]} "
+                  f"with remat, {off['leaders'][k]} without")
+    print(f"specs step {arch}: remat against none, losses within "
+          f"{loss_err:.2e}, similarities within {sim_err:.2e}, leaders "
+          f"{on['leaders']} and {off['leaders']} on {nvidia_smi()}",
+          flush=True)
+    torch.cuda.empty_cache()
+    arch, seq, batch = SPECS_DECODE
+    setup = build_decode_setup(arch, mesh,
+                               InputShape("mini_decode", seq, batch, "decode"))
+    model = setup.model
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, model.cfg.vocab_size, (batch, 1),
+                           generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev, dtype=torch.int32)
+    pos = torch.tensor(seq // 2, dtype=torch.int32, device=dev)
+    got, _ = setup.step(params, model.init_cache(batch, seq), tokens, pos)
+    want, _ = model.decode_step(params, model.init_cache(batch, seq), tokens,
+                                seq // 2)
+    check(torch.equal(got, want), f"specs decode step {arch}: logits differ "
+          f"from Model.decode_step by {float((got - want).abs().max())}")
+    print(f"specs decode step {arch} full width, B = {batch}, S = {seq}: "
+          f"bit-identical to Model.decode_step", flush=True)
+    del params, setup, model
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return {"train": {k: {x: v[x] for x in ("round_ms", "peak_gb",
+                                            "fwd_held_gb", "fwd_end_gb",
+                                            "launches", "leaders")}
+                      for k, v in out.items()},
+            "loss_err": loss_err, "sim_err": sim_err}
+
+
+def remat_grads(model, params, batch, opts) -> tuple:
+    """({path: gradient}, losses) of ``model.loss`` with ``opts`` under
+    ``torch.func.vmap(grad_and_value)`` over the batch's leading (replica)
+    axis, each replica starting from ``params``: the trainer's path."""
+    import torch
+    from repro_torch.core.serialization import leaves_with_paths
+    n = batch["tokens"].shape[0]
+    reps = torch.utils._pytree.tree_map(
+        lambda t: t[None].expand(n, *t.shape), params)
+    grads, losses = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: model.loss(p, b, opts)))(reps, batch)
+    return dict(leaves_with_paths(grads)), losses
+
+
+def remat_grad_agreement(dev) -> dict:
+    """Each reduced arch of REMAT_GRAD_ARCHS on the card, two replicas
+    under ``vmap(grad_and_value)``: with remat, the losses and every
+    gradient leaf equal those without remat bit for bit, and each
+    rematerialized block's forward kernel launches once more (the
+    hybrid's shared block excepted). Without remat the card's gradients
+    are held to the CPU's by phases 17 and 37 and by the cuda tests of
+    ``tests/test_torch_kernels_cuda.py``, so this holds the remat ones to
+    them too. The cross blocks' gates are drawn
+    at random and the context is seeded, so that every weight of a cross
+    block gets a gradient that is not zero (with zero gates, or with the
+    stub's equal context rows, the comparison would pass on zeros)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_api import Model
+    from repro_torch.models.transformer import FwdOptions
+    out = {}
+    for arch in REMAT_GRAD_ARCHS:
+        cfg = get_config(arch).reduced()
+        card = Model(cfg, device=dev)
+        gen = torch.Generator().manual_seed(0)
+        params = tree_to(Model(cfg, device="cpu").init(gen), dev)
+        for g in ("gate_attn", "gate_mlp"):
+            if g in params.get("cross_layers", {}):
+                params["cross_layers"][g] = torch.randn(
+                    params["cross_layers"][g].shape, generator=gen).to(dev)
+        rows = torch.randint(0, cfg.vocab_size, (2, 4, 33), generator=gen)
+        batch = {"tokens": rows[..., :-1], "labels": rows[..., 1:]}
+        if card.needs_context():
+            batch["context"] = 0.1 * torch.randn(
+                (2,) + card.context_shape(4), generator=gen)
+        batch = tree_to(batch, dev)
+        got, counts = {}, {}
+        for remat in (False, True):
+            ops.reset_launch_counts()
+            got[remat] = remat_grads(card, params, batch,
+                                     FwdOptions(remat=remat))
+            torch.cuda.synchronize()
+            counts[remat] = ops.launch_counts()
+            want = trainer_round_launches(card, 0, remat=remat)
+            for k in ("wkv6", "flash_attention", "wkv6_backward",
+                      "flash_attention_backward"):
+                check(counts[remat][k] == want[k], f"remat grads {arch} "
+                      f"remat {remat}: {k} {counts[remat][k]} launches, "
+                      f"want {want[k]}")
+        (g0, l0), (g1, l1) = got[False], got[True]
+        check(torch.equal(l0, l1), f"remat grads {arch}: losses {l1} with "
+              f"remat, {l0} without")
+        check(set(g0) == set(g1), f"remat grads {arch}: leaves differ")
+        zero = 0
+        for name, a in g0.items():
+            b = g1[name]
+            check(bool(torch.isfinite(b).all()) and torch.equal(a, b),
+                  f"remat grads {arch}: {name} differs from no remat by "
+                  f"{float((a.float() - b.float()).abs().max())}")
+            zero += int(not bool(a.any()))
+        out[arch] = {"launches": {k: counts[True][k] for k in counts[True]},
+                     "leaves": len(g0), "zero_leaves": zero}
+        print(f"remat grads {arch} reduced, 2 replicas under vmap: losses "
+              f"and all {len(g0)} gradient leaves bit-identical to no remat "
+              f"({zero} leaves all zero), launches {counts[True]}",
+              flush=True)
+    return out
+
+
+def phase_remat(dev, no_remat: dict) -> dict:
+    """REMAT_ZAMBA: the Zamba2-7B trainer at 12 layers with remat, at
+    C = 4 (its run without remat ran out of the card's memory; the entry
+    flagged ``may_oom`` records an out-of-memory with its peak, no other
+    entry may run out) and C = 2, whose bytes held from the forward for
+    the backward must be fewer than ``no_remat``'s (phase 38's run of the
+    same trainer without remat); after :func:`remat_grad_agreement`."""
+    import torch
+    from repro_torch.models.transformer import FwdOptions
+    opts = FwdOptions(remat=True)
+    out = {"trainer": {}, "grads": remat_grad_agreement(dev)}
+    for arch, layers, clusters, may_oom in REMAT_ZAMBA:
+        torch.cuda.empty_cache()
+        try:
+            out["trainer"][clusters] = phase_train_full(dev, arch, layers,
+                                                        clusters, opts)
+        except torch.OutOfMemoryError:
+            if not may_oom:
+                raise
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            out["trainer"][clusters] = {"oom": True, "peak_gb": peak}
+            print(f"trainer {arch} {layers} layers, C = {clusters}, remat: "
+                  f"out of memory at a peak of {peak:.1f} GB on "
+                  f"{nvidia_smi()}", flush=True)
+        torch.cuda.empty_cache()
+        run = out["trainer"][clusters]
+        if (arch, layers, clusters) == (no_remat["arch"], no_remat["layers"],
+                                        no_remat["clusters"]):
+            check(run["fwd_held_gb"] < no_remat["fwd_held_gb"],
+                  f"trainer {arch} C = {clusters}: the forward holds "
+                  f"{run['fwd_held_gb']} GB for the backward with remat, "
+                  f"{no_remat['fwd_held_gb']} GB without")
+            print(f"trainer {arch} {layers} layers, C = {clusters}: the "
+                  f"forward holds {run['fwd_held_gb']:.3f} GB for the "
+                  f"backward with remat, {no_remat['fwd_held_gb']:.3f} "
+                  f"without; allocated at the forward's end "
+                  f"{run['fwd_end_gb']:.3f} and {no_remat['fwd_end_gb']:.3f}"
+                  f" GB, peak {run['peak_gb']:.3f} and "
+                  f"{no_remat['peak_gb']:.3f} GB", flush=True)
+    return out
+
+
 def stamp(t0: float, what: str) -> None:
     print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
 
@@ -3531,6 +3921,15 @@ def main() -> int:
     launcher = phase_launcher(dev)
     phase_adamw(dev)
     stamp(t_start, "phases 40-42")
+    # 43. the dry run and hillclimb as processes; 44. the specs' steps on
+    # the 1×1 card mesh, MusicGen-medium's trainer with and without
+    # remat and yi-6b's decode step; 45. remat: Zamba2-7B's trainer at C
+    # = 4 and 2, the reduced six families' gradients against no remat
+    torch.cuda.empty_cache()
+    phase_dryrun()
+    specs_steps = phase_specs_steps(dev)
+    remat = phase_remat(dev, tfull["zamba2-7b"])
+    stamp(t_start, "phases 43-45")
     for row in wkv_rows + flash_rows:
         row["launcher_launches"] = {a: v["launches"].get(row["name"], 0)
                                     for a, v in launcher.items()}
@@ -3540,6 +3939,14 @@ def main() -> int:
     for row in f112_bwd_rows + cross_bwd_rows:
         print(f"flash backward {flash_key(row)}: {row['launches']} calls in "
               f"the full-width trainer rounds", flush=True)
+    # the rematerialized paths: a specs round (phase 44) and the reduced
+    # gradients (phase 45)
+    for row in wkv_rows + flash_rows + wkv_bwd_rows + flash_bwd_rows:
+        row["remat_grad_launches"] = {
+            a: v["launches"][row["name"]]
+            for a, v in remat["grads"].items()}
+        row["specs_remat_launches_a_round"] = \
+            specs_steps["train"][True]["launches"][row["name"]]
     for row in rows + flash_bwd_rows + wkv_bwd_rows:
         row["trainer_launches_a_round"] = {
             a: v["per_round"][row["name"]]

@@ -30,9 +30,10 @@ FedSGD update runs one cluster of one leaf at a time in float32, freeing
 each gradient once it is applied. Nothing is updated in place: the state
 a round was given is left as it was.
 
-Not ported: ``cluster_axis`` (the cluster dim sharded over a mesh axis)
-and ``abstract_train_state`` (the dry run's shapes): one card has no
-mesh (ROADMAP Queue 1 item 15).
+:func:`abstract_train_state` gives the state's shapes and dtypes on the
+meta device (the dry run's, ``repro_torch.launch.specs``). Not ported:
+``cluster_axis`` (the cluster dim sharded over a mesh axis), which waits
+for ROADMAP Queue 1 item 15's execution half: one card has no mesh.
 """
 
 from __future__ import annotations
@@ -108,6 +109,22 @@ def init_train_state(model: Model, cfg: PoFELTrainConfig,
     )
 
 
+def abstract_train_state(model: Model,
+                         cfg: PoFELTrainConfig) -> PoFELTrainState:
+    """:func:`init_train_state`'s shapes and dtypes as meta tensors,
+    nothing allocated: the replicas (C, ...) as ``expand`` views of the
+    global model, float32 momenta, the BTSV history and the round."""
+    params = model.abstract_params()
+    return PoFELTrainState(
+        cluster_params=_broadcast_clusters(params, cfg.n_clusters),
+        global_params=params,
+        outer_momentum=_map(lambda t: torch.empty(
+            t.shape, dtype=torch.float32, device="meta"), params),
+        btsv_history=init_history(cfg.n_clusters, cfg.btsv).to("meta"),
+        round=torch.empty((), dtype=torch.int32, device="meta"),
+    )
+
+
 def train_state_from_jax(state: Any, model: Model,
                          device: torch.device | str | None = None
                          ) -> PoFELTrainState:
@@ -153,7 +170,8 @@ def local_step(model: Model, cluster_params: Any, batch: dict,
     if cfg.cluster_axis is not None:
         raise NotImplementedError(
             f"cluster_axis={cfg.cluster_axis!r} shards the clusters over a "
-            f"mesh; one card has none (ROADMAP Queue 1 item 15)")
+            f"mesh; one card has none (ROADMAP Queue 1 item 15, the "
+            f"execution half)")
 
     def one(params, b):
         return torch.func.grad_and_value(model.loss)(params, b, opts,
@@ -280,5 +298,5 @@ def train_step(model: Model, state: PoFELTrainState, batch: dict,
 
 
 __all__ = ["ConsensusMetrics", "PoFELTrainConfig", "PoFELTrainState",
-           "consensus", "init_train_state", "local_step", "pofel_round",
+           "abstract_train_state", "consensus", "init_train_state", "local_step", "pofel_round",
            "train_state_from_jax", "train_step"]

@@ -1,0 +1,378 @@
+"""Per-(arch × input-shape × mesh) step construction for the dry run and
+the launchers (port of ``repro.launch.specs``): abstract arguments and
+the step that takes them.
+
+An abstract argument is a DTensor over a meta tensor: the global shape
+and dtype, the reference's sharding as placements on the given
+``DeviceMesh`` (``repro_torch.models.sharding``), one device's shard as
+its local shape, and nothing allocated. Three step kinds, per the
+assigned input shapes:
+  train    → ``pofel_round``  (local FEL step + PoFEL consensus)
+  prefill  → ``Model.prefill``
+  decode   → ``Model.decode_step`` (one token against a seq_len KV cache)
+
+``StepSetup.step`` (the reference's ``jitted``) runs on a mesh of one
+device: it takes tensors (or DTensors, whose local tensors it takes) of
+the abstract arguments' local shapes and dtypes. On a larger mesh, and
+with a mesh lever off its default or a sharded cluster axis, it raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 15's execution half;
+building a setup refuses neither.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import INPUT_SHAPES, LONG_CONTEXT_WINDOW, InputShape
+from repro_torch.core.serialization import leaves_with_paths, rebuild
+from repro_torch.fl import pofel_trainer as pt
+from repro_torch.launch.mesh import mesh_axes
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model_api import Model
+from repro_torch.models.sharding import (PSpec, cache_pspecs, local_shape,
+                                         param_pspecs, placements,
+                                         with_cluster_dim)
+from repro_torch.models.transformer import FwdOptions, check_options
+
+EXECUTION_HALF = "ROADMAP Queue 1 item 15, the execution half"
+
+
+@dataclass
+class StepSetup:
+    name: str
+    step: Callable              # runs on a mesh of one device
+    abstract_args: tuple        # DTensors over meta tensors
+    model: Model
+    cfg: ArchConfig
+
+
+def _contiguous_stride(shape: tuple) -> tuple:
+    stride, acc = [], 1
+    for s in reversed(shape):
+        stride.append(acc)
+        acc *= s
+    return tuple(reversed(stride))
+
+
+def abstract_dtensor(shape: tuple, dtype: torch.dtype, spec: PSpec, mesh):
+    """A DTensor of global ``shape`` laid out by ``spec`` on ``mesh``,
+    over a meta tensor of this device's local shape."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    local = torch.empty(local_shape(shape, spec, mesh), dtype=dtype,
+                        device="meta")
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _shard_tree(mesh, tree_specs, tree_abstract):
+    """DTensors of every tensor of ``tree_abstract`` (None stays None)."""
+    specs = dict(leaves_with_paths(tree_specs))
+    return rebuild(tree_abstract, {
+        p: None if a is None else abstract_dtensor(tuple(a.shape), a.dtype,
+                                                   specs[p], mesh)
+        for p, a in leaves_with_paths(tree_abstract)})
+
+
+def arg_bytes_per_device(args: tuple) -> int:
+    """Bytes of one device's shards of every abstract argument."""
+    return sum(math.prod(a.to_local().shape) * a.element_size()
+               for arg in args for _, a in leaves_with_paths(arg)
+               if a is not None)
+
+
+def serving_config(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
+    """long_500k runs full-attention archs with a sliding window; SSM
+    archs are already O(1)-state."""
+    if shape.needs_subquadratic and not cfg.rwkv and cfg.family != "ssm":
+        return cfg.with_sliding_window(LONG_CONTEXT_WINDOW)
+    return cfg
+
+
+def _runnable(mesh, opts: Optional[FwdOptions],
+              tcfg: Optional[pt.PoFELTrainConfig] = None) -> None:
+    """Refuse what one device does not run: a mesh of more devices, a
+    mesh lever, a sharded cluster axis."""
+    if mesh.size() > 1:
+        raise NotImplementedError(
+            f"a step on a mesh of {mesh.size()} devices "
+            f"{dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))} runs "
+            f"DTensors across ranks ({EXECUTION_HALF})")
+    check_options(opts)
+    if tcfg is not None and tcfg.cluster_axis is not None:
+        raise NotImplementedError(
+            f"cluster_axis={tcfg.cluster_axis!r} shards the clusters over "
+            f"a mesh ({EXECUTION_HALF})")
+
+
+def _local(arg: Any, abstract: Any, where: str) -> Any:
+    """``arg`` with each DTensor as its local tensor, each checked
+    against its abstract argument's local shape and dtype."""
+    from torch.distributed.tensor import DTensor
+
+    def spelled(t):
+        return None if t is None else (tuple(t.shape), t.dtype)
+
+    want = {p: None if w is None else w.to_local()
+            for p, w in leaves_with_paths(abstract)}
+    got = {p: a.to_local() if isinstance(a, DTensor) else a
+           for p, a in leaves_with_paths(arg)}
+    if set(got) != set(want):
+        raise ValueError(f"{where}: leaves {sorted(set(got) ^ set(want))} "
+                         f"are not the step's")
+    for p, a in got.items():
+        if spelled(a) != spelled(want[p]):
+            raise ValueError(f"{where}{p}: got {spelled(a)}, want "
+                             f"{spelled(want[p])}")
+    return rebuild(arg, got)
+
+
+def _make_step(mesh, abstract_args: tuple, run: Callable,
+               opts: Optional[FwdOptions],
+               tcfg: Optional[pt.PoFELTrainConfig] = None) -> Callable:
+    def step(*args):
+        _runnable(mesh, opts, tcfg)
+        if len(args) != len(abstract_args):
+            raise TypeError(f"the step takes {len(abstract_args)} "
+                            f"arguments, got {len(args)}")
+        return run(*(_local(a, w, f"argument {i}") for i, (a, w) in
+                     enumerate(zip(args, abstract_args))))
+    return step
+
+
+# ---------------------------------------------------------------------------
+# train: PoFEL round
+# ---------------------------------------------------------------------------
+
+def default_profile_config(profile: str, mesh, n_clusters_baseline: int = 8
+                           ) -> tuple[pt.PoFELTrainConfig, FwdOptions]:
+    """Per-profile PoFEL/forward defaults, the reference's:
+
+    baseline — 2-D TP×FSDP params, C=8 unsharded clusters
+    sp_attn  — sequence-parallel attention: attention weights FSDP-only,
+               parallel-q, explicit KV gather
+    zero3    — C=16 clusters sharded over `data` (32 over (pod, data)),
+               model-axis weight storage with per-layer gather,
+               parallel-q, KV gather, expert-parallel MoE buffers
+    """
+    ax = mesh_axes(mesh)
+    dp_axes = ax["dp_axes"]
+    if profile == "baseline":
+        return (pt.PoFELTrainConfig(n_clusters=n_clusters_baseline),
+                FwdOptions(seq_shard_axis="model", dp_axes=dp_axes,
+                           remat=True))
+    if profile == "sp_attn":
+        return (pt.PoFELTrainConfig(n_clusters=n_clusters_baseline),
+                FwdOptions(seq_shard_axis="model", dp_axes=dp_axes,
+                           remat=True, parallel_q=True, gather_kv=True))
+    if profile == "zero3":
+        n_c = 2 * 16 if "pod" in dp_axes else 16
+        axis = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+        return (pt.PoFELTrainConfig(n_clusters=n_c, cluster_axis=axis),
+                FwdOptions(seq_shard_axis="model", dp_axes=(),
+                           remat=True, parallel_q=True, gather_kv=True,
+                           weight_gather=True, expert_axis="model"))
+    raise ValueError(f"unknown profile {profile!r}")
+
+
+def build_train_setup(arch_id: str, mesh, shape: InputShape,
+                      tcfg: pt.PoFELTrainConfig | None = None,
+                      opts: FwdOptions | None = None,
+                      profile: str = "baseline") -> StepSetup:
+    assert shape.kind == "train"
+    cfg = get_config(arch_id)
+    model = Model(cfg, device=mesh.device_type)
+    ax = mesh_axes(mesh)
+    dp_axes, dp_total, tp = ax["dp_axes"], ax["dp_total"], ax["tp"]
+    d_tcfg, d_opts = default_profile_config(profile, mesh)
+    tcfg = tcfg or d_tcfg
+    opts = opts or d_opts
+    C = tcfg.n_clusters
+
+    # --- state specs ---------------------------------------------------------
+    single_specs = param_pspecs(model.abstract_params(), tp, dp_total,
+                                cfg.family, profile=profile)
+    cluster_dim = tcfg.cluster_axis  # None or "data"
+    abstract_state = pt.abstract_train_state(model, tcfg)
+    state_specs = pt.PoFELTrainState(
+        cluster_params=with_cluster_dim(single_specs, cluster_dim),
+        global_params=single_specs,
+        outer_momentum=single_specs,
+        btsv_history=PSpec(),
+        round=PSpec(),
+    )
+    state_arg = _shard_tree(mesh, state_specs, abstract_state)
+
+    # --- batch specs -----------------------------------------------------------
+    B, S = shape.global_batch, shape.seq_len
+    assert B % C == 0, f"global batch {B} must divide n_clusters {C}"
+    bc = B // C
+    if cluster_dim is not None:
+        bspec = PSpec(cluster_dim, None, None)
+        ctx_spec = PSpec(cluster_dim, None, None, None)
+    elif bc % dp_total == 0:
+        bspec = PSpec(None, dp_axes, None)
+        ctx_spec = PSpec(None, dp_axes, None, None)
+    else:
+        bspec = PSpec(None, None, None)
+        ctx_spec = PSpec()
+    meta = dict(device="meta")
+    batch_abstract = {
+        "tokens": torch.empty((C, bc, S), dtype=torch.int32, **meta),
+        "labels": torch.empty((C, bc, S), dtype=torch.int32, **meta),
+    }
+    batch_specs = {"tokens": bspec, "labels": bspec}
+    if model.needs_context():
+        batch_abstract["context"] = torch.empty(
+            (C, bc, cfg.n_context_tokens, cfg.d_model), dtype=torch.bfloat16,
+            **meta)
+        batch_specs["context"] = ctx_spec
+    batch_arg = _shard_tree(mesh, batch_specs, batch_abstract)
+    lambdas_arg = abstract_dtensor((C,), torch.float32, PSpec(), mesh)
+    args = (state_arg, batch_arg, lambdas_arg)
+
+    def run(state, batch, lambdas):
+        return pt.pofel_round(model, state, batch, lambdas, tcfg, opts)
+
+    return StepSetup(f"{arch_id}/{shape.name}",
+                     _make_step(mesh, args, run, opts, tcfg), args, model,
+                     cfg)
+
+
+def build_local_step_setup(arch_id: str, mesh, shape: InputShape,
+                           tcfg: pt.PoFELTrainConfig | None = None,
+                           opts: FwdOptions | None = None,
+                           profile: str = "baseline") -> StepSetup:
+    """Plain FEL iteration (no consensus): the baseline of the
+    consensus-overhead measurement."""
+    setup = build_train_setup(arch_id, mesh, shape, tcfg, opts, profile)
+    d_tcfg, d_opts = default_profile_config(profile, mesh)
+    tcfg = tcfg or d_tcfg
+    opts = opts or d_opts
+    model = setup.model
+    args = setup.abstract_args[:2]
+
+    def run(state, batch):
+        return pt.train_step(model, state, batch, tcfg, opts)
+
+    return StepSetup(f"{arch_id}/{shape.name}/local",
+                     _make_step(mesh, args, run, opts, tcfg), args, model,
+                     setup.cfg)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+def _serving_params_arg(model: Model, mesh, tp, dp_total,
+                        profile: str = "baseline"):
+    abstract = model.abstract_params()
+    if profile == "serve_tp":
+        # pure Megatron TP: col/row-parallel over `model`, replicated
+        # over data (serving keeps no optimizer state to shard)
+        specs = param_pspecs(abstract, tp, 1, model.cfg.family,
+                             profile="baseline")
+    else:
+        specs = param_pspecs(abstract, tp, dp_total, model.cfg.family,
+                             profile=profile)
+    return _shard_tree(mesh, specs, abstract)
+
+
+def build_prefill_setup(arch_id: str, mesh, shape: InputShape,
+                        opts: FwdOptions | None = None,
+                        profile: str = "baseline") -> StepSetup:
+    assert shape.kind == "prefill"
+    cfg = serving_config(get_config(arch_id), shape)
+    model = Model(cfg, device=mesh.device_type)
+    ax = mesh_axes(mesh)
+    dp_axes, dp_total, tp = ax["dp_axes"], ax["dp_total"], ax["tp"]
+    if opts is None:
+        opts = FwdOptions(seq_shard_axis="model", dp_axes=dp_axes,
+                          remat=False)
+        if profile in ("sp_attn", "zero3"):
+            opts = opts._replace(parallel_q=True, gather_kv=True,
+                                 weight_gather=(profile == "zero3"),
+                                 expert_axis="model")
+        elif profile == "serve_tp":
+            opts = opts._replace(
+                parallel_q=True, gather_kv=True,
+                expert_axis=None if cfg.family == "moe" else "model")
+
+    B, S = shape.global_batch, shape.seq_len
+    params_arg = _serving_params_arg(model, mesh, tp, dp_total, profile)
+    bspec = PSpec(dp_axes, None) if B % dp_total == 0 else PSpec(None, None)
+    meta = dict(device="meta")
+    batch_abstract = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                            **meta)}
+    batch_specs = {"tokens": bspec}
+    if model.needs_context():
+        batch_abstract["context"] = torch.empty(
+            (B, cfg.n_context_tokens, cfg.d_model), dtype=torch.bfloat16,
+            **meta)
+        batch_specs["context"] = (PSpec(dp_axes, None, None)
+                                  if B % dp_total == 0 else PSpec())
+    batch_arg = _shard_tree(mesh, batch_specs, batch_abstract)
+    args = (params_arg, batch_arg)
+
+    def run(params, batch):
+        return model.prefill(params, batch)
+
+    return StepSetup(f"{arch_id}/{shape.name}",
+                     _make_step(mesh, args, run, opts), args, model, cfg)
+
+
+def build_decode_setup(arch_id: str, mesh, shape: InputShape,
+                       profile: str = "baseline") -> StepSetup:
+    assert shape.kind == "decode"
+    cfg = serving_config(get_config(arch_id), shape)
+    model = Model(cfg, device=mesh.device_type)
+    ax = mesh_axes(mesh)
+    dp_axes, dp_total, tp = ax["dp_axes"], ax["dp_total"], ax["tp"]
+
+    B, S = shape.global_batch, shape.seq_len
+    params_arg = _serving_params_arg(model, mesh, tp, dp_total, profile)
+    abstract_cache = model.abstract_cache(B, S)
+    c_specs = cache_pspecs(abstract_cache, B, dp_total, dp_axes, tp,
+                           seq_axis_shard=(B == 1),
+                           seq_shard_tp=(profile == "serve_tp"))
+    cache_arg = _shard_tree(mesh, c_specs, abstract_cache)
+    tspec = PSpec(dp_axes, None) if B % dp_total == 0 else PSpec(None, None)
+    tokens_arg = abstract_dtensor((B, 1), torch.int32, tspec, mesh)
+    pos_arg = abstract_dtensor((), torch.int32, PSpec(), mesh)
+    args = (params_arg, cache_arg, tokens_arg, pos_arg)
+
+    def run(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return StepSetup(f"{arch_id}/{shape.name}",
+                     _make_step(mesh, args, run, None), args, model, cfg)
+
+
+def build_setup(arch_id: str, shape_name: str, mesh, **kw) -> StepSetup:
+    shape = INPUT_SHAPES[shape_name]
+    if shape.kind == "train":
+        return build_train_setup(arch_id, mesh, shape, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_setup(arch_id, mesh, shape, **kw)
+    return build_decode_setup(arch_id, mesh, shape, **kw)
+
+
+def input_specs(arch_id: str, shape_name: str, mesh, **kw) -> tuple:
+    """Abstract stand-ins (DTensors over meta tensors: shardable, no
+    allocation) for every input of the step built for (arch × shape):
+    train → (state, batch, λ); prefill → (params, batch);
+    decode → (params, cache, tokens, pos)."""
+    return build_setup(arch_id, shape_name, mesh, **kw).abstract_args
+
+
+__all__ = ["EXECUTION_HALF", "StepSetup", "abstract_dtensor",
+           "arg_bytes_per_device", "build_decode_setup",
+           "build_local_step_setup", "build_prefill_setup", "build_setup",
+           "build_train_setup", "default_profile_config", "input_specs",
+           "serving_config"]

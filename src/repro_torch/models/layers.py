@@ -94,8 +94,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash kernel on the card and its plain version on the CPU, which
     picks its own tiles. The reference's other options are not carried
     over: ``q_offset`` (no ported caller sets it) and ``parallel_q`` (a
-    mesh lever, ROADMAP Queue 1 item 15). window > 0 ⇒ sliding-window
-    attention (pos_q − pos_k < window)."""
+    mesh lever, ROADMAP Queue 1 item 15, the execution half). window > 0
+    ⇒ sliding-window attention (pos_q − pos_k < window)."""
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -17,8 +17,8 @@ Pallas kernel; here it is a plain loop over time with a float32 state
 ``dense_init`` gets no dtype), the block's RMSNorm uses the default eps
 1e-6, the conv runs in x's dtype unrolled over its K taps, and the conv
 state leaves a step in x's dtype though it starts in float32. The
-reference's ``sharded`` pin is a mesh lever (ROADMAP Queue 1 item 15)
-and is not carried over.
+reference's ``sharded`` pin is a mesh lever (ROADMAP Queue 1 item 15, the
+execution half) and is not carried over.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import NOT_PORTED
+from repro_torch.core.serialization import map_tree
 from repro_torch.models import ssm_models, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import COMPUTE_DTYPE
@@ -86,6 +87,20 @@ class Model:
             return ssm_models.hybrid_param_shapes(self.cfg)
         return transformer.param_shapes(self.cfg)
 
+    def abstract_params(self) -> dict:
+        """The parameter tree as tensors on the meta device: the
+        reference's shapes and dtypes, nothing allocated."""
+        return map_tree(lambda sd: torch.empty(sd[0], dtype=sd[1],
+                                               device="meta"),
+                        self.param_shapes())
+
+    def param_pspecs(self, tp: int, fsdp: int) -> dict:
+        """The baseline :class:`~repro_torch.models.sharding.PSpec` tree
+        of the parameters on a (fsdp × tp) mesh."""
+        from repro_torch.models.sharding import param_pspecs
+        return param_pspecs(self.abstract_params(), tp, fsdp,
+                            self.cfg.family)
+
     def n_params(self) -> int:
         return sum(math.prod(shape) for _, shape in
                    _shape_leaves(self.param_shapes()))
@@ -124,13 +139,14 @@ class Model:
         """(logits (B, S, V), aux loss ()). ``opts`` as the reference's,
         within what :func:`transformer.check_options` takes."""
         check_options(opts)
+        remat = opts is not None and opts.remat
         if self.cfg.rwkv or self.cfg.family == "hybrid":
             fwd = (ssm_models.rwkv_forward if self.cfg.rwkv
                    else ssm_models.hybrid_forward)
-            logits = fwd(params, batch["tokens"], self.cfg)
+            logits = fwd(params, batch["tokens"], self.cfg, remat=remat)
             return logits, torch.zeros((), device=logits.device)
         return transformer.forward(params, batch["tokens"], self.cfg,
-                                   context=_context(batch))
+                                   context=_context(batch), remat=remat)
 
     def loss(self, params: dict, batch: dict,
              opts: Optional[FwdOptions] = None,
@@ -146,6 +162,11 @@ class Model:
             return ssm_models.hybrid_init_cache(self.cfg, batch, seq_len,
                                                 self.device)
         return transformer.init_cache(self.cfg, batch, seq_len, self.device)
+
+    def abstract_cache(self, batch: int, seq_len: int) -> Any:
+        """:meth:`init_cache` on the meta device: its shapes and dtypes,
+        nothing allocated."""
+        return Model(self.cfg, device="meta").init_cache(batch, seq_len)
 
     def prefill(self, params: dict, batch: dict):
         """The last position's logits (B, 1, V) and a cache. A transformer

@@ -10,7 +10,8 @@ The reference computes all of it in jnp outside any Pallas kernel, and so
 does the port: the expert products are batched matrix products over E.
 Of the reference's two combine modes only ``gather`` is ported; its
 ``scatter`` mode gives the same bits (``tests/test_layers_moe.py``) and
-exists for an expert-sharded mesh (ROADMAP Queue 1 item 15).
+exists for an expert-sharded mesh (ROADMAP Queue 1 item 15, the execution
+half).
 
 Dispatch uses no float atomics: the tokens reach their slots through a
 slot → token index map built by an integer scatter, where two writes

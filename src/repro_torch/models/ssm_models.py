@@ -11,8 +11,11 @@
   as in the reference.
 
 The block weights are stacked along leading layer axes, as the reference
-stacks them for ``lax.scan``; here Python loops walk the layers. There is
-no rematerialization (the reference's ``remat``).
+stacks them for ``lax.scan``; here Python loops walk the layers. With
+``remat`` each RWKV-6 block and each Mamba2 block goes through
+:func:`repro_torch.models.remat.checkpoint`, where the reference has
+``jax.checkpoint``; the hybrid's shared attention block is not
+rematerialized, in the reference either.
 
 :func:`rwkv_params_from_jax` and :func:`hybrid_params_from_jax` carry the
 reference's weights over bit for bit, since ``jax.random`` draws cannot be
@@ -33,6 +36,7 @@ from repro_torch.models.mamba2 import (Mamba2Config, Mamba2State,
                                        mamba2_apply, mamba2_init,
                                        mamba2_init_state, mamba2_param_shapes)
 from repro_torch.models.params_io import tree_from_numpy
+from repro_torch.models.remat import checkpoint
 from repro_torch.models.rwkv6 import (RWKVBlockState, RWKVConfig,
                                       rwkv_block_apply, rwkv_block_init,
                                       rwkv_init_state)
@@ -69,13 +73,21 @@ def _layer(layers: dict, i: int) -> dict:
     return {k: v[i] for k, v in layers.items()}
 
 
-def rwkv_forward(params: dict, tokens: torch.Tensor,
-                 cfg: ArchConfig) -> torch.Tensor:
-    """(B, S) tokens → (B, S, V) logits in the compute dtype."""
+def _rwkv_step(layer: dict, x: torch.Tensor,
+               rcfg: RWKVConfig) -> torch.Tensor:
+    return rwkv_block_apply(layer, x, rcfg)[0]
+
+
+def rwkv_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                 remat: bool = False) -> torch.Tensor:
+    """(B, S) tokens → (B, S, V) logits in the compute dtype; ``remat``
+    rematerializes each block in the backward."""
     rcfg = rwkv_cfg_of(cfg)
     x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
     for i in range(cfg.n_layers):
-        x, _ = rwkv_block_apply(_layer(params["layers"], i), x, rcfg)
+        layer = _layer(params["layers"], i)
+        x = (checkpoint(_rwkv_step, layer, x, rcfg) if remat
+             else _rwkv_step(layer, x, rcfg))
     x = rms_norm(x, params["final_norm"])
     return x @ params["lm_head"].to(x.dtype)
 
@@ -267,24 +279,30 @@ def _block(stack: dict, *idx) -> dict:
     return {k: v[idx] for k, v in stack.items()}
 
 
-def hybrid_forward(params: dict, tokens: torch.Tensor,
-                   cfg: ArchConfig) -> torch.Tensor:
-    """(B, S) tokens → (B, S, V) logits in the compute dtype."""
+def _mamba_out(block: dict, x: torch.Tensor,
+               mcfg: Mamba2Config) -> torch.Tensor:
+    return mamba2_apply(block, x, mcfg)[0]
+
+
+def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                   remat: bool = False) -> torch.Tensor:
+    """(B, S) tokens → (B, S, V) logits in the compute dtype; ``remat``
+    rematerializes each Mamba2 block in the backward (not the shared
+    attention block, as the reference)."""
     mcfg = mamba_cfg_of(cfg)
     n_groups, mpg, _ = hybrid_group_shape(cfg)
     B, S = tokens.shape
     x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
     positions = torch.arange(S, device=x.device).expand(B, S)
+    mamba = (lambda b, x: checkpoint(_mamba_out, b, x, mcfg)) if remat else (
+        lambda b, x: _mamba_out(b, x, mcfg))
     for g in range(n_groups):
         for j in range(mpg):
-            out, _ = mamba2_apply(_block(params["mamba_groups"], g, j), x,
-                                  mcfg)
-            x = x + out
+            x = x + mamba(_block(params["mamba_groups"], g, j), x)
         x = _shared_attn_apply(params["shared_attn"], x, cfg, positions)
     if "mamba_tail" in params:
         for j in range(params["mamba_tail"]["norm"].shape[0]):
-            out, _ = mamba2_apply(_block(params["mamba_tail"], j), x, mcfg)
-            x = x + out
+            x = x + mamba(_block(params["mamba_tail"], j), x)
     x = rms_norm(x, params["final_norm"])      # the default eps, as the reference
     return x @ params["lm_head"].to(x.dtype)
 

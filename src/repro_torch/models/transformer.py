@@ -18,14 +18,17 @@ per-layer KV caches stacked on a leading layer axis and attends over the
 whole cache, and over the context K/V the prefill computed, as the
 reference.
 
-:class:`FwdOptions` carries the reference's options by name. Its
-rematerialization and its mesh levers are not ported (ROADMAP Queue 1
-item 15, the mesh half): ``torch.utils.checkpoint`` does not compose with
-``torch.func.grad``, which the PoFEL trainer differentiates through, and
-one card has no mesh, so :func:`check_options` refuses ``remat=True`` and
-any lever off its default (the MoE FFN runs the reference's ``gather``
-combine). The flash kernel keeps its own tiles, so ``q_block`` and
-``kv_block`` change nothing.
+:class:`FwdOptions` carries the reference's options by name.
+``remat=True`` runs each self block and each vlm cross block through
+:func:`repro_torch.models.remat.checkpoint`, where the reference has
+``jax.checkpoint``: a ``torch.autograd.Function`` that keeps only the
+block's inputs and re-runs it under ``torch.func.vjp`` in the backward
+(``torch.utils.checkpoint`` does not compose with ``torch.func.grad``,
+which the PoFEL trainer differentiates through). One card has no mesh,
+so :func:`check_options` refuses any mesh lever off its default (ROADMAP
+Queue 1 item 15, the execution half); the MoE FFN runs the reference's
+``gather`` combine. The flash kernel keeps its own tiles, so ``q_block``
+and ``kv_block`` change nothing.
 
 :func:`transformer_params_from_jax` carries the reference's weights
 over bit for bit.
@@ -47,6 +50,7 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope,
                                        swiglu_mlp)
 from repro_torch.models.moe import MoEConfig, moe_ffn
 from repro_torch.models.params_io import tree_from_numpy
+from repro_torch.models.remat import checkpoint
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -71,21 +75,17 @@ MESH_LEVERS = ("seq_shard_axis", "parallel_q", "gather_kv", "weight_gather",
 
 
 def check_options(opts: Optional[FwdOptions]) -> None:
-    """Refuse what the port does not run: ``remat=True`` and any mesh
-    lever off its default (ROADMAP Queue 1 item 15). None is no options,
+    """Refuse what the port does not run: any mesh lever off its default
+    (ROADMAP Queue 1 item 15, the execution half). None is no options,
     as ``FwdOptions(remat=False)``."""
     if opts is None:
         return
-    if opts.remat:
-        raise NotImplementedError(
-            "FwdOptions(remat=True): rematerialization is not ported "
-            "(torch.utils.checkpoint does not compose with torch.func.grad; "
-            "ROADMAP Queue 1 item 15); pass FwdOptions(remat=False)")
     for name in MESH_LEVERS:
         if getattr(opts, name) != FwdOptions._field_defaults[name]:
             raise NotImplementedError(
                 f"FwdOptions({name}={getattr(opts, name)!r}) is a mesh lever; "
-                f"one card has no mesh (ROADMAP Queue 1 item 15)")
+                f"one card has no mesh (ROADMAP Queue 1 item 15, the "
+                f"execution half)")
 
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -430,9 +430,29 @@ def _require_context(cfg: ArchConfig, context) -> None:
                          f"{cfg.d_model})")
 
 
+def _self_step(layer: dict, x: torch.Tensor, positions: torch.Tensor,
+               context: Optional[torch.Tensor], cfg: ArchConfig) -> tuple:
+    """One self-attention layer as the reference rematerializes it: the
+    audio family's context K/V computed inside. (x, aux)."""
+    ctx_kv = None
+    if cfg.family == "audio" and context is not None:
+        ctx_kv = _context_kv(layer["xattn"], context, cfg)
+    x, aux, _ = _self_block(layer, x, cfg, positions, ctx_kv)
+    return x, aux
+
+
+def _cross_step(block: dict, x: torch.Tensor, context: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """One vlm cross block as the reference rematerializes it: the
+    context K/V computed inside."""
+    ctx_kv = _context_kv(block["xattn"], context, cfg)
+    return _cross_block(block, x, cfg, lambda xa, h: _cross_attention(
+        xa, h, ctx_kv, cfg))
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             context: Optional[torch.Tensor] = None,
-            collect_cache: bool = False):
+            collect_cache: bool = False, remat: bool = False):
     """tokens (B, S) → (logits (B, S, V), the MoE aux loss summed over
     the layers (), 0 for the other families) and, when ``collect_cache``,
     a :class:`DecodeCache` for prefill: the stacked per-layer
@@ -442,10 +462,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
     context: (B, Nc, D) precomputed frontend embeddings. vlm raises
     without it (the reference asserts); audio without it runs its
-    self-attention only, as the reference does."""
+    self-attention only, as the reference does.
+
+    remat: each self block and each vlm cross block through
+    :func:`repro_torch.models.remat.checkpoint`, where the reference has
+    ``jax.checkpoint``; it keeps no K/V, so not with ``collect_cache``."""
     _check_family(cfg)
     if cfg.family == "vlm":
         _require_context(cfg, context)
+    if remat and collect_cache:
+        raise ValueError("remat keeps no K/V to collect; prefill without it")
     B, S = tokens.shape
     x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -454,6 +480,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     spg = vlm_group_shape(cfg)[1] if cfg.family == "vlm" else 0
     for i in _self_layer_index(cfg):
         layer = _layer(params["layers"], i)
+        if remat:
+            x, aux_l = checkpoint(_self_step, layer, x, positions,
+                                  context, cfg)
+            aux = aux + aux_l
+            if spg and i[1] == spg - 1:
+                x = checkpoint(_cross_step,
+                               _layer(params["cross_layers"], i[0]), x,
+                               context, cfg)
+            continue
         ctx_kv = None
         if cfg.family == "audio" and context is not None:
             ctx_kv = _context_kv(layer["xattn"], context, cfg)

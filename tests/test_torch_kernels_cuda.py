@@ -929,6 +929,58 @@ def test_model_loss_gradients_on_card_match_cpu(cuda_device, family):
         assert float(diff.mean()) <= 0.02 * scale, name
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "yi-6b", "zamba2-7b",
+                                  "deepseek-moe-16b", "musicgen-medium",
+                                  "llama-3.2-vision-90b"])
+def test_remat_gradients_on_card(cuda_device, arch):
+    """``FwdOptions(remat=True)`` under ``torch.func.vmap`` of
+    ``grad_and_value`` over 2 replicas on the card: the losses equal
+    those without remat bit for bit, and so does every gradient leaf (the
+    re-run block computes as the first run did, with the same kernels;
+    ``tests/test_torch_remat.py`` holds the CPU alike); each rematerialized
+    block launches its forward kernel once more, in the backward, and
+    the backward kernel once, as without remat."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import leaves_with_paths
+    from repro_torch.models.model_api import Model
+    from repro_torch.models.transformer import FwdOptions
+    model = Model(get_config(arch).reduced(), device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    rows = np.random.default_rng(0).integers(0, 500, (2, 2, 17))
+    batch = {"tokens": torch.from_numpy(rows[..., :-1]).to(cuda_device),
+             "labels": torch.from_numpy(rows[..., 1:]).to(cuda_device)}
+    if model.needs_context():
+        batch["context"] = 0.1 * torch.ones(
+            (2,) + model.context_shape(2), dtype=torch.bfloat16,
+            device=cuda_device)
+    reps = {k: v for k, v in params.items()}
+    reps = torch.utils._pytree.tree_map(
+        lambda t: t[None].expand(2, *t.shape), reps)
+    got = {}
+    for remat in (False, True):
+        opts = FwdOptions(remat=remat)
+        before = ops.launch_counts()
+        got[remat] = torch.func.vmap(torch.func.grad_and_value(
+            lambda p, b: model.loss(p, b, opts)))(reps, batch)
+        after = ops.launch_counts()
+        got[remat] += ({k: after[k] - before[k] for k in after},)
+    (g0, l0, n0), (g1, l1, n1) = got[False], got[True]
+    assert torch.equal(l0, l1)
+    assert [p for p, _ in leaves_with_paths(g0)] == \
+        [p for p, _ in leaves_with_paths(g1)]
+    for (name, a), (_, b) in zip(leaves_with_paths(g0),
+                                 leaves_with_paths(g1)):
+        assert torch.isfinite(b).all(), name
+        assert torch.equal(a, b), name
+    cfg = model.cfg
+    kernel = "wkv6" if cfg.rwkv else "flash_attention"
+    # the hybrid's shared attention block is not rematerialized
+    again = 0 if cfg.family == "hybrid" else n0[kernel]
+    assert n1[kernel] == n0[kernel] + again
+    assert n1[kernel + "_backward"] == n0[kernel + "_backward"] > 0
+
+
 @pytest.mark.parametrize("model", ["rwkv6", "transformer"])
 def test_run_bhfl_lm_on_card_goes_through_kernels(cuda_device, model):
     """An LM round on the card: every SGD step launches the forward and

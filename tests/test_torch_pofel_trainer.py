@@ -357,11 +357,21 @@ def test_train_step_no_consensus_keeps_divergence(run):
 
 
 def test_trainer_refuses_what_one_card_does_not_run(run):
-    """remat, the mesh levers and a sharded cluster axis name ROADMAP
-    item 15 instead of running something else."""
+    """The reference's default options (``FwdOptions()``: remat on)
+    train as the reference's do; the mesh levers and a sharded cluster
+    axis name ROADMAP item 15 instead of running something else."""
     tm, ts, tb = run["tm"], run["ts"], run["tb"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pt.local_step(tm, ts.cluster_params, tb, run["tcfg"], FwdOptions())
+    jm = JModel(j_get_config(run["arch"]).reduced())
+    jcfg = jpt.PoFELTrainConfig(n_clusters=C, inner_lr=1e-2)
+    jb = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+          if v.dtype == torch.bfloat16 else jnp.asarray(v.numpy())
+          for k, v in tb.items()}
+    ref_params, ref_losses = _np(jax.jit(lambda cp, b: jpt.local_step(
+        jm, cp, b, jcfg, JFwdOptions()))(run["js"].cluster_params, jb))
+    new_params, losses = pt.local_step(tm, ts.cluster_params, tb,
+                                       run["tcfg"], FwdOptions())
+    np.testing.assert_allclose(losses.numpy(), ref_losses, atol=LOSS_TOL)
+    _assert_tree_close(new_params, ref_params, **WEIGHT_TOL)
     with pytest.raises(NotImplementedError, match="item 15"):
         pt.local_step(tm, ts.cluster_params, tb, run["tcfg"],
                       FwdOptions(remat=False, gather_kv=True))
