@@ -446,6 +446,16 @@ SPECS_DECODE = ("yi-6b", 8, 128)
 REMAT_ZAMBA = (("zamba2-7b", 12, 4, True), ("zamba2-7b", 12, 2, False))
 REMAT_GRAD_ARCHS = ("rwkv6-1.6b", "yi-6b", "zamba2-7b", "deepseek-moe-16b",
                     "musicgen-medium", "llama-3.2-vision-90b")
+# slice 15 (phases 46-47): the zero3 DTensor round on the card's 1×1 mesh
+# (MusicGen-medium, C = 4, batch 8 × 64, every lever, the clusters over
+# data) against the remat round without levers; the bfloat16 rule of the
+# card-against-CPU gradients for the parameters (relative to a leaf's
+# largest entry: max 0.125, mean 0.02); then the reduced DeepSeek-MoE-16B
+# with expert_axis; then the (2, 2) gloo mesh of four CPU processes
+MESH_TRAIN = ("musicgen-medium", 64, 8, 4)
+MESH_MOE = "deepseek-moe-16b"
+MESH_RANK_CASES = ("yi-6b:zero3", "deepseek-moe-16b:zero3",
+                   "rwkv6-1.6b:baseline")
 ADAMW_RTOL, ADAMW_ATOL = 2e-5, 2e-6
 
 
@@ -2400,14 +2410,14 @@ def moe_forward(model, params) -> dict:
     stats = {"assignments": 0, "dropped": 0, "capacity": []}
     inner = transformer.moe_ffn
 
-    def counted(x, p, mcfg):
+    def counted(x, p, mcfg, **kw):
         _, idx, _ = moe.router_topk(x, p["router"], mcfg)
         pos = moe.position_in_expert(idx, mcfg.n_experts)
         C = moe.capacity(x.shape[0], mcfg)
         stats["assignments"] += pos.numel()
         stats["dropped"] += int((pos >= C).sum())
         stats["capacity"].append(C)
-        return inner(x, p, mcfg)
+        return inner(x, p, mcfg, **kw)
 
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (N_REQUESTS, 512)).astype(np.int32)).to(
@@ -3734,6 +3744,215 @@ def phase_remat(dev, no_remat: dict) -> dict:
     return out
 
 
+def bf16_rule(got, want) -> tuple:
+    """(max, mean) difference of two trees of tensors, each relative to
+    its leaf's largest entry; the worst leaf's."""
+    from repro_torch.core.serialization import leaves_with_paths
+    worst = (0.0, 0.0)
+    for (_, a), (_, b) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        a, b = a.float(), b.float()
+        scale = max(float(b.abs().max()), 1e-30)
+        diff = (a - b).abs()
+        worst = (max(worst[0], float(diff.max()) / scale),
+                 max(worst[1], float(diff.mean()) / scale))
+    return worst
+
+
+def phase_mesh_round(dev) -> dict:
+    """Phase 46: MESH_TRAIN's trainer at full width and depth through
+    ``build_train_setup(..., profile="zero3")`` on the card's 1×1 NCCL
+    mesh, C clusters over ``data``, every lever on, its arguments
+    DTensors (``specs.distribute_like``): one round through the flash and
+    ME custom ops, its time, peak memory, launches and collectives
+    (``CommDebugMode``; none on one device). The same state and batch
+    (seeded as phase 44's first round) through the remat round without
+    levers on plain tensors: parameters within the bfloat16 rule
+    (``bf16_rule``), similarities within 1e-4, the same leader where the
+    top two lie more than 2e-4 apart. Then the reduced MESH_MOE: the MoE
+    FFN's scatter combine against gather in float32 on the card,
+    results and gradients bit for bit; the bfloat16 model's logits with
+    ``expert_axis`` within the bfloat16 rule of those without (the
+    scatter combine adds in float32 and rounds once, the gather rounds
+    each product), and as a DTensor step on the card mesh bit-identical
+    to the plain call."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.serialization import leaves_with_paths
+    from repro_torch.data.tokens import (TokenBatchSpec,
+                                         synthetic_token_batches)
+    from repro_torch.fl import pofel_trainer as pt
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import round_batch
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.model_api import Model
+    from repro_torch.models.transformer import FwdOptions
+    mesh = make_host_mesh()
+    arch, seq, batch, clusters = MESH_TRAIN
+    shape = InputShape("mini_train", seq, batch, "train")
+    _, zero3 = specs.default_profile_config("zero3", mesh)
+    tcfg = pt.PoFELTrainConfig(n_clusters=clusters, cluster_axis="data")
+    setup = specs.build_train_setup(arch, mesh, shape, tcfg, zero3,
+                                    profile="zero3")
+    plain = specs.build_train_setup(
+        arch, mesh, shape, pt.PoFELTrainConfig(n_clusters=clusters),
+        FwdOptions(remat=True))
+    model = setup.model
+    torch.cuda.empty_cache()
+    state = pt.init_train_state(model, tcfg,
+                                torch.Generator(device=dev).manual_seed(0))
+    b = round_batch(next(synthetic_token_batches(
+        TokenBatchSpec(batch, seq, model.cfg.vocab_size), seed=0)), model,
+        clusters, dev)
+    b = {k: v.to(torch.int32) if k != "context" else v for k, v in b.items()}
+    lam = torch.ones((clusters,), device=dev)
+    want_state, want = plain.step(state, b, lam)
+    want_global = want_state.global_params
+    del want_state
+    args = [specs.distribute_like(v, a) for v, a in
+            zip((state, b, lam), setup.abstract_args)]
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with CommDebugMode() as comm:
+        got_state, got = setup.step(*args)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    collectives = {getattr(op, "_qualified_op_name", str(op)): n
+                   for op, n in comm.get_comm_counts().items()}
+    del args
+    got_global = {p: t.to_local() for p, t in
+                  leaves_with_paths(got_state.global_params)}
+    worst = bf16_rule(got_global, dict(leaves_with_paths(want_global)))
+    sim_err = float((got.similarities - want.similarities).abs().max())
+    top = torch.sort(want.similarities, descending=True).values
+    margin = float(top[0] - top[1])
+    print(f"mesh round {arch} full width, C = {clusters} over data, zero3 "
+          f"levers {dict(zero3._asdict())}, DTensors on the card's 1x1 "
+          f"mesh: {round_ms:.1f} ms, peak {peak:.1f} GB, launches "
+          f"{launches}, collectives {collectives} (total "
+          f"{comm.get_total_counts()}); against the remat round without "
+          f"levers: parameters within {worst[0]:.3e} (max) and "
+          f"{worst[1]:.3e} (mean) of a leaf's scale, similarities within "
+          f"{sim_err:.2e}, leaders {int(got.leader)} and {int(want.leader)}"
+          f" (top-two margin {margin:.2e}) on {nvidia_smi()}", flush=True)
+    check(worst[0] <= 0.125 and worst[1] <= 0.02,
+          f"mesh round {arch}: parameters {worst} from the round without "
+          f"levers")
+    check(sim_err <= TRAIN_SIM_ATOL, f"mesh round {arch}: similarities "
+          f"{got.similarities} against {want.similarities}")
+    check(margin <= 2 * TRAIN_SIM_ATOL or int(got.leader) == int(
+        want.leader), f"mesh round {arch}: leader {int(got.leader)}, "
+          f"want {int(want.leader)}")
+    check(comm.get_total_counts() == 0,
+          f"mesh round {arch}: {collectives} on one device")
+    n_leaves = trainer_leaves(want_global)
+    per = trainer_round_launches(model, n_leaves, remat=True)
+    want_launches = {k: v * (clusters if k.startswith(("flash", "wkv6"))
+                             else 1) for k, v in per.items()}
+    check(launches == want_launches, f"mesh round {arch}: launches "
+          f"{launches}, want {want_launches} (each cluster's own)")
+    del got_state, got_global, want_global, setup, plain, model
+    torch.cuda.empty_cache()
+    # the reduced MoE: scatter against gather
+    cfg = get_config(MESH_MOE).reduced()
+    moe_model = Model(cfg, device=dev)
+    params = moe_model.init(torch.Generator(device=dev).manual_seed(0))
+    layer0 = {k: v[0].to(torch.float32) for k, v in
+              params["layers"]["moe"].items() if k != "shared"}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(512, cfg.d_model, generator=gen, device=dev)
+    mcfg = tmoe.MoEConfig(cfg.n_experts, cfg.experts_per_token,
+                          cfg.capacity_factor)
+    outs = {}
+    for mode in ("gather", "scatter"):
+        leaves = {k: v.clone().requires_grad_() for k, v in layer0.items()}
+        xx = x.clone().requires_grad_()
+        o, aux = tmoe.moe_ffn(xx, leaves, mcfg, combine=mode)
+        grads = torch.autograd.grad((o ** 2).sum() + 0.01 * aux,
+                                    [xx, *leaves.values()])
+        outs[mode] = (o, aux, grads)
+    same = (torch.equal(outs["gather"][0], outs["scatter"][0])
+            and torch.equal(outs["gather"][1], outs["scatter"][1])
+            and all(torch.equal(a, c) for a, c in
+                    zip(outs["gather"][2], outs["scatter"][2])))
+    check(same, f"{MESH_MOE} MoE FFN: scatter and gather differ in "
+          f"float32 on the card")
+    tok = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                        device=dev)
+    base, _ = moe_model.forward(params, {"tokens": tok},
+                                FwdOptions(remat=False))
+    lever = FwdOptions(remat=False, expert_axis="model")
+    scat, _ = moe_model.forward(params, {"tokens": tok}, lever)
+    moe_worst = bf16_rule({"logits": scat}, {"logits": base})
+    check(moe_worst[0] <= 0.125 and moe_worst[1] <= 0.02,
+          f"{MESH_MOE} expert_axis: logits {moe_worst} from gather")
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    rep = [Replicate(), Replicate()]
+    dparams = {p: distribute_tensor(t, mesh, rep)
+               for p, t in leaves_with_paths(params)}
+    from repro_torch.core.serialization import rebuild
+    dlogits, _ = moe_model.forward(rebuild(params, dparams), {
+        "tokens": distribute_tensor(tok, mesh, rep)}, lever)
+    check(torch.equal(dlogits.to_local(), scat),
+          f"{MESH_MOE} expert_axis on the card mesh differs from the plain "
+          f"call")
+    print(f"mesh MoE {MESH_MOE} reduced: the FFN's scatter combine is "
+          f"gather's bits in float32 (results and gradients, T = 512); the "
+          f"bfloat16 logits with expert_axis within {moe_worst[0]:.3e} "
+          f"(max) and {moe_worst[1]:.3e} (mean) of gather's, and as a "
+          f"DTensor forward on the card mesh bit-identical to the plain "
+          f"call", flush=True)
+    del params, dparams, moe_model
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return {"round_ms": round_ms, "peak_gb": peak, "launches": launches,
+            "collectives": collectives, "param_rule": worst,
+            "sim_err": sim_err}
+
+
+def phase_mesh_ranks() -> dict:
+    """Phase 47: ``python -m repro_torch.launch.mesh_check`` as a process
+    on the card machine's CPU (the card hidden): MESH_RANK_CASES as
+    DTensor steps on a (2, 2) gloo mesh of four processes, each held
+    against the single-process round; seconds and collectives by kind."""
+    where = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    out = where / "mesh_check.json"
+    argv = ["repro_torch.launch.mesh_check", "--json", str(out)]
+    for case in MESH_RANK_CASES:
+        argv += ["--case", case]
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                               "CUDA_VISIBLE_DEVICES": ""})
+    secs = time.perf_counter() - t0
+    check(done.returncode == 0, f"mesh_check exited {done.returncode}: "
+          f"{done.stdout[-3000:]}{done.stderr[-3000:]}")
+    (summary,) = [json.loads(line) for line in out.read_text().splitlines()]
+    for row in summary["rows"]:
+        print(f"mesh ranks {row['case']}: {row['seconds']:.2f} s on a 2x2 "
+              f"gloo mesh of four CPU processes, collectives "
+              f"{row['collectives']}, against one process: "
+              f"{ {k: row[k] for k in row if k not in ('case', 'seconds', 'collectives', 'ok')} }",
+              flush=True)
+    print(f"mesh ranks: {len(summary['rows'])} cases agree, the first again "
+          f"bit-identical: {summary['repeat_bit_identical']}; the process "
+          f"took {secs:.1f} s (torch {__import__('torch').__version__})",
+          flush=True)
+    return {"rows": summary["rows"], "seconds": secs}
+
+
 def stamp(t0: float, what: str) -> None:
     print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
 
@@ -3930,6 +4149,12 @@ def main() -> int:
     specs_steps = phase_specs_steps(dev)
     remat = phase_remat(dev, tfull["zamba2-7b"])
     stamp(t_start, "phases 43-45")
+    # 46. the zero3 DTensor round on the card's mesh, and the MoE's
+    # expert axis; 47. the (2, 2) mesh of four CPU processes
+    torch.cuda.empty_cache()
+    mesh_round = phase_mesh_round(dev)
+    phase_mesh_ranks()
+    stamp(t_start, "phases 46-47")
     for row in wkv_rows + flash_rows:
         row["launcher_launches"] = {a: v["launches"].get(row["name"], 0)
                                     for a, v in launcher.items()}
@@ -3947,6 +4172,9 @@ def main() -> int:
             for a, v in remat["grads"].items()}
         row["specs_remat_launches_a_round"] = \
             specs_steps["train"][True]["launches"][row["name"]]
+    for row in rows + flash_rows + flash_bwd_rows:
+        # the zero3 DTensor round on the card mesh (phase 46)
+        row["mesh_round_launches"] = mesh_round["launches"][row["name"]]
     for row in rows + flash_bwd_rows + wkv_bwd_rows:
         row["trainer_launches_a_round"] = {
             a: v["per_round"][row["name"]]

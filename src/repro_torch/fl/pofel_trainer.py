@@ -31,9 +31,22 @@ each gradient once it is applied. Nothing is updated in place: the state
 a round was given is left as it was.
 
 :func:`abstract_train_state` gives the state's shapes and dtypes on the
-meta device (the dry run's, ``repro_torch.launch.specs``). Not ported:
-``cluster_axis`` (the cluster dim sharded over a mesh axis), which waits
-for ROADMAP Queue 1 item 15's execution half: one card has no mesh.
+meta device (the dry run's, ``repro_torch.launch.specs``).
+
+On a mesh the state and batch are DTensors (laid out by
+``models.sharding``; ``launch.specs`` builds them) and the round is a
+DTensor program. ``torch.func`` takes no DTensor, so a rank's clusters
+go one at a time through ``torch.autograd.grad`` of ``Model.loss``:
+with ``cluster_axis=None`` a rank holds every cluster, each sharded over
+the mesh as one model is; with ``cluster_axis`` (a mesh axis, the zero3
+profile's ``"data"``) it holds its own shard of the clusters, each a
+DTensor over the mesh's other axes, as the reference's
+``vmap(spmd_axis_name=...)`` splits them. The consensus gathers the C
+rows over that axis first, then runs Eq. 1 and Eq. 2 leaf by leaf
+through the ME kernels' custom ops on the shards (Eq. 2's partials
+summed in rank order, ``kernels._dtensor.ordered_sum``) and the tally on
+the whole (C,) similarities. On plain tensors ``cluster_axis`` is a
+layout and changes nothing.
 """
 
 from __future__ import annotations
@@ -48,6 +61,10 @@ from repro_torch.core.btsv import BTSVConfig, btsv_round, init_history
 from repro_torch.core.serialization import leaves_with_paths, rebuild
 from repro_torch.core.serialization import map_tree as _map
 from repro_torch.kernels import ops
+from repro_torch.kernels._dtensor import ordered_sum
+from repro_torch.models.mesh_ops import (contiguous_stride,
+                                         implicit_replication, is_dtensor,
+                                         on_mesh, replicated, whole)
 from repro_torch.models.model_api import Model
 from repro_torch.models.params_io import tree_from_numpy
 from repro_torch.models.transformer import FwdOptions
@@ -58,7 +75,8 @@ CONSENSUS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclass(frozen=True)
 class PoFELTrainConfig:
     n_clusters: int = 8
-    cluster_axis: Optional[str] = None  # a mesh axis: not on one card
+    cluster_axis: Optional[str] = None  # shard the cluster dim over this
+                                        # mesh axis (zero3: "data")
     inner_lr: float = 3e-4            # FedSGD step (paper: SGD at clients)
     outer: str = "sgd1"               # 'sgd1' (paper Eq. 1) | 'nesterov'
     outer_lr: float = 0.7
@@ -166,12 +184,10 @@ def local_step(model: Model, cluster_params: Any, batch: dict,
                cfg: PoFELTrainConfig, opts: Optional[FwdOptions] = None
                ) -> tuple[Any, torch.Tensor]:
     """One FedSGD step per cluster. batch leaves lead with (C, B/C, ...).
-    Returns (new replicas, losses (C,))."""
-    if cfg.cluster_axis is not None:
-        raise NotImplementedError(
-            f"cluster_axis={cfg.cluster_axis!r} shards the clusters over a "
-            f"mesh; one card has none (ROADMAP Queue 1 item 15, the "
-            f"execution half)")
+    Returns (new replicas, losses (C,)). DTensor replicas take the mesh
+    path (:func:`_local_step_mesh`)."""
+    if any(is_dtensor(t) for t in _leaves(cluster_params)):
+        return _local_step_mesh(model, cluster_params, batch, cfg, opts)
 
     def one(params, b):
         return torch.func.grad_and_value(model.loss)(params, b, opts,
@@ -185,14 +201,131 @@ def local_step(model: Model, cluster_params: Any, batch: dict,
     return rebuild(cluster_params, new), losses
 
 
+def _cluster_step(model: Model, params: dict, batch: dict,
+                  cfg: PoFELTrainConfig, opts: Optional[FwdOptions]
+                  ) -> tuple[dict, torch.Tensor]:
+    """One cluster's FedSGD step under autograd (DTensors): (new params,
+    loss)."""
+    flat = [(p, t.detach().requires_grad_(t.is_floating_point()))
+            for p, t in leaves_with_paths(params)]
+    leaves = [t for _, t in flat if t.requires_grad]
+    with implicit_replication():
+        loss = model.loss(rebuild(params, dict(flat)), batch, opts,
+                          cfg.aux_weight)
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+        new = {}
+        for p, t in flat:
+            g = next(grads) if t.requires_grad else None
+            new[p] = t.detach() if g is None else (
+                t.detach().to(torch.float32)
+                - cfg.inner_lr * g.to(torch.float32)).to(t.dtype)
+    return rebuild(params, new), replicated(loss.detach())
+
+
+def _on_submesh(t: torch.Tensor, axis: str):
+    """A DTensor sharded over ``axis`` on its first dim → its local shard
+    as a DTensor over the mesh's other axes (their placements kept)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = t.device_mesh
+    names = list(mesh.mesh_dim_names)
+    ax = names.index(axis)
+    if t.placements[ax] != Shard(0):
+        t = t.redistribute(mesh, [Shard(0) if d == ax else p
+                                  for d, p in enumerate(t.placements)])
+    rest = tuple(n for n in names if n != axis)
+    sub = mesh[rest[0]] if len(rest) == 1 else mesh[rest]
+    local = t.to_local()
+    shape = (local.shape[0],) + tuple(t.shape[1:])
+    return DTensor.from_local(local, sub, [p for d, p in enumerate(
+        t.placements) if d != ax], run_check=False, shape=shape,
+        stride=contiguous_stride(shape))
+
+
+def _from_submesh(t: torch.Tensor, mesh, n: int, axis: str):
+    """The inverse of :func:`_on_submesh`: the ranks' shards along
+    ``axis`` (first dim, ``n`` in all) as one DTensor over ``mesh``."""
+    from torch.distributed.tensor import DTensor, Shard
+    ax = list(mesh.mesh_dim_names).index(axis)
+    rest = iter(t.placements)
+    placements = [Shard(0) if d == ax else next(rest)
+                  for d in range(mesh.ndim)]
+    shape = (n,) + tuple(t.shape[1:])
+    return DTensor.from_local(t.to_local(), mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def _local_step_mesh(model: Model, cluster_params: Any, batch: dict,
+                     cfg: PoFELTrainConfig, opts: Optional[FwdOptions]
+                     ) -> tuple[Any, torch.Tensor]:
+    """:func:`local_step` on DTensor replicas, a rank's clusters one at a
+    time; with ``cluster_axis`` each rank takes its own shard of them."""
+    axis = cfg.cluster_axis
+    flat = leaves_with_paths(cluster_params)
+    first = flat[0][1]
+    if axis is not None and axis not in first.device_mesh.mesh_dim_names:
+        raise ValueError(f"cluster_axis={axis!r} is not an axis of the "
+                         f"mesh {first.device_mesh.mesh_dim_names}")
+    if axis is not None:
+        mine = {p: _on_submesh(t, axis) for p, t in flat}
+        local_batch = {k: _on_submesh(v, axis) for k, v in batch.items()}
+    else:
+        mine, local_batch = dict(flat), batch
+    n = next(iter(mine.values())).shape[0]
+    # each cluster's new leaves written into the new replicas as they
+    # come, so that one cluster's gradients are held at a time
+    out = {p: torch.empty_like(t) for p, t in mine.items()}
+    losses = []
+    for c in range(n):
+        params = rebuild(cluster_params, {p: t[c] for p, t in mine.items()})
+        new, loss = _cluster_step(model, params,
+                                  {k: v[c] for k, v in local_batch.items()},
+                                  cfg, opts)
+        with implicit_replication():
+            for p, t in leaves_with_paths(new):
+                out[p].select(0, c).copy_(t)
+        losses.append(loss)
+        del new
+    with implicit_replication():
+        losses = torch.stack(losses)
+    if axis is not None:
+        mesh, C = first.device_mesh, first.shape[0]
+        out = {p: _from_submesh(t, mesh, C, axis) for p, t in out.items()}
+        losses = _from_submesh(losses, mesh, C, axis)
+    return rebuild(cluster_params, out), losses
+
+
 # ---------------------------------------------------------------------------
 # PoFEL consensus (Alg. 1, lines 2-5)
 # ---------------------------------------------------------------------------
 
 def _rows(leaf: torch.Tensor) -> torch.Tensor:
     """The (C, n) view of a stacked leaf (a copy only if it is not
-    contiguous)."""
+    contiguous). A DTensor leaf has its C rows gathered whole first, and
+    stays sharded on its second dim at most: the view merges the dims
+    past the first, and DTensor (torch 2.11) refuses to merge a sharded
+    dim past the first of them."""
+    if is_dtensor(leaf):
+        from torch.distributed.tensor import Replicate, Shard
+        rows = [p if p == Shard(1) else Replicate()
+                for p in leaf.placements]
+        if list(leaf.placements) != rows:
+            leaf = leaf.redistribute(leaf.device_mesh, rows)
     return leaf.reshape(leaf.shape[0], -1).contiguous()
+
+
+def _as_rows_columns(gw: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """A DTensor aggregate (n,) laid out as the columns of its (C, n)
+    rows, so that it takes the leaf's shape again (DTensor cannot view a
+    dim that two mesh dims shard); a plain tensor as it is."""
+    if not is_dtensor(gw):
+        return gw
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Shard(0) if p == Shard(1) else Replicate()
+            for p in rows.placements]
+    if list(gw.placements) == want:
+        return gw
+    return gw.redistribute(gw.device_mesh, want)
 
 
 def _weighted_global(cluster_params: Any, lambdas: torch.Tensor,
@@ -203,9 +336,12 @@ def _weighted_global(cluster_params: Any, lambdas: torch.Tensor,
     accumulates in float32 only)."""
     acc = CONSENSUS_DTYPES[dtype]
     if acc == torch.float32:
-        return _map(lambda leaf: ops.weighted_aggregate(
-            _rows(leaf), lambdas).reshape(leaf.shape[1:]).to(leaf.dtype),
-            cluster_params)
+        def one(leaf):
+            rows = _rows(leaf)
+            gw = _as_rows_columns(ops.weighted_aggregate(rows, lambdas),
+                                  rows)
+            return gw.reshape(leaf.shape[1:]).to(leaf.dtype)
+        return _map(one, cluster_params)
     lam = (lambdas / torch.sum(lambdas)).to(acc)
     return _map(lambda leaf: torch.einsum(
         "c,c...->...", lam, leaf.to(acc)).to(leaf.dtype), cluster_params)
@@ -222,7 +358,8 @@ def _similarities(cluster_params: Any, gw: Any,
     dot, wsq = torch.zeros((C,), **f32), torch.zeros((C,), **f32)
     gsq = torch.zeros((), **f32)
     for w, g in zip(leaves_w, leaves_g):
-        d, ws, gs = ops.cosine_partials(_rows(w), g.reshape(-1).contiguous())
+        d, ws, gs = (ordered_sum(t) for t in ops.cosine_partials(
+            _rows(w), g.reshape(-1).contiguous()))
         dot, wsq, gsq = dot + d, wsq + ws, gsq + gs
     return torch.clamp(dot / torch.clamp(torch.sqrt(wsq) * torch.sqrt(gsq),
                                          min=eps), -1.0, 1.0)
@@ -233,10 +370,36 @@ def consensus(cluster_params: Any, lambdas: torch.Tensor,
               ) -> tuple[Any, torch.Tensor, ConsensusMetrics]:
     """Alg. 1 lines 2-5 (HCDS is host-side): (gw, new_history, metrics).
     All C honest clusters vote argmax-similarity; the BTSV tally still
-    runs so vote weights and scores are produced for the ledger."""
+    runs so vote weights and scores are produced for the ledger. On
+    DTensor replicas gw is a DTensor tree, the tally runs on the whole
+    similarities, the metrics are plain tensors and the history a
+    replicated DTensor."""
     C = lambdas.shape[0]
+    if any(is_dtensor(t) for t in _leaves(cluster_params)):
+        with implicit_replication():
+            gw = _weighted_global(cluster_params, lambdas,
+                                  cfg.consensus_dtype)
+            sims = whole(_similarities(cluster_params, gw))
+        new_history, metrics = _tally(sims, whole(btsv_history), cfg, C)
+        if is_dtensor(btsv_history):
+            new_history = _replicated_like(new_history, btsv_history)
+        return gw, new_history, metrics
     gw = _weighted_global(cluster_params, lambdas, cfg.consensus_dtype)
     sims = _similarities(cluster_params, gw)
+    return (gw, *_tally(sims, btsv_history, cfg, C))
+
+
+def _replicated_like(t: torch.Tensor, like: torch.Tensor):
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _tally(sims: torch.Tensor, btsv_history: torch.Tensor,
+           cfg: PoFELTrainConfig, C: int) -> tuple:
+    """The votes (all for the argmax), the BTSV tally and the metrics:
+    (new_history, metrics)."""
     vote = int(torch.argmax(sims))
     votes = torch.full((C,), vote, dtype=torch.int32, device=sims.device)
     g_min = (1.0 - cfg.g_max) / (C - 1)
@@ -247,7 +410,7 @@ def consensus(cluster_params: Any, lambdas: torch.Tensor,
     metrics = ConsensusMetrics(torch.zeros((C,), device=sims.device), sims,
                                res.leader.to(torch.int32), res.weights,
                                res.scores)
-    return gw, new_history, metrics
+    return new_history, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +426,15 @@ def pofel_round(model: Model, state: PoFELTrainState, batch: dict,
     gw, new_history, metrics = consensus(cluster_params, lambdas,
                                          state.btsv_history, cfg)
     del cluster_params
+    with on_mesh(gw):
+        return _outer(state, gw, new_history, metrics._replace(
+            loss=whole(losses)), cfg)
+
+
+def _outer(state: PoFELTrainState, gw: Any, new_history: torch.Tensor,
+           metrics: ConsensusMetrics, cfg: PoFELTrainConfig
+           ) -> tuple[PoFELTrainState, ConsensusMetrics]:
+    """The outer update and the redistribution of the new global model."""
     if cfg.outer == "sgd1":
         # paper-faithful: the aggregated model is the next global model
         new_global, new_mom = gw, state.outer_momentum
@@ -284,7 +456,7 @@ def pofel_round(model: Model, state: PoFELTrainState, batch: dict,
     new_state = PoFELTrainState(
         _broadcast_clusters(new_global, cfg.n_clusters), new_global, new_mom,
         new_history, state.round + 1)
-    return new_state, metrics._replace(loss=losses)
+    return new_state, metrics
 
 
 def train_step(model: Model, state: PoFELTrainState, batch: dict,

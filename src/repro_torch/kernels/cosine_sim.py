@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._dtensor import ensure_rules, refuse_device
 from repro_torch.kernels.ref import cosine_partials_ref
 from repro_torch.kernels.weighted_agg import vector_width
 
@@ -86,9 +87,12 @@ def _check(W: torch.Tensor, gw: torch.Tensor) -> None:
         raise ValueError(f"W is on {W.device} but gw is on {gw.device}")
 
 
-def cosine_partials(W: torch.Tensor, gw: torch.Tensor):
-    """(N, D), (D,) → (dot (N,), wsq (N,), gsq ()) in float32."""
-    _check(W, gw)
+@torch.library.custom_op("repro_torch::cosine_partials", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def cosine_partials_op(W: torch.Tensor, gw: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel (the plain version on the CPU): (dot (N,), wsq (N,),
+    gsq ()) in float32."""
     if W.device.type == "cpu":
         return cosine_partials_ref(W, gw)
     if W.device.type != "cuda":
@@ -102,7 +106,7 @@ def cosine_partials(W: torch.Tensor, gw: torch.Tensor):
     part = torch.empty(2 * (N + 1) * splits_for(D), **f32)
     dot = torch.empty(N, **f32)
     wsq = torch.empty(N, **f32)
-    gsq = torch.empty(1, **f32)
+    gsq = torch.empty((), **f32)
     # a lane's elements come in 8-byte groups: at most a group a load
     vec = min(8 // W.element_size(),
               vector_width(D, W.data_ptr(), W.element_size()))
@@ -117,4 +121,30 @@ def cosine_partials(W: torch.Tensor, gw: torch.Tensor):
         raise RuntimeError(f"cosine_partials kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return dot, wsq, gsq[0]
+    return dot, wsq, gsq
+
+
+@cosine_partials_op.register_fake
+def _(W, gw):
+    f32 = dict(dtype=torch.float32)
+    return (W.new_empty((W.shape[0],), **f32),
+            W.new_empty((W.shape[0],), **f32), W.new_empty((), **f32))
+
+
+def sharding_rules(W, gw):
+    """W sharded along its columns with gw along its one dim gives three
+    partial sums (reduce them with ``_dtensor.ordered_sum``); W sharded
+    along its rows gives the rows' partials sharded and gsq whole; or
+    none sharded."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return [([Partial()] * 3, [Shard(1), Shard(0)]),
+            ([Shard(0), Shard(0), Replicate()], [Shard(0), Replicate()]),
+            ([Replicate()] * 3, [Replicate()] * 2)]
+
+
+def cosine_partials(W: torch.Tensor, gw: torch.Tensor):
+    """(N, D), (D,) → (dot (N,), wsq (N,), gsq ()) in float32."""
+    _check(W, gw)
+    refuse_device(W, "cosine_partials")
+    ensure_rules(W)
+    return cosine_partials_op(W, gw)

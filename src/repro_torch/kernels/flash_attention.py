@@ -46,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._dtensor import ensure_rules, refuse_device
 from repro_torch.kernels._fold import front, is_wrapped
 from repro_torch.kernels.ref import (flash_attention_backward_ref,
                                      flash_attention_gqa_ref,
@@ -278,57 +279,148 @@ def _unfold(t, V):
     return t.reshape(V, t.shape[0] // V, *t.shape[1:])
 
 
+# -- the kernels as torch.library custom ops ---------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int, causal: bool,
+             save: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (the plain version on the CPU): (o, the row
+    logsumexp L (B, Hq, Sq) float32 the backward reads; empty (B, Hq, 0)
+    when ``save`` is off)."""
+    o, lse = _forward(q, k, v, causal, window, want_lse=save)
+    if lse is None:
+        lse = q.new_empty((q.shape[0], q.shape[2], 0), dtype=torch.float32)
+    # the layouts the fake implementation gives (the plain version's may
+    # be a transpose; the kernel's are contiguous already)
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_op.register_fake
+def _(q, k, v, window, causal, save):
+    B, S, Hq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B, Hq, S if save else 0), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=(), device_types=("cpu", "cuda"))
+def flash_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, d_o: torch.Tensor,
+                      window: int, causal: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_backward` (the dQ kernel, then the dK/dV
+    kernel; the plain version on the CPU): (dq, dk, dv)."""
+    # e.g. the expanded grad of a sum; the bf16 kernel also wants 16-byte
+    # aligned rows, which a fresh copy has
+    if d_o.device.type == "cuda" and (
+            d_o.stride(3) != 1 or (d_o.dtype == torch.bfloat16
+                                   and tma_refusal("d_o", d_o))):
+        d_o = d_o.clone(memory_format=torch.contiguous_format)
+    return tuple(g.contiguous() for g in flash_attention_backward(
+        q, k, v, o, lse, d_o, causal=causal, window=window))
+
+
+@flash_backward_op.register_fake
+def _(q, k, v, o, lse, d_o, window, causal):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, window, causal, _ = inputs
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.mask = (window, causal)
+
+
+def _backward(ctx, d_o, _):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_backward_op(q, k, v, o, lse, d_o, *ctx.mask)
+    return dq, dk, dv, None, None, None
+
+
+flash_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _fwd_vmap(info, in_dims, q, k, v, window, causal, save):
+    """The vmapped axis folded into the batch: one launch for all of it."""
+    V = info.batch_size
+    o, lse = flash_op(*(_fold(t, d, V) for t, d in zip((q, k, v), in_dims)),
+                      window, causal, save)
+    return (_unfold(o, V), _unfold(lse, V)), (0, 0)
+
+
+def _bwd_vmap(info, in_dims, q, k, v, o, lse, d_o, window, causal):
+    V = info.batch_size
+    grads = flash_backward_op(
+        *(_fold(t, d, V) for t, d in zip((q, k, v, o, lse, d_o), in_dims)),
+        window, causal)
+    return tuple(_unfold(g, V) for g in grads), (0, 0, 0)
+
+
+flash_op.register_vmap(_fwd_vmap)
+flash_backward_op.register_vmap(_bwd_vmap)
+
+
+def sharding_rules(q, k, v, window, causal, save):
+    """The placements the kernel computes right on a shard: the batch,
+    the heads (q on Hq, k and v on Hk, where every mesh dim divides Hk,
+    so that each GQA group stays whole) or none. Never the sequence: a
+    causal or windowed mask needs the query offset the kernel does not
+    take, and cross-attention's keys are one whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    rules = [([Shard(0), Shard(0)], [Shard(0)] * 3 + [None] * 3)]
+    if all(k.shape[2] % n == 0 for n in k.mesh.shape):
+        rules.append(([Shard(2), Shard(1)], [Shard(2)] * 3 + [None] * 3))
+    rules.append(([Replicate()] * 2, [Replicate()] * 3 + [None] * 3))
+    return rules
+
+
+def backward_sharding_rules(q, k, v, o, lse, d_o, window, causal):
+    from torch.distributed.tensor import Replicate, Shard
+    rules = [([Shard(0)] * 3, [Shard(0)] * 6 + [None] * 2)]
+    if all(k.shape[2] % n == 0 for n in k.mesh.shape):
+        rules.append(([Shard(2)] * 3, [Shard(2)] * 4 + [Shard(1), Shard(2)]
+                      + [None] * 2))
+    rules.append(([Replicate()] * 3, [Replicate()] * 6 + [None] * 2))
+    return rules
+
+
 class _Attention(torch.autograd.Function):
-    """The op as a ``torch.func``-ready Function: the kernels on the
-    card, the plain versions on the CPU. Its outputs are (o, the row
-    logsumexp L the backward reads; empty when ``save`` is off). Under
-    ``torch.func.vmap`` the vmapped axis is folded into the batch and the
-    op runs once for the whole batch."""
+    """The op under ``torch.func`` (whose transforms do not take a custom
+    op's autograd): the forward and backward ops, whose vmap rules fold
+    the vmapped axis into the batch. Its outputs are (o, the row
+    logsumexp L the backward reads; empty when ``save`` is off)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(q, k, v, causal, window, save):
-        o, lse = _forward(q, k, v, causal, window, want_lse=save)
-        if lse is None:
-            lse = q.new_empty((q.shape[0], q.shape[2], 0),
-                              dtype=torch.float32)
-        return o, lse
+        return flash_op(q, k, v, window, causal, save)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, _ = inputs
-        ctx.mark_non_differentiable(output[1])
-        ctx.save_for_backward(q, k, v, *output)
-        ctx.mask = (causal, window)
+        q, k, v, causal, window, save = inputs
+        _setup_context(ctx, (q, k, v, window, causal, save), output)
 
     @staticmethod
     def backward(ctx, d_o, _):
         q, k, v, o, lse = ctx.saved_tensors
-        return (*_AttentionBackward.apply(q, k, v, o, lse, d_o, *ctx.mask),
-                None, None, None)
-
-    @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, save):
-        V = info.batch_size
-        o, lse = _Attention.apply(
-            *(_fold(t, d, V) for t, d in zip((q, k, v), in_dims)), causal,
-            window, save)
-        return (_unfold(o, V), _unfold(lse, V)), (0, 0)
+        window, causal = ctx.mask
+        return (*_AttentionBackward.apply(q, k, v, o, lse, d_o, causal,
+                                          window), None, None, None)
 
 
 class _AttentionBackward(torch.autograd.Function):
-    """:func:`flash_attention_backward` as a Function of its own, so that
-    under ``torch.func`` the backward is folded and launched once too.
-    It has no gradient of its own."""
+    """The backward op under ``torch.func``, which differentiates the
+    backward graph it builds; it has no gradient of its own."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(q, k, v, o, lse, d_o, causal, window):
-        # e.g. the expanded grad of a sum; the bf16 kernel also wants
-        # 16-byte aligned rows, which a fresh copy has
-        if d_o.stride(3) != 1 or (d_o.dtype == torch.bfloat16
-                                  and tma_refusal("d_o", d_o)):
-            d_o = d_o.clone(memory_format=torch.contiguous_format)
-        return flash_attention_backward(q, k, v, o, lse, d_o, causal=causal,
-                                        window=window)
+        return flash_backward_op(q, k, v, o, lse, d_o, window, causal)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -338,14 +430,6 @@ class _AttentionBackward(torch.autograd.Function):
     def backward(ctx, *grads):
         raise NotImplementedError("the flash attention backward has no "
                                   "gradient")
-
-    @staticmethod
-    def vmap(info, in_dims, q, k, v, o, lse, d_o, causal, window):
-        V = info.batch_size
-        grads = _AttentionBackward.apply(
-            *(_fold(t, d, V) for t, d in zip((q, k, v, o, lse, d_o),
-                                             in_dims)), causal, window)
-        return tuple(_unfold(g, V) for g in grads), (0, 0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -360,6 +444,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, causal, window)
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
-    if grad or is_wrapped(q, k, v):
+    if grad and is_wrapped(q, k, v):
         return _Attention.apply(q, k, v, causal, window, grad)[0]
-    return _forward(q, k, v, causal, window, want_lse=False)[0]
+    refuse_device(q, "flash attention")
+    ensure_rules(q)
+    return flash_op(q, k, v, window, causal, grad)[0]

@@ -1,12 +1,19 @@
 """Public wrappers around the port's kernels, and their launch counts.
 
-Each op runs its hand-written CUDA kernel for a CUDA tensor and its plain
-PyTorch version (``repro_torch.kernels.ref``) for a CPU tensor; there is
-no other route. ``wkv6_recurrence`` and ``flash_attention`` are
-differentiable: their backward passes are kernels too (on the CPU, the
-plain backward versions); under ``torch.func.vmap`` each folds the
-vmapped axis into one launch. :func:`launch_counts` reads how many times each kernel
-was launched, so a run can show that its main path went through them.
+Each kernel is a ``torch.library`` custom op (``repro_torch::
+flash_attention``, ``::flash_attention_backward``, ``::wkv6``,
+``::wkv6_backward``, ``::cosine_partials``, ``::weighted_aggregate``):
+its hand-written CUDA kernel for a CUDA tensor and its plain PyTorch
+version (``repro_torch.kernels.ref``) for a CPU tensor, there is no
+other route; a fake implementation for meta tensors; DTensor sharding
+rules (``kernels._dtensor``), so that a DTensor's ranks each run the
+kernel on their shard. ``wkv6_recurrence`` and ``flash_attention`` are
+differentiable: their backward passes are ops too (the custom op's
+autograd; under ``torch.func``, whose transforms do not take it, an
+autograd Function calling the same ops); under ``torch.func.vmap`` each
+folds the vmapped axis into one launch. :func:`launch_counts` reads how
+many times each kernel was launched, so a run can show that its main
+path went through them.
 """
 
 from __future__ import annotations

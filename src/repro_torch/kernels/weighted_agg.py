@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._dtensor import ensure_rules, refuse_device
 from repro_torch.kernels.ref import weighted_aggregate_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -53,9 +54,11 @@ def _check(W: torch.Tensor, weights: torch.Tensor) -> None:
                          f"{weights.device}")
 
 
-def weighted_aggregate(W: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """(N, D), (N,) → (D,) normalized weighted aggregate in float32."""
-    _check(W, weights)
+@torch.library.custom_op("repro_torch::weighted_aggregate", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def weighted_aggregate_op(W: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """The kernel (the plain version on the CPU): (D,) float32."""
     if W.device.type == "cpu":
         return weighted_aggregate_ref(W, weights)
     if W.device.type != "cuda":
@@ -77,3 +80,25 @@ def weighted_aggregate(W: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                            f"error {err}")
     launches += 1
     return out
+
+
+@weighted_aggregate_op.register_fake
+def _(W, weights):
+    return W.new_empty((W.shape[1],), dtype=torch.float32)
+
+
+def sharding_rules(W, weights):
+    """W sharded along its columns gives gw sharded along its one dim,
+    the weights whole (λ is normalized over all of them); or none
+    sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Shard(0)], [Shard(1), Replicate()]),
+            ([Replicate()], [Replicate(), Replicate()])]
+
+
+def weighted_aggregate(W: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(N, D), (N,) → (D,) normalized weighted aggregate in float32."""
+    _check(W, weights)
+    refuse_device(W, "weighted_aggregate")
+    ensure_rules(W)
+    return weighted_aggregate_op(W, weights)

@@ -34,11 +34,12 @@ vmapped axis into the heads and launch once for the whole batch.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._dtensor import ensure_rules, refuse_device
 from repro_torch.kernels._fold import front, is_wrapped
 from repro_torch.kernels.ref import wkv6_backward_ref, wkv6_recurrence_ref
 
@@ -282,27 +283,136 @@ def _unfold_state(t, V):
                      *t.shape[2:]).transpose(0, 1)
 
 
-class _Recurrence(torch.autograd.Function):
-    """The op as a ``torch.func``-ready Function: the kernels on the
-    card, the plain versions on the CPU. Its outputs are (o, final
-    state, the chunk states the backward reads; empty on the CPU or
-    when ``save`` is off). Under ``torch.func.vmap`` the vmapped axis is
-    folded into the heads and the op runs once for the whole batch;
+# -- the kernels as torch.library custom ops ---------------------------------
+
+@torch.library.custom_op("repro_torch::wkv6", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+            save: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel (the plain version on the CPU): (o, final
+    state, the chunk states the backward kernel reads; empty (B, H, 0,
+    K, K) on the CPU or when ``save`` is 0). ``save`` is an int (0 or 1),
+    so that DTensor's sharding cache tells the two apart."""
+    o, s_fin, ckpt = _forward(r, k, v, w, u, s0, save=bool(save))
+    if ckpt is None:
+        B, S, H, K = r.shape
+        ckpt = r.new_empty((B, H, 0, K, K))
+    # the layouts the fake implementation gives
+    return o.contiguous(), s_fin.contiguous(), ckpt
+
+
+@wkv6_op.register_fake
+def _(r, k, v, w, u, s0, save):
+    B, S, H, K = r.shape
+    chunks = -(-S // CHUNK) if save and r.device.type == "cuda" else 0
+    return (r.new_empty(r.shape), r.new_empty((B, H, K, K)),
+            r.new_empty((B, H, chunks, K, K)))
+
+
+@torch.library.custom_op("repro_torch::wkv6_backward", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def wkv6_backward_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                     d_o: torch.Tensor, d_state: Optional[torch.Tensor],
+                     ckpt: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`wkv6_backward` (the walk, then du's fold; the plain version
+    on the CPU): (dr, dk, dv, dw, du, ds0)."""
+    if d_o.stride(3) != 1:      # e.g. the expanded grad of a sum
+        d_o = d_o.contiguous()
+    return tuple(g.contiguous() for g in wkv6_backward(
+        r, k, v, w, u, s0, d_o, d_state, ckpt))
+
+
+@wkv6_backward_op.register_fake
+def _(r, k, v, w, u, s0, d_o, d_state, ckpt):
+    return (*(r.new_empty(r.shape) for _ in range(4)), u.new_empty(u.shape),
+            s0.new_empty(s0.shape))
+
+
+def _setup_context(ctx, inputs, output):
+    r, k, v, w, u, s0, _ = inputs      # the last: save
+    ctx.mark_non_differentiable(output[2])
+    ctx.save_for_backward(r, k, v, w, u, s0, output[2])
+
+
+def _backward(ctx, d_o, d_state, _):
+    r, k, v, w, u, s0, ckpt = ctx.saved_tensors
+    if d_o is None:
+        d_o = torch.zeros_like(r)
+    return (*wkv6_backward_op(r, k, v, w, u, s0, d_o, d_state, ckpt), None)
+
+
+wkv6_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _fwd_vmap(info, in_dims, r, k, v, w, u, s0, save):
+    """The vmapped axis folded into the heads: one launch for all of it;
     vmap over vmap folds twice, still one launch."""
+    V = info.batch_size
+    o, s_fin, ckpt = wkv6_op(
+        *(_fold(t, d, V) for t, d in zip((r, k, v, w), in_dims)),
+        _fold_u(u, in_dims[4], V), _fold_state(s0, in_dims[5], V), save)
+    return ((_unfold(o, V), _unfold_state(s_fin, V),
+             _unfold_state(ckpt, V)), (0, 0, 0))
+
+
+def _bwd_vmap(info, in_dims, r, k, v, w, u, s0, d_o, d_state, ckpt):
+    V = info.batch_size
+    dr, dk, dv, dw, du, ds0 = wkv6_backward_op(
+        *(_fold(t, d, V) for t, d in zip((r, k, v, w), in_dims)),
+        _fold_u(u, in_dims[4], V), _fold_state(s0, in_dims[5], V),
+        _fold(d_o, in_dims[6], V),
+        None if d_state is None else _fold_state(d_state, in_dims[7], V),
+        _fold_state(ckpt, in_dims[8], V))
+    return ((*(_unfold(t, V) for t in (dr, dk, dv, dw)),
+             du.reshape(V, -1, du.shape[-1]), _unfold_state(ds0, V)),
+            (0,) * 6)
+
+
+wkv6_op.register_vmap(_fwd_vmap)
+wkv6_backward_op.register_vmap(_bwd_vmap)
+
+
+def sharding_rules(r, k, v, w, u, s0, save):
+    """The placements the kernel computes right on a shard: the batch
+    (u whole), the heads (u on its H dim) or none. Never the time axis:
+    the state carries over it."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Shard(0)] * 3, [Shard(0)] * 4 + [Replicate(), Shard(0), None]),
+            ([Shard(2), Shard(1), Shard(1)],
+             [Shard(2)] * 4 + [Shard(0), Shard(1), None]),
+            ([Replicate()] * 3, [Replicate()] * 6 + [None])]
+
+
+def backward_sharding_rules(r, k, v, w, u, s0, d_o, d_state, ckpt):
+    """As the forward's; on the batch, du (a sum over b) is partial."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ds = None if d_state is None else Shard(0)
+    dh = None if d_state is None else Shard(1)
+    dr = None if d_state is None else Replicate()
+    return [([Shard(0)] * 4 + [Partial(), Shard(0)],
+             [Shard(0)] * 4 + [Replicate(), Shard(0), Shard(0), ds,
+                               Shard(0)]),
+            ([Shard(2)] * 4 + [Shard(0), Shard(1)],
+             [Shard(2)] * 4 + [Shard(0), Shard(1), Shard(2), dh, Shard(1)]),
+            ([Replicate()] * 6, [Replicate()] * 7 + [dr, Replicate()])]
+
+
+class _Recurrence(torch.autograd.Function):
+    """The op under ``torch.func`` (whose transforms do not take a custom
+    op's autograd): the forward and backward ops, whose vmap rules fold
+    the vmapped axis into the heads."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(r, k, v, w, u, s0, save):
-        o, s_fin, ckpt = _forward(r, k, v, w, u, s0, save=save)
-        if ckpt is None:
-            B, S, H, K = r.shape
-            ckpt = r.new_empty((B, H, 0, K, K))
-        return o, s_fin, ckpt
+        return wkv6_op(r, k, v, w, u, s0, int(save))
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        r, k, v, w, u, s0, _ = inputs
-        ctx.mark_non_differentiable(output[2])
-        ctx.save_for_backward(r, k, v, w, u, s0, output[2])
+    setup_context = staticmethod(_setup_context)
 
     @staticmethod
     def backward(ctx, d_o, d_state, _):
@@ -312,26 +422,16 @@ class _Recurrence(torch.autograd.Function):
         return (*_RecurrenceBackward.apply(r, k, v, w, u, s0, d_o, d_state,
                                            ckpt), None)
 
-    @staticmethod
-    def vmap(info, in_dims, r, k, v, w, u, s0, save):
-        V = info.batch_size
-        o, s_fin, ckpt = _Recurrence.apply(
-            *(_fold(t, d, V) for t, d in zip((r, k, v, w), in_dims)),
-            _fold_u(u, in_dims[4], V), _fold_state(s0, in_dims[5], V), save)
-        return ((_unfold(o, V), _unfold_state(s_fin, V),
-                 _unfold_state(ckpt, V)), (0, 0, 0))
-
 
 class _RecurrenceBackward(torch.autograd.Function):
-    """:func:`wkv6_backward` as a Function of its own, so that under
-    ``torch.func`` the backward is folded and launched once too. It has
-    no gradient of its own."""
+    """The backward op under ``torch.func``, which differentiates the
+    backward graph it builds; it has no gradient of its own."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(r, k, v, w, u, s0, d_o, d_state, ckpt):
-        if d_o.stride(3) != 1:      # e.g. the expanded grad of a sum
-            d_o = d_o.contiguous()
-        return wkv6_backward(r, k, v, w, u, s0, d_o, d_state, ckpt)
+        return wkv6_backward_op(r, k, v, w, u, s0, d_o, d_state, ckpt)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -340,19 +440,6 @@ class _RecurrenceBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError("the wkv6 backward has no gradient")
-
-    @staticmethod
-    def vmap(info, in_dims, r, k, v, w, u, s0, d_o, d_state, ckpt):
-        V = info.batch_size
-        dr, dk, dv, dw, du, ds0 = _RecurrenceBackward.apply(
-            *(_fold(t, d, V) for t, d in zip((r, k, v, w), in_dims)),
-            _fold_u(u, in_dims[4], V), _fold_state(s0, in_dims[5], V),
-            _fold(d_o, in_dims[6], V),
-            None if d_state is None else _fold_state(d_state, in_dims[7], V),
-            _fold_state(ckpt, in_dims[8], V))
-        return ((*(_unfold(t, V) for t in (dr, dk, dv, dw)),
-                 du.reshape(V, -1, du.shape[-1]), _unfold_state(ds0, V)),
-                (0,) * 6)
 
 
 def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -365,6 +452,8 @@ def wkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(r, k, v, w, u, s0)
     ts = (r, k, v, w, u, s0)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-    if grad or is_wrapped(*ts):
-        return _Recurrence.apply(r, k, v, w, u, s0, grad)[:2]
-    return _forward(r, k, v, w, u, s0, save=False)[:2]
+    if grad and is_wrapped(*ts):
+        return _Recurrence.apply(r, k, v, w, u, s0, int(grad))[:2]
+    refuse_device(r, "wkv6")
+    ensure_rules(r)
+    return wkv6_op(r, k, v, w, u, s0, int(grad))[:2]

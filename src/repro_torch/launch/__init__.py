@@ -1,8 +1,9 @@
 """Launchers of the port (counterpart of ``repro.launch``): the PoFEL
 trainer's (``python -m repro_torch.launch.train``), the serving
-launcher's (``python -m repro_torch.launch.serve``), and the layout half
-of the mesh launchers: ``mesh``, ``specs``, ``costs``, ``roofline``, the
+launcher's (``python -m repro_torch.launch.serve``), and the mesh
+launchers: ``mesh``, ``specs``, ``costs``, ``roofline``, the
 dry run (``python -m repro_torch.launch.dryrun``) and the hillclimb
-driver (``python -m repro_torch.launch.hillclimb``). Steps on a mesh of
-more than one device wait for ROADMAP Queue 1 item 15's execution
-half."""
+driver (``python -m repro_torch.launch.hillclimb``); the steps run as
+DTensor programs on any mesh (several ranks on the CPU through
+``mesh.run_on_ranks``). The roofline's collective term waits for ROADMAP
+Queue 1 item 15, step 5."""

@@ -7,9 +7,9 @@ profile and forward-option variant and report its roofline row (port of
 
 As the dry run (``launch.dryrun``), the setup is built on a fake process
 group, nothing allocated or compiled. ``--override key=value`` sets a
-``FwdOptions`` field of a train step; the row records it. Building takes
-any override: only running the step would refuse a mesh lever (ROADMAP
-Queue 1 item 15, the execution half).
+``FwdOptions`` field of a train step; the row records it. The row's
+collective term waits for ROADMAP Queue 1 item 15, step 5
+(``roofline.NO_COLLECTIVES``).
 """
 
 import argparse

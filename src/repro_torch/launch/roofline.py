@@ -12,13 +12,13 @@ Methodology:
   device count;
 * the collective term: none is recorded yet. The reference parses the
   compiled program's collectives out of XLA's HLO text; a torch step on
-  a mesh has no such text, and the port runs no step on a mesh of more
-  than one device. Counting the collectives a DTensor step issues (and
-  scaling them by the layer count, as the reference scales by trip
-  count), and the rate of each axis (NVLink or InfiniBand), are ROADMAP
-  Queue 1 item 15's execution half. Until then a row's ``collective_s``
-  is None, ``collective_note`` says why, and ``dominant`` is chosen
-  between compute and memory.
+  a mesh has no such text. The step runs on a mesh as a DTensor program
+  (``launch.specs``), so its collectives can be counted
+  (``CommDebugMode``); scaling them by the layer count, as the reference
+  scales by trip count, and the rate of each axis (NVLink or
+  InfiniBand) are ROADMAP Queue 1 item 15, steps 5 and 6. Until then a
+  row's ``collective_s`` is None, ``collective_note`` says why, and
+  ``dominant`` is chosen between compute and memory.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ H100_SXM5_FP32_FLOP_PER_S = 67e12
 H100_SXM5_HBM3_BYTES_PER_S = 3.35e12
 
 NO_COLLECTIVES = ("not recorded: the collective term waits for the "
-                  "DTensor step on a mesh (ROADMAP Queue 1 item 15, the "
-                  "execution half)")
+                  "DTensor step's collectives scaled by the layer count "
+                  "(ROADMAP Queue 1 item 15, step 5)")
 
 
 @dataclass

@@ -11,19 +11,22 @@ assigned input shapes:
   prefill  → ``Model.prefill``
   decode   → ``Model.decode_step`` (one token against a seq_len KV cache)
 
-``StepSetup.step`` (the reference's ``jitted``) runs on a mesh of one
-device: it takes tensors (or DTensors, whose local tensors it takes) of
-the abstract arguments' local shapes and dtypes. On a larger mesh, and
-with a mesh lever off its default or a sharded cluster axis, it raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 15's execution half;
-building a setup refuses neither.
+``StepSetup.step`` (the reference's ``jitted``) runs the step as a
+DTensor program: it takes DTensors of the abstract arguments' global
+shapes, dtypes and placements, and the train step gives its new state
+back in the state argument's placements (the reference's
+``out_shardings``). Every mesh lever and ``cluster_axis`` runs. On a
+mesh of one device it also takes plain tensors of those shapes, and
+then runs the one-card path. A step given meta arguments, or built on
+the fake process group, raises ``ValueError``: the fake group moves no
+data.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable
 
 import torch
 
@@ -37,26 +40,17 @@ from repro_torch.models.model_api import Model
 from repro_torch.models.sharding import (PSpec, cache_pspecs, local_shape,
                                          param_pspecs, placements,
                                          with_cluster_dim)
-from repro_torch.models.transformer import FwdOptions, check_options
-
-EXECUTION_HALF = "ROADMAP Queue 1 item 15, the execution half"
-
+from repro_torch.models.mesh_ops import (contiguous_stride,
+                                         implicit_replication)
+from repro_torch.models.transformer import FwdOptions
 
 @dataclass
 class StepSetup:
     name: str
-    step: Callable              # runs on a mesh of one device
+    step: Callable              # runs the step on the mesh
     abstract_args: tuple        # DTensors over meta tensors
     model: Model
     cfg: ArchConfig
-
-
-def _contiguous_stride(shape: tuple) -> tuple:
-    stride, acc = [], 1
-    for s in reversed(shape):
-        stride.append(acc)
-        acc *= s
-    return tuple(reversed(stride))
 
 
 def abstract_dtensor(shape: tuple, dtype: torch.dtype, spec: PSpec, mesh):
@@ -68,7 +62,7 @@ def abstract_dtensor(shape: tuple, dtype: torch.dtype, spec: PSpec, mesh):
                         device="meta")
     return DTensor.from_local(local, mesh, placements(spec, mesh),
                               run_check=False, shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape))
+                              stride=contiguous_stride(shape))
 
 
 def _shard_tree(mesh, tree_specs, tree_abstract):
@@ -95,54 +89,115 @@ def serving_config(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
     return cfg
 
 
-def _runnable(mesh, opts: Optional[FwdOptions],
-              tcfg: Optional[pt.PoFELTrainConfig] = None) -> None:
-    """Refuse what one device does not run: a mesh of more devices, a
-    mesh lever, a sharded cluster axis."""
-    if mesh.size() > 1:
-        raise NotImplementedError(
-            f"a step on a mesh of {mesh.size()} devices "
-            f"{dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))} runs "
-            f"DTensors across ranks ({EXECUTION_HALF})")
-    check_options(opts)
-    if tcfg is not None and tcfg.cluster_axis is not None:
-        raise NotImplementedError(
-            f"cluster_axis={tcfg.cluster_axis!r} shards the clusters over "
-            f"a mesh ({EXECUTION_HALF})")
+def distribute_like(values: Any, abstract: Any) -> Any:
+    """Plain tensors (whole, the same on every rank) as DTensors laid out
+    as their abstract arguments: rank 0's values, scattered. On a mesh of
+    one device each tensor is its own local tensor, views (the replicas'
+    ``expand``) included: nothing is copied."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(t, w):
+        if w.device_mesh.size() == 1:
+            return DTensor.from_local(t, w.device_mesh, w.placements,
+                                      run_check=False)
+        return distribute_tensor(t.contiguous(), w.device_mesh,
+                                 w.placements)
+
+    want = dict(leaves_with_paths(abstract))
+    return rebuild(values, {p: None if t is None else one(t, want[p])
+                            for p, t in leaves_with_paths(values)})
 
 
-def _local(arg: Any, abstract: Any, where: str) -> Any:
-    """``arg`` with each DTensor as its local tensor, each checked
-    against its abstract argument's local shape and dtype."""
+def _runnable(mesh) -> None:
+    """Refuse a step on the fake process group, which moves no data."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        raise ValueError(
+            f"a step on a mesh of the fake process group "
+            f"{dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))}: the fake "
+            f"group moves no data (build on make_host_mesh() or on the "
+            f"ranks of run_on_ranks)")
+
+
+def _checked(arg: Any, abstract: Any, mesh, where: str) -> bool:
+    """``arg`` checked leaf by leaf against its abstract argument: a
+    DTensor's global shape, dtype, mesh and placements, or (on a mesh of
+    one device) a plain tensor's shape and dtype. Whether its leaves are
+    DTensors."""
     from torch.distributed.tensor import DTensor
-
-    def spelled(t):
-        return None if t is None else (tuple(t.shape), t.dtype)
-
-    want = {p: None if w is None else w.to_local()
-            for p, w in leaves_with_paths(abstract)}
-    got = {p: a.to_local() if isinstance(a, DTensor) else a
-           for p, a in leaves_with_paths(arg)}
+    want = dict(leaves_with_paths(abstract))
+    got = dict(leaves_with_paths(arg))
     if set(got) != set(want):
         raise ValueError(f"{where}: leaves {sorted(set(got) ^ set(want))} "
                          f"are not the step's")
+    kinds = set()
     for p, a in got.items():
-        if spelled(a) != spelled(want[p]):
-            raise ValueError(f"{where}{p}: got {spelled(a)}, want "
-                             f"{spelled(want[p])}")
-    return rebuild(arg, got)
+        w = want[p]
+        if (a is None) != (w is None):
+            raise ValueError(f"{where}{p}: got {a!r}, want {w!r}")
+        if a is None:
+            continue
+        if a.device.type == "meta" or (isinstance(a, DTensor) and
+                                       a.to_local().device.type == "meta"):
+            raise ValueError(f"{where}{p}: a meta tensor; the fake group "
+                             f"moves no data, and a step needs the data")
+        spelled = (tuple(a.shape), a.dtype)
+        if spelled != (tuple(w.shape), w.dtype):
+            raise ValueError(f"{where}{p}: got {spelled}, want "
+                             f"{(tuple(w.shape), w.dtype)}")
+        if isinstance(a, DTensor):
+            if a.device_mesh != mesh or tuple(a.placements) != tuple(
+                    w.placements):
+                raise ValueError(f"{where}{p}: placements {a.placements} "
+                                 f"on {a.device_mesh}, want {w.placements} "
+                                 f"on {mesh}")
+            kinds.add(True)
+        else:
+            if mesh.size() > 1:
+                raise ValueError(f"{where}{p}: a plain tensor on a mesh of "
+                                 f"{mesh.size()} devices; the step takes "
+                                 f"DTensors there")
+            kinds.add(False)
+    if len(kinds) > 1:
+        raise ValueError(f"{where}: DTensors and plain tensors mixed")
+    return kinds == {True}
+
+
+def _relayout(tree: Any, abstract: Any) -> Any:
+    """Each DTensor of ``tree`` in its abstract argument's placements."""
+    from torch.distributed.tensor import DTensor
+    want = dict(leaves_with_paths(abstract))
+
+    def one(p, t):
+        if not isinstance(t, DTensor) or want.get(p) is None:
+            return t
+        w = want[p].placements
+        return t if tuple(t.placements) == tuple(w) else \
+            t.redistribute(t.device_mesh, w)
+
+    return rebuild(tree, {p: one(p, t) for p, t in leaves_with_paths(tree)})
 
 
 def _make_step(mesh, abstract_args: tuple, run: Callable,
-               opts: Optional[FwdOptions],
-               tcfg: Optional[pt.PoFELTrainConfig] = None) -> Callable:
+               relayout_first: bool = False) -> Callable:
+    """The step: arguments checked, the DTensor program run with plain
+    tensors beside DTensors taken as replicated, and (train) the new
+    state in its argument's placements."""
     def step(*args):
-        _runnable(mesh, opts, tcfg)
+        _runnable(mesh)
         if len(args) != len(abstract_args):
             raise TypeError(f"the step takes {len(abstract_args)} "
                             f"arguments, got {len(args)}")
-        return run(*(_local(a, w, f"argument {i}") for i, (a, w) in
-                     enumerate(zip(args, abstract_args))))
+        on_mesh = False
+        for i, (a, w) in enumerate(zip(args, abstract_args)):
+            on_mesh |= _checked(a, w, mesh, f"argument {i}")
+        if not on_mesh:
+            return run(*args)
+        with implicit_replication():
+            out = run(*args)
+            if relayout_first:
+                out = (_relayout(out[0], abstract_args[0]), *out[1:])
+        return out
     return step
 
 
@@ -241,8 +296,8 @@ def build_train_setup(arch_id: str, mesh, shape: InputShape,
         return pt.pofel_round(model, state, batch, lambdas, tcfg, opts)
 
     return StepSetup(f"{arch_id}/{shape.name}",
-                     _make_step(mesh, args, run, opts, tcfg), args, model,
-                     cfg)
+                     _make_step(mesh, args, run, relayout_first=True), args,
+                     model, cfg)
 
 
 def build_local_step_setup(arch_id: str, mesh, shape: InputShape,
@@ -262,8 +317,8 @@ def build_local_step_setup(arch_id: str, mesh, shape: InputShape,
         return pt.train_step(model, state, batch, tcfg, opts)
 
     return StepSetup(f"{arch_id}/{shape.name}/local",
-                     _make_step(mesh, args, run, opts, tcfg), args, model,
-                     setup.cfg)
+                     _make_step(mesh, args, run, relayout_first=True), args,
+                     model, setup.cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -321,10 +376,10 @@ def build_prefill_setup(arch_id: str, mesh, shape: InputShape,
     args = (params_arg, batch_arg)
 
     def run(params, batch):
-        return model.prefill(params, batch)
+        return model.prefill(params, batch, opts)
 
     return StepSetup(f"{arch_id}/{shape.name}",
-                     _make_step(mesh, args, run, opts), args, model, cfg)
+                     _make_step(mesh, args, run), args, model, cfg)
 
 
 def build_decode_setup(arch_id: str, mesh, shape: InputShape,
@@ -351,7 +406,7 @@ def build_decode_setup(arch_id: str, mesh, shape: InputShape,
         return model.decode_step(params, cache, tokens, pos)
 
     return StepSetup(f"{arch_id}/{shape.name}",
-                     _make_step(mesh, args, run, None), args, model, cfg)
+                     _make_step(mesh, args, run), args, model, cfg)
 
 
 def build_setup(arch_id: str, shape_name: str, mesh, **kw) -> StepSetup:
@@ -371,7 +426,7 @@ def input_specs(arch_id: str, shape_name: str, mesh, **kw) -> tuple:
     return build_setup(arch_id, shape_name, mesh, **kw).abstract_args
 
 
-__all__ = ["EXECUTION_HALF", "StepSetup", "abstract_dtensor",
+__all__ = ["StepSetup", "distribute_like", "abstract_dtensor",
            "arg_bytes_per_device", "build_decode_setup",
            "build_local_step_setup", "build_prefill_setup", "build_setup",
            "build_train_setup", "default_profile_config", "input_specs",

@@ -16,9 +16,10 @@ Pallas kernel; here it is a plain loop over time with a float32 state
 (B, H, P, N). Kept from the reference: the weights are float32 (its
 ``dense_init`` gets no dtype), the block's RMSNorm uses the default eps
 1e-6, the conv runs in x's dtype unrolled over its K taps, and the conv
-state leaves a step in x's dtype though it starts in float32. The
-reference's ``sharded`` pin is a mesh lever (ROADMAP Queue 1 item 15, the
-execution half) and is not carried over.
+state leaves a step in x's dtype though it starts in float32.
+``sharded=True`` (the reference's pin for a mesh) pins the small B_t and
+C_t inputs whole and the (B, S, H, P) step inputs head-sharded over
+``model``: DTensor redistributions, the identity on plain tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, linear, rms_norm
+from repro_torch.models.mesh_ops import constrain, on_mesh, replicated
 
 
 class Mamba2Config(NamedTuple):
@@ -105,15 +107,27 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def mamba2_apply(params: dict, x: torch.Tensor, cfg: Mamba2Config,
-                 state: Optional[Mamba2State] = None) -> tuple:
+                 state: Optional[Mamba2State] = None,
+                 sharded: bool = False) -> tuple:
     """x (B, S, D) → (out (B, S, D) in x's dtype, new state). The residual
     is the caller's job. Written out of place, so it runs under autograd
-    and ``torch.func.vmap``."""
+    and ``torch.func.vmap``.
+
+    sharded: pin B_t and C_t whole (they are sliced out of the packed
+    in_proj output, whose model-axis sharding crosses the slice
+    boundaries) and dt·x head-sharded over ``model``, as the reference
+    does on a mesh; the identity on plain tensors."""
+    with on_mesh(x):
+        return _apply(params, x, cfg, state, sharded)
+
+
+def _apply(params: dict, x: torch.Tensor, cfg: Mamba2Config,
+           state: Optional[Mamba2State], sharded: bool) -> tuple:
     B, S, _ = x.shape
     DI, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
 
     h = rms_norm(x, params["norm"])
-    u = h @ params["in_proj"].to(h.dtype)
+    u = linear(h, params["in_proj"])
     z, conv_in, dt_raw = torch.split(u, [DI, DI + 2 * N, H], dim=-1)
 
     conv_out, new_conv = _causal_conv(
@@ -131,6 +145,9 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg: Mamba2Config,
            else state.ssm)
     bf = b_mat.to(torch.float32)                               # (B, S, N)
     cf = c_mat.to(torch.float32)
+    if sharded:
+        bf, cf = replicated(bf), replicated(cf)
+        dtx = constrain(dtx, None, None, "model", None)
     ys = []
     for t in range(S):
         ssm = (a[:, t, :, None, None] * ssm
@@ -142,5 +159,5 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg: Mamba2Config,
          ).to(x.dtype)
     y = y.reshape(B, S, DI)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    out = y @ params["out_proj"].to(y.dtype)
+    out = linear(y, params["out_proj"])
     return out, Mamba2State(ssm, new_conv)

@@ -31,6 +31,7 @@ from repro_torch.core.serialization import map_tree
 from repro_torch.models import ssm_models, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import COMPUTE_DTYPE
+from repro_torch.models.mesh_ops import is_dtensor, on_mesh
 from repro_torch.models.transformer import FwdOptions, check_options
 
 # default weight of the auxiliary (load-balancing) loss term; eval paths
@@ -45,7 +46,14 @@ def _token_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logsumexp minus the gold logit."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        # the reference's masked-iota sum, which a vocab-sharded V
+        # reduces as a partial sum (a gather along it does not)
+        vidx = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(vidx == labels.long()[..., None],
+                                     logits, 0.0), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
 
 
@@ -139,20 +147,31 @@ class Model:
         """(logits (B, S, V), aux loss ()). ``opts`` as the reference's,
         within what :func:`transformer.check_options` takes."""
         check_options(opts)
+        with on_mesh(params.get("embed")):
+            return self._forward(params, batch, opts)
+
+    def _forward(self, params: dict, batch: dict,
+                 opts: Optional[FwdOptions]) -> tuple:
         remat = opts is not None and opts.remat
-        if self.cfg.rwkv or self.cfg.family == "hybrid":
-            fwd = (ssm_models.rwkv_forward if self.cfg.rwkv
-                   else ssm_models.hybrid_forward)
-            logits = fwd(params, batch["tokens"], self.cfg, remat=remat)
+        if self.cfg.rwkv:
+            logits = ssm_models.rwkv_forward(params, batch["tokens"],
+                                             self.cfg, remat=remat)
+            return logits, torch.zeros((), device=logits.device)
+        if self.cfg.family == "hybrid":
+            logits = ssm_models.hybrid_forward(
+                params, batch["tokens"], self.cfg, remat=remat,
+                sharded=opts is not None and opts.seq_shard_axis is not None)
             return logits, torch.zeros((), device=logits.device)
         return transformer.forward(params, batch["tokens"], self.cfg,
-                                   context=_context(batch), remat=remat)
+                                   context=_context(batch), remat=remat,
+                                   opts=opts)
 
     def loss(self, params: dict, batch: dict,
              opts: Optional[FwdOptions] = None,
              aux_weight: float = DEFAULT_AUX_WEIGHT) -> torch.Tensor:
         logits, aux = self.forward(params, batch, opts)
-        return _token_ce_loss(logits, batch["labels"]) + aux_weight * aux
+        with on_mesh(logits):
+            return _token_ce_loss(logits, batch["labels"]) + aux_weight * aux
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int) -> Any:
@@ -168,22 +187,34 @@ class Model:
         nothing allocated."""
         return Model(self.cfg, device="meta").init_cache(batch, seq_len)
 
-    def prefill(self, params: dict, batch: dict):
+    def prefill(self, params: dict, batch: dict,
+                opts: Optional[FwdOptions] = None):
         """The last position's logits (B, 1, V) and a cache. A transformer
         fills a prompt-sized KV cache in one forward. The recurrent and
         hybrid prefill runs forward for the logits and returns a fresh
         cache, as the reference has it: the serving engine builds the
-        state by replaying the prompt through :meth:`decode_step`."""
+        state by replaying the prompt through :meth:`decode_step`.
+        ``opts``: the mesh levers; remat is never on here."""
         tokens = batch["tokens"]
+        check_options(opts)
+        if opts is not None:
+            opts = opts._replace(remat=False)
         if not (self.cfg.rwkv or self.cfg.family == "hybrid"):
-            return transformer.prefill(params, tokens, self.cfg,
-                                       context=_context(batch))
-        logits, _ = self.forward(params, batch)
+            with on_mesh(params.get("embed")):
+                return transformer.prefill(params, tokens, self.cfg,
+                                           context=_context(batch),
+                                           opts=opts)
+        logits, _ = self.forward(params, batch, opts)
         cache = self.init_cache(tokens.shape[0], tokens.shape[1])
         return logits[:, -1:], cache
 
     def decode_step(self, params: dict, cache: Any, tokens: torch.Tensor,
                     pos: Any):
+        with on_mesh(params.get("embed")):
+            return self._decode_step(params, cache, tokens, pos)
+
+    def _decode_step(self, params: dict, cache: Any, tokens: torch.Tensor,
+                     pos: Any):
         if self.cfg.rwkv:
             return ssm_models.rwkv_decode_step(params, cache, tokens, pos,
                                                self.cfg)

@@ -17,6 +17,11 @@ The forward's outputs are those of the block run without it, bit for
 bit. Gradients may differ in the last float32 bit: the vjp of the
 re-run block adds up a weight's uses inside the block in an order of its
 own.
+
+On DTensors (the mesh path, which differentiates with
+``torch.autograd.grad``: ``torch.func`` takes no DTensor) it is
+``torch.utils.checkpoint``'s non-reentrant checkpoint, which keeps the
+same inputs and re-runs the block under autograd.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Callable
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.kernels._dtensor import is_dtensor
 
 
 class _Remat(torch.autograd.Function):
@@ -69,6 +76,9 @@ def checkpoint(fn: Callable, *args):
     computed inside ``fn`` is kept for the backward."""
     leaves, spec = tree_flatten(args)
     is_tensor = [isinstance(x, torch.Tensor) for x in leaves]
+    if any(is_dtensor(x) for x in leaves):
+        from torch.utils.checkpoint import checkpoint as torch_checkpoint
+        return torch_checkpoint(fn, *args, use_reentrant=False)
     others = [x for x, t in zip(leaves, is_tensor) if not t]
     returned = {}
 

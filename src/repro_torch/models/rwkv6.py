@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import wkv6_recurrence
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, linear, rms_norm
+from repro_torch.models.mesh_ops import first_dim_only, is_dtensor
 
 
 class RWKVConfig(NamedTuple):
@@ -85,8 +86,14 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
 
 def _token_shift(x: torch.Tensor,
                  x_prev_last: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, S, D) → previous-token tensor; x_prev_last seeds position 0."""
-    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    """(B, S, D) → previous-token tensor; x_prev_last seeds position 0.
+    On a DTensor a zero row joined to x[:, :-1], the same values (torch
+    2.11's DTensor fails to plan a pad's redistribution)."""
+    if is_dtensor(x):
+        x = first_dim_only(x)
+        shifted = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+    else:
+        shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
     if x_prev_last is not None:
         shifted = shifted.clone()
         shifted[:, 0] = x_prev_last.to(x.dtype)
@@ -98,13 +105,13 @@ def _time_mix_inputs(params: dict, x: torch.Tensor, shifted: torch.Tensor,
     mu = params["mu"].to(x.dtype)                          # (5, D)
     lerp = x[None] + (shifted - x)[None] * mu[:, None, None, :]   # (5,B,S,D)
     xr, xk, xv, xg, xw = lerp
-    r = xr @ params["wr"].to(x.dtype)
-    k = xk @ params["wk"].to(x.dtype)
-    v = xv @ params["wv"].to(x.dtype)
-    g = xg @ params["wg"].to(x.dtype)
+    r = linear(xr, params["wr"])
+    k = linear(xk, params["wk"])
+    v = linear(xv, params["wv"])
+    g = linear(xg, params["wg"])
     # data-dependent decay (the Finch contribution)
-    dd = torch.tanh(xw.to(torch.float32) @ params["w_lora_a"])
-    dd = dd @ params["w_lora_b"]
+    dd = torch.tanh(linear(xw.to(torch.float32), params["w_lora_a"]))
+    dd = linear(dd, params["w_lora_b"])
     w = torch.exp(-torch.exp(params["w0"].to(torch.float32) + dd))  # (0, 1)
     return r, k, v, g, w
 
@@ -137,7 +144,7 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, cfg: RWKVConfig,
     o = outs.reshape(B, S, D).to(x.dtype)
     o = _group_norm(o, params["ln_x"], H)
     o = o * F.silu(g.to(torch.float32)).to(o.dtype)
-    out = o @ params["wo"].to(o.dtype)
+    out = linear(o, params["wo"])
     return out, new_state, x[:, -1]
 
 
@@ -148,11 +155,11 @@ def rwkv_channel_mix(params: dict, x: torch.Tensor, cfg: RWKVConfig,
     mu = params["mu_ffn"].to(x.dtype)
     xk = x + (shifted - x) * mu[0]
     xr = x + (shifted - x) * mu[1]
-    kk = xk @ params["wk_ffn"].to(x.dtype)
+    kk = linear(xk, params["wk_ffn"])
     kk = torch.square(torch.relu(kk.to(torch.float32))).to(x.dtype)
-    vv = kk @ params["wv_ffn"].to(x.dtype)
+    vv = linear(kk, params["wv_ffn"])
     rr = torch.sigmoid(
-        (xr @ params["wr_ffn"].to(x.dtype)).to(torch.float32)).to(x.dtype)
+        linear(xr, params["wr_ffn"]).to(torch.float32)).to(x.dtype)
     return rr * vv, x[:, -1]
 
 

@@ -30,11 +30,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (COMPUTE_DTYPE, dense_init, embed_init,
-                                       rms_norm, swiglu_mlp)
+from repro_torch.models.layers import (COMPUTE_DTYPE, dense_init, embed,
+                                       embed_init, linear, rms_norm,
+                                       swiglu_mlp)
 from repro_torch.models.mamba2 import (Mamba2Config, Mamba2State,
                                        mamba2_apply, mamba2_init,
                                        mamba2_init_state, mamba2_param_shapes)
+from repro_torch.models.mesh_ops import whole
 from repro_torch.models.params_io import tree_from_numpy
 from repro_torch.models.remat import checkpoint
 from repro_torch.models.rwkv6 import (RWKVBlockState, RWKVConfig,
@@ -83,13 +85,13 @@ def rwkv_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """(B, S) tokens → (B, S, V) logits in the compute dtype; ``remat``
     rematerializes each block in the backward."""
     rcfg = rwkv_cfg_of(cfg)
-    x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+    x = embed(params["embed"].to(COMPUTE_DTYPE), tokens)
     for i in range(cfg.n_layers):
         layer = _layer(params["layers"], i)
         x = (checkpoint(_rwkv_step, layer, x, rcfg) if remat
              else _rwkv_step(layer, x, rcfg))
     x = rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"].to(x.dtype)
+    return linear(x, params["lm_head"])
 
 
 def rwkv_init_caches(cfg: ArchConfig, batch: int,
@@ -107,7 +109,7 @@ def rwkv_decode_step(params: dict, cache: RWKVBlockState,
     """tokens (B, 1); the recurrent state is position-independent."""
     del pos
     rcfg = rwkv_cfg_of(cfg)
-    x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+    x = embed(params["embed"].to(COMPUTE_DTYPE), tokens)
     states = []
     for i in range(cfg.n_layers):
         st = RWKVBlockState(*(t[i] for t in cache))
@@ -116,7 +118,7 @@ def rwkv_decode_step(params: dict, cache: RWKVBlockState,
         states.append(st)
     new_cache = RWKVBlockState(*(torch.stack(ts) for ts in zip(*states)))
     x = rms_norm(x, params["final_norm"])
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = linear(x, params["lm_head"])
     return logits, new_cache
 
 
@@ -279,23 +281,29 @@ def _block(stack: dict, *idx) -> dict:
     return {k: v[idx] for k, v in stack.items()}
 
 
-def _mamba_out(block: dict, x: torch.Tensor,
-               mcfg: Mamba2Config) -> torch.Tensor:
-    return mamba2_apply(block, x, mcfg)[0]
+def _mamba_out(block: dict, x: torch.Tensor, mcfg: Mamba2Config,
+               sharded: bool = False) -> torch.Tensor:
+    return mamba2_apply(block, x, mcfg, sharded=sharded)[0]
 
 
 def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-                   remat: bool = False) -> torch.Tensor:
+                   remat: bool = False, sharded: bool = False
+                   ) -> torch.Tensor:
     """(B, S) tokens → (B, S, V) logits in the compute dtype; ``remat``
     rematerializes each Mamba2 block in the backward (not the shared
-    attention block, as the reference)."""
+    attention block, as the reference); ``sharded`` is each Mamba2
+    block's mesh pin (``mamba2_apply``)."""
     mcfg = mamba_cfg_of(cfg)
     n_groups, mpg, _ = hybrid_group_shape(cfg)
     B, S = tokens.shape
-    x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+    x = embed(params["embed"].to(COMPUTE_DTYPE), tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    mamba = (lambda b, x: checkpoint(_mamba_out, b, x, mcfg)) if remat else (
-        lambda b, x: _mamba_out(b, x, mcfg))
+    if remat:
+        def mamba(b, x):
+            return checkpoint(_mamba_out, b, x, mcfg, sharded)
+    else:
+        def mamba(b, x):
+            return _mamba_out(b, x, mcfg, sharded)
     for g in range(n_groups):
         for j in range(mpg):
             x = x + mamba(_block(params["mamba_groups"], g, j), x)
@@ -304,7 +312,7 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         for j in range(params["mamba_tail"]["norm"].shape[0]):
             x = x + mamba(_block(params["mamba_tail"], j), x)
     x = rms_norm(x, params["final_norm"])      # the default eps, as the reference
-    return x @ params["lm_head"].to(x.dtype)
+    return linear(x, params["lm_head"])
 
 
 class HybridCache(NamedTuple):
@@ -343,8 +351,8 @@ def hybrid_decode_step(params: dict, cache: HybridCache,
     the KV cache in place, as the transformer's decode step does."""
     mcfg = mamba_cfg_of(cfg)
     n_groups, mpg, _ = hybrid_group_shape(cfg)
-    pos = int(pos)
-    x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+    pos = int(whole(pos))
+    x = embed(params["embed"].to(COMPUTE_DTYPE), tokens)
     sa = params["shared_attn"]
     groups = []
     for g in range(n_groups):
@@ -373,6 +381,6 @@ def hybrid_decode_step(params: dict, cache: HybridCache,
             states.append(st)
         tail = _stack_states(states)
     x = rms_norm(x, params["final_norm"])
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = linear(x, params["lm_head"])
     return logits, HybridCache(_stack_states(groups), tail, cache.attn_k,
                                cache.attn_v)

@@ -24,11 +24,21 @@ reference.
 ``jax.checkpoint``: a ``torch.autograd.Function`` that keeps only the
 block's inputs and re-runs it under ``torch.func.vjp`` in the backward
 (``torch.utils.checkpoint`` does not compose with ``torch.func.grad``,
-which the PoFEL trainer differentiates through). One card has no mesh,
-so :func:`check_options` refuses any mesh lever off its default (ROADMAP
-Queue 1 item 15, the execution half); the MoE FFN runs the reference's
-``gather`` combine. The flash kernel keeps its own tiles, so ``q_block``
-and ``kv_block`` change nothing.
+which the PoFEL trainer differentiates through). The mesh levers
+(``seq_shard_axis``, ``gather_kv``, ``weight_gather``, ``expert_axis``;
+``parallel_q`` below) are DTensor redistributions where the reference
+has ``with_sharding_constraint`` (``models.mesh_ops.constrain``): the
+residual on (dp_axes, seq_shard_axis, None) after the embedding and
+after every block, K and V whole over ``model`` before the attention
+(``gather_kv``), each layer's weights gathered whole before use except
+the routed-expert stacks (``weight_gather``), and the MoE expert buffers
+pinned to ``expert_axis`` with the ``scatter`` combine. On plain tensors
+(one card) each is the identity, but the combine: ``expert_axis`` picks
+``scatter`` there too, as the reference does. ``parallel_q`` runs the
+plain attention's query blocks at once on the CPU
+(:func:`repro_torch.models.layers.blockwise_attention`); the flash
+kernel runs every query tile at once anyway, and keeps its own tiles, so
+``q_block`` and ``kv_block`` matter only there.
 
 :func:`transformer_params_from_jax` carries the reference's weights
 over bit for bit.
@@ -44,10 +54,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import NOT_PORTED
 from repro_torch.models.config import ArchConfig
+from repro_torch.core.serialization import leaves_with_paths, rebuild
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope,
                                        blockwise_attention, decode_attention,
-                                       dense_init, embed_init, rms_norm,
-                                       swiglu_mlp)
+                                       dense_init, embed, embed_init,
+                                       linear, rms_norm, swiglu_mlp)
+from repro_torch.models.mesh_ops import (constrain, first_dim_only,
+                                         grad_first_dim_only, replicated,
+                                         whole)
 from repro_torch.models.moe import MoEConfig, moe_ffn
 from repro_torch.models.params_io import tree_from_numpy
 from repro_torch.models.remat import checkpoint
@@ -69,23 +83,25 @@ class FwdOptions(NamedTuple):
     expert_axis: Optional[str] = None
 
 
-# the options that only a device mesh gives meaning to
-MESH_LEVERS = ("seq_shard_axis", "parallel_q", "gather_kv", "weight_gather",
-               "expert_axis")
-
-
 def check_options(opts: Optional[FwdOptions]) -> None:
-    """Refuse what the port does not run: any mesh lever off its default
-    (ROADMAP Queue 1 item 15, the execution half). None is no options,
-    as ``FwdOptions(remat=False)``."""
+    """Refuse options the port cannot read: an axis that is not a name,
+    ``dp_axes`` that is not a tuple of names, blocks that are not
+    positive. Every lever runs (None is no options, as
+    ``FwdOptions(remat=False)``)."""
     if opts is None:
         return
-    for name in MESH_LEVERS:
-        if getattr(opts, name) != FwdOptions._field_defaults[name]:
-            raise NotImplementedError(
-                f"FwdOptions({name}={getattr(opts, name)!r}) is a mesh lever; "
-                f"one card has no mesh (ROADMAP Queue 1 item 15, the "
-                f"execution half)")
+    for name in ("seq_shard_axis", "expert_axis"):
+        if getattr(opts, name) is not None and not isinstance(
+                getattr(opts, name), str):
+            raise ValueError(f"FwdOptions.{name} is a mesh axis name or "
+                             f"None; got {getattr(opts, name)!r}")
+    if not (isinstance(opts.dp_axes, tuple)
+            and all(isinstance(a, str) for a in opts.dp_axes)):
+        raise ValueError(f"FwdOptions.dp_axes is a tuple of axis names; got "
+                         f"{opts.dp_axes!r}")
+    if opts.q_block < 1 or opts.kv_block < 1:
+        raise ValueError(f"FwdOptions takes q_block and kv_block >= 1; got "
+                         f"{opts.q_block}, {opts.kv_block}")
 
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -323,9 +339,9 @@ def _project_qkv(a: dict, x: torch.Tensor, cfg: ArchConfig,
     """x (B, S, D) → q (B, S, Hq, hd), k and v (B, S, Hk, hd), q and k
     rotated to ``positions`` (B, S)."""
     B, S, _ = x.shape
-    q = x @ a["wq"].to(x.dtype)
-    k = x @ a["wk"].to(x.dtype)
-    v = x @ a["wv"].to(x.dtype)
+    q = linear(x, a["wq"])
+    k = linear(x, a["wk"])
+    v = linear(x, a["wv"])
     if "bq" in a:
         q = q + a["bq"].to(q.dtype)
         k = k + a["bk"].to(k.dtype)
@@ -337,14 +353,55 @@ def _project_qkv(a: dict, x: torch.Tensor, cfg: ArchConfig,
     return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
 
 
+def _dp(opts: FwdOptions):
+    """The spec entry of the batch dim: the data axes, or None."""
+    return opts.dp_axes if opts.dp_axes else None
+
+
+def _shard_seq(x: torch.Tensor, opts: Optional[FwdOptions]) -> torch.Tensor:
+    """Megatron-SP: the residual (B, S, D) on (dp_axes, seq_shard_axis,
+    None) where the reference pins it; the identity without the lever or
+    on a plain tensor."""
+    if opts is None or opts.seq_shard_axis is None:
+        return x
+    return constrain(x, _dp(opts), opts.seq_shard_axis, None)
+
+
+def _gather_weights(layer: dict, opts: Optional[FwdOptions]) -> dict:
+    """ZeRO-3: a layer's weights gathered whole right before use (their
+    storage stays sharded), but the routed-expert stacks, which stay
+    expert-parallel."""
+    if opts is None or not opts.weight_gather:
+        return layer
+
+    def gather(path, t):
+        if t is None or ("moe" in path and "shared" not in path and any(
+                n in path for n in ("w_gate", "w_up", "w_down"))):
+            return t
+        return replicated(t)
+
+    return rebuild(layer, {p: gather(p, t)
+                           for p, t in leaves_with_paths(layer)})
+
+
 def _self_attention(layer: dict, x: torch.Tensor, cfg: ArchConfig,
-                    positions: torch.Tensor) -> tuple:
+                    positions: torch.Tensor,
+                    opts: Optional[FwdOptions] = None) -> tuple:
     """(attention output (B, S, D), (k, v) for the cache)."""
     B, S, _ = x.shape
     a = layer["attn"]
     q, k, v = _project_qkv(a, x, cfg, positions)
-    o = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    out = o.reshape(B, S, cfg.q_dim) @ a["wo"].to(x.dtype)
+    parallel_q = False
+    if opts is not None:
+        if opts.gather_kv:       # K/V whole over `model` before attention
+            k = constrain(k, _dp(opts), None, None, None)
+            v = constrain(v, _dp(opts), None, None, None)
+        parallel_q = opts.parallel_q
+    o = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                            parallel_q=parallel_q,
+                            q_block=256 if opts is None else opts.q_block,
+                            kv_block=512 if opts is None else opts.kv_block)
+    out = linear(first_dim_only(o).reshape(B, S, cfg.q_dim), a["wo"])
     return out, (k, v)
 
 
@@ -355,30 +412,37 @@ def _cross_attention(a: dict, x: torch.Tensor, ctx_kv: tuple,
     unmasked, positions from 0 (no RoPE on either side)."""
     B, S, _ = x.shape
     k, v = ctx_kv
-    q = (x @ a["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = linear(x, a["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
     o = blockwise_attention(q, k, v, causal=False, window=0)
-    return o.reshape(B, S, cfg.q_dim) @ a["wo"].to(x.dtype)
+    return linear(first_dim_only(o).reshape(B, S, cfg.q_dim), a["wo"])
 
 
 def _context_kv(xattn: dict, context: torch.Tensor,
                 cfg: ArchConfig) -> tuple:
     """The context (B, Nc, D) → its K and V, each (B, Nc, Hk, hd)."""
     B, Nc, _ = context.shape
-    k = context @ xattn["wk"].to(context.dtype)
-    v = context @ xattn["wv"].to(context.dtype)
+    k = linear(context, xattn["wk"])
+    v = linear(context, xattn["wv"])
     return (k.reshape(B, Nc, cfg.n_kv_heads, cfg.hd),
             v.reshape(B, Nc, cfg.n_kv_heads, cfg.hd))
 
 
-def _ffn(layer: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
+def _ffn(layer: dict, x: torch.Tensor, cfg: ArchConfig,
+         opts: Optional[FwdOptions] = None) -> tuple:
     """(out, the MoE load-balancing loss ()): the MoE FFN over the
-    (B·S, D) tokens, or the dense SwiGLU MLP and a zero loss."""
+    (B·S, D) tokens (with ``expert_axis``, the expert buffers pinned to
+    it and the ``scatter`` combine), or the dense SwiGLU MLP and a zero
+    loss."""
     if cfg.family == "moe":
         B, S, D = x.shape
         moe_cfg = MoEConfig(cfg.n_experts, cfg.experts_per_token,
                             cfg.capacity_factor)
-        out, aux = moe_ffn(x.reshape(B * S, D), layer["moe"], moe_cfg)
-        return out.reshape(B, S, D), aux
+        axis = None if opts is None else opts.expert_axis
+        out, aux = moe_ffn(first_dim_only(x).reshape(B * S, D),
+                           layer["moe"], moe_cfg,
+                           expert_axis=axis,
+                           combine="scatter" if axis else "gather")
+        return grad_first_dim_only(out.reshape(B, S, D)), aux
     m = layer["mlp"]
     return (swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"]),
             torch.zeros((), dtype=torch.float32, device=x.device))
@@ -386,16 +450,17 @@ def _ffn(layer: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple:
 
 def _self_block(layer: dict, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor,
-                ctx_kv: Optional[tuple] = None) -> tuple:
+                ctx_kv: Optional[tuple] = None,
+                opts: Optional[FwdOptions] = None) -> tuple:
     h = rms_norm(x, layer["ln1"], cfg.norm_eps)
-    att, kv = _self_attention(layer, h, cfg, positions)
+    att, kv = _self_attention(layer, h, cfg, positions, opts)
     x = x + att
     if ctx_kv is not None:          # MusicGen's in-layer cross-attention
         h = rms_norm(x, layer["ln_x"], cfg.norm_eps)
         x = x + _cross_attention(layer["xattn"], h, ctx_kv, cfg)
     h = rms_norm(x, layer["ln2"], cfg.norm_eps)
-    f, aux = _ffn(layer, h, cfg)
-    return x + f, aux, kv
+    f, aux = _ffn(layer, h, cfg, opts)
+    return _shard_seq(x + f, opts), aux, kv
 
 
 def _gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -431,28 +496,34 @@ def _require_context(cfg: ArchConfig, context) -> None:
 
 
 def _self_step(layer: dict, x: torch.Tensor, positions: torch.Tensor,
-               context: Optional[torch.Tensor], cfg: ArchConfig) -> tuple:
+               context: Optional[torch.Tensor], cfg: ArchConfig,
+               opts: Optional[FwdOptions] = None) -> tuple:
     """One self-attention layer as the reference rematerializes it: the
-    audio family's context K/V computed inside. (x, aux)."""
+    weights gathered and the audio family's context K/V computed inside.
+    (x, aux)."""
+    layer = _gather_weights(layer, opts)
     ctx_kv = None
     if cfg.family == "audio" and context is not None:
         ctx_kv = _context_kv(layer["xattn"], context, cfg)
-    x, aux, _ = _self_block(layer, x, cfg, positions, ctx_kv)
+    x, aux, _ = _self_block(layer, x, cfg, positions, ctx_kv, opts)
     return x, aux
 
 
 def _cross_step(block: dict, x: torch.Tensor, context: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
+                cfg: ArchConfig,
+                opts: Optional[FwdOptions] = None) -> torch.Tensor:
     """One vlm cross block as the reference rematerializes it: the
     context K/V computed inside."""
     ctx_kv = _context_kv(block["xattn"], context, cfg)
-    return _cross_block(block, x, cfg, lambda xa, h: _cross_attention(
-        xa, h, ctx_kv, cfg))
+    return _shard_seq(_cross_block(block, x, cfg, lambda xa, h:
+                                   _cross_attention(xa, h, ctx_kv, cfg)),
+                      opts)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             context: Optional[torch.Tensor] = None,
-            collect_cache: bool = False, remat: bool = False):
+            collect_cache: bool = False, remat: bool = False,
+            opts: Optional[FwdOptions] = None):
     """tokens (B, S) → (logits (B, S, V), the MoE aux loss summed over
     the layers (), 0 for the other families) and, when ``collect_cache``,
     a :class:`DecodeCache` for prefill: the stacked per-layer
@@ -466,14 +537,17 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
     remat: each self block and each vlm cross block through
     :func:`repro_torch.models.remat.checkpoint`, where the reference has
-    ``jax.checkpoint``; it keeps no K/V, so not with ``collect_cache``."""
+    ``jax.checkpoint``; it keeps no K/V, so not with ``collect_cache``.
+
+    opts: the mesh levers (:func:`check_options`); ``opts.remat`` is not
+    read here (``remat`` is)."""
     _check_family(cfg)
     if cfg.family == "vlm":
         _require_context(cfg, context)
     if remat and collect_cache:
         raise ValueError("remat keeps no K/V to collect; prefill without it")
     B, S = tokens.shape
-    x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+    x = _shard_seq(embed(params["embed"].to(COMPUTE_DTYPE), tokens), opts)
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs, cks, cvs = [], [], [], []
@@ -482,23 +556,26 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         layer = _layer(params["layers"], i)
         if remat:
             x, aux_l = checkpoint(_self_step, layer, x, positions,
-                                  context, cfg)
+                                  context, cfg, opts)
             aux = aux + aux_l
             if spg and i[1] == spg - 1:
                 x = checkpoint(_cross_step,
                                _layer(params["cross_layers"], i[0]), x,
-                               context, cfg)
+                               context, cfg, opts)
             continue
+        layer = _gather_weights(layer, opts)
         ctx_kv = None
         if cfg.family == "audio" and context is not None:
             ctx_kv = _context_kv(layer["xattn"], context, cfg)
-        x, aux_l, (k, v) = _self_block(layer, x, cfg, positions, ctx_kv)
+        x, aux_l, (k, v) = _self_block(layer, x, cfg, positions, ctx_kv,
+                                       opts)
         aux = aux + aux_l
         if spg and i[1] == spg - 1:           # the group's cross block
             block = _layer(params["cross_layers"], i[0])
             ctx_kv = _context_kv(block["xattn"], context, cfg)
-            x = _cross_block(block, x, cfg, lambda xa, h: _cross_attention(
-                xa, h, ctx_kv, cfg))
+            x = _shard_seq(_cross_block(
+                block, x, cfg, lambda xa, h: _cross_attention(
+                    xa, h, ctx_kv, cfg)), opts)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -506,7 +583,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                 cks.append(ctx_kv[0])
                 cvs.append(ctx_kv[1])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = linear(x, params["lm_head"])
     if collect_cache:
         return logits, aux, DecodeCache(
             torch.stack(ks), torch.stack(vs),
@@ -566,7 +643,7 @@ def _decode_self(layer: dict, x: torch.Tensor, kc: torch.Tensor,
     kc[:, pos] = k[:, 0].to(kc.dtype)
     vc[:, pos] = v[:, 0].to(vc.dtype)
     o = decode_attention(q, kc, vc, pos, window=cfg.sliding_window)
-    return o.reshape(B, 1, cfg.q_dim) @ a["wo"].to(x.dtype)
+    return linear(first_dim_only(o).reshape(B, 1, cfg.q_dim), a["wo"])
 
 
 def _decode_cross(xattn: dict, x: torch.Tensor, ck: torch.Tensor,
@@ -574,9 +651,9 @@ def _decode_cross(xattn: dict, x: torch.Tensor, ck: torch.Tensor,
     """x (B, 1, D) attending to every slot of the context K/V ck, cv
     (B, Nc, Hk, hd) → (B, 1, D)."""
     B = x.shape[0]
-    q = (x @ xattn["wq"].to(x.dtype)).reshape(B, 1, cfg.n_heads, cfg.hd)
+    q = linear(x, xattn["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
     o = decode_attention(q, ck, cv, ck.shape[1] - 1, window=0)
-    return o.reshape(B, 1, cfg.q_dim) @ xattn["wo"].to(x.dtype)
+    return linear(first_dim_only(o).reshape(B, 1, cfg.q_dim), xattn["wo"])
 
 
 def decode_step(params: dict, cache: DecodeCache, tokens: torch.Tensor,
@@ -587,8 +664,8 @@ def decode_step(params: dict, cache: DecodeCache, tokens: torch.Tensor,
     a copy of the whole cache a step, and the same cache is returned. The
     context K/V are read, never written."""
     _check_family(cfg)
-    pos = int(pos)
-    x = params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+    pos = int(whole(pos))
+    x = embed(params["embed"].to(COMPUTE_DTYPE), tokens)
     spg = vlm_group_shape(cfg)[1] if cfg.family == "vlm" else 0
     for c, i in enumerate(_self_layer_index(cfg)):
         layer = _layer(params["layers"], i)
@@ -607,20 +684,22 @@ def decode_step(params: dict, cache: DecodeCache, tokens: torch.Tensor,
                 lambda xa, h: _decode_cross(xa, h, cache.ctx_k[g],
                                             cache.ctx_v[g], cfg))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype), cache
+    return linear(x, params["lm_head"]), cache
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            context: Optional[torch.Tensor] = None
+            context: Optional[torch.Tensor] = None,
+            opts: Optional[FwdOptions] = None
             ) -> tuple[torch.Tensor, DecodeCache]:
     """Run the full sequence once, collecting the per-layer K/V into a
     prompt-sized cache, plus the last position's logits (B, 1, V). vlm
     and audio need the context (B, Nc, D): the cache then also holds each
-    cross-attention layer's context K/V, (Lc, B, Nc, Hk, hd)."""
+    cross-attention layer's context K/V, (Lc, B, Nc, Hk, hd). ``opts``:
+    the mesh levers, never remat (the cache needs the K/V)."""
     if cfg.family in CONTEXT_FAMILIES:
         _require_context(cfg, context)
     logits, _, kv = forward(params, tokens, cfg, context=context,
-                            collect_cache=True)
+                            collect_cache=True, opts=opts)
     cache = DecodeCache(*(None if t is None else t.to(COMPUTE_DTYPE)
                           for t in kv))
     return logits[:, -1:], cache

@@ -1551,3 +1551,132 @@ def test_cross_attention_forward_on_card_matches_cpu(cuda_device, name):
     diff = (lc.float().cpu() - lh.float()).abs()
     assert torch.isfinite(lc).all()
     assert float(diff.max()) <= 0.125 and float(diff.mean()) <= 0.02
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library custom ops, and on DTensors
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """The card's 1 × 1 NCCL mesh (``make_host_mesh``), destroyed after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield make_host_mesh("cuda")
+    dist.destroy_process_group()
+
+
+def _op_cases(dev):
+    """(name, op, args, plain version) of each custom op at a model's
+    shapes: bfloat16 flash with GQA, the fp32 wkv6, the ME pair."""
+    from repro_torch.kernels import cosine_sim, flash_attention as kf, \
+        weighted_agg, wkv6 as kw
+    gen = torch.Generator(device=dev).manual_seed(25)
+    q, d_o = (_randn(gen, dev, 2, 128, 8, 64).to(torch.bfloat16)
+              for _ in range(2))
+    k, v = (_randn(gen, dev, 2, 128, 2, 64).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = kf.flash_op(q, k, v, 0, True, True)
+    r, kk, vv, go = (_randn(gen, dev, 2, 40, 4, 64) for _ in range(4))
+    w = 0.2 + 0.79 * torch.rand(2, 40, 4, 64, generator=gen, device=dev)
+    u = _randn(gen, dev, 4, 64)
+    s0 = torch.zeros(2, 4, 64, 64, device=dev)
+    _, _, ckpt = kw.wkv6_op(r, kk, vv, w, u, s0, 1)
+    W = _randn(gen, dev, 6, 4096)
+    gw = _randn(gen, dev, 4096)
+    lam = torch.rand(6, generator=gen, device=dev) + 0.5
+    return [
+        ("flash_attention", kf.flash_op, (q, k, v, 0, True, True),
+         lambda: (tref.flash_attention_gqa_ref(q, k, v, causal=True),
+                  tref.flash_attention_lse_ref(q, k, causal=True)), BF16),
+        ("flash_attention_backward", kf.flash_backward_op,
+         (q, k, v, o, lse, d_o, 0, True),
+         lambda: tref.flash_attention_backward_ref(q, k, v, o, lse, d_o,
+                                                   causal=True), BF16),
+        ("wkv6", kw.wkv6_op, (r, kk, vv, w, u, s0, 0),
+         lambda: tref.wkv6_recurrence_ref(r, kk, vv, w, u, s0),
+         dict(rtol=1e-5, atol=1e-4)),
+        ("wkv6_backward", kw.wkv6_backward_op,
+         (r, kk, vv, w, u, s0, go, None, ckpt),
+         lambda: tref.wkv6_backward_ref(r, kk, vv, w, u, s0, go, None),
+         dict(rtol=1e-4, atol=1e-3)),
+        ("cosine_partials", cosine_sim.cosine_partials_op, (W, gw),
+         lambda: tref.cosine_partials_ref(W, gw), dict(rtol=1e-4,
+                                                       atol=1e-2)),
+        ("weighted_aggregate", weighted_agg.weighted_aggregate_op, (W, lam),
+         lambda: tref.weighted_aggregate_ref(W, lam), FP32),
+    ]
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_custom_op_on_card_matches_plain(cuda_device, index):
+    """Each ``repro_torch::`` op launches its kernel (counted once) and
+    agrees with its plain version."""
+    name, op, args, plain, tol = _op_cases(cuda_device)[index]
+    before = ops.launch_counts()
+    got = op(*args)
+    assert _counts_delta(before)[name] == 1
+    want = plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.numel():
+            torch.testing.assert_close(g, w.to(g.dtype), **tol)
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_custom_op_on_a_card_dtensor_is_the_plain_call(cuda_device,
+                                                       card_mesh, index):
+    """The same op on DTensors of the card's 1 × 1 mesh runs its kernel
+    on the local tensors: the plain-tensor call's bits."""
+    from torch.distributed.tensor import DTensor, distribute_tensor, \
+        Replicate
+    from repro_torch.kernels._dtensor import ensure_rules
+    name, op, args, _, _ = _op_cases(cuda_device)[index]
+    rep = [Replicate(), Replicate()]
+    dargs = [distribute_tensor(a, card_mesh, rep)
+             if isinstance(a, torch.Tensor) else a for a in args]
+    ensure_rules(dargs[0])
+    want = op(*args)
+    before = ops.launch_counts()
+    got = op(*dargs)
+    assert _counts_delta(before)[name] == 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert isinstance(g, DTensor)
+        assert torch.equal(g.full_tensor(), w)
+
+
+def test_model_round_on_the_card_mesh_launches_as_plain(cuda_device,
+                                                        card_mesh):
+    """A reduced yi-6b round as a DTensor step on the card's mesh goes
+    through the flash and ME ops: per cluster one flash forward and
+    backward launch a layer, the ME pair once a leaf; the vmapped plain
+    round folds the clusters into one launch a layer, as before."""
+    from repro_torch.launch import mesh_check as mc
+    from repro_torch.launch import specs
+    from repro_torch.core.serialization import leaves_with_paths
+    setup, state, batch, lam = mc.train_inputs("yi-6b", "baseline",
+                                               card_mesh)
+    C, L = 4, setup.cfg.n_layers
+    n_leaves = len(leaves_with_paths(state.global_params))
+    before = ops.launch_counts()
+    setup.step(state, batch, lam)
+    plain = _counts_delta(before)
+    assert plain["flash_attention"] == L
+    assert plain["flash_attention_backward"] == L
+    args = [specs.distribute_like(v, a) for v, a in
+            zip((state, batch, lam), setup.abstract_args)]
+    before = ops.launch_counts()
+    setup.step(*args)
+    mesh = _counts_delta(before)
+    assert mesh["flash_attention"] == C * L
+    assert mesh["flash_attention_backward"] == C * L
+    assert mesh["weighted_aggregate"] == plain["weighted_aggregate"] \
+        == n_leaves
+    assert mesh["cosine_partials"] == plain["cosine_partials"] == n_leaves

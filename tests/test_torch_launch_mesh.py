@@ -13,8 +13,9 @@ reference's (``repro.launch``), on the CPU.
 * ``python -m repro_torch.launch.dryrun`` and ``hillclimb`` as processes.
 * ``input_specs`` for yi-6b against the reference's, every input shape.
 * Steps on the host mesh (a world-size-1 gloo group): a PoFEL round, a
-  plain FEL step and a decode step equal the direct calls bit for bit; a mesh of two devices,
-  a mesh lever and a sharded cluster axis raise, naming ROADMAP item 15.
+  plain FEL step and a decode step equal the direct calls bit for bit,
+  the baseline profile's lever and a sharded cluster axis included; a
+  step on the fake group raises, since it moves no data.
 
 The reference's ``Model.abstract_params`` traces its full init
 (deepseek-moe-16b ~11 s), and its ``abstract_train_state`` traces
@@ -251,7 +252,7 @@ def test_new_modules_import_no_jax(tmp_path):
     assert done.stdout.strip() == "CLEAN", done.stdout + done.stderr[-2000:]
 
 
-def test_a_step_on_a_mesh_of_two_devices_names_item_15():
+def test_a_step_on_the_fake_group_moves_no_data():
     from torch.distributed.device_mesh import init_device_mesh
     tmesh.fake_process_group(2)
     try:
@@ -260,7 +261,7 @@ def test_a_step_on_a_mesh_of_two_devices_names_item_15():
         setup = specs.build_train_setup(
             "yi-6b", mesh, INPUT_SHAPES["train_4k"],
             opts=FwdOptions(remat=True))
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(ValueError, match="moves no data"):
             setup.step(*setup.abstract_args)
     finally:
         _destroy()
@@ -281,15 +282,44 @@ def host_mesh(monkeypatch):
 MINI_TRAIN = InputShape("mini_train", 16, 8, "train")
 
 
-def test_host_step_refuses_levers_and_a_cluster_axis(host_mesh):
-    setup = specs.build_train_setup("yi-6b", host_mesh, MINI_TRAIN)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        setup.step(*setup.abstract_args)     # the baseline's seq_shard_axis
-    setup = specs.build_train_setup(
-        "yi-6b", host_mesh, MINI_TRAIN, pt.PoFELTrainConfig(
-            n_clusters=2, cluster_axis="data"), FwdOptions(remat=True))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        setup.step(*setup.abstract_args)
+def test_host_steps_run_the_baseline_and_a_cluster_axis(host_mesh):
+    """The baseline profile's step (its seq_shard_axis lever) and a step
+    with the clusters sharded over ``data`` run on the host mesh and are
+    ``pofel_round`` with the same options bit for bit; the same state as
+    DTensors on the 1 × 1 mesh gives the same round too (within float32
+    rounding: the DTensor path takes the clusters one at a time)."""
+    from torch.distributed.tensor import DTensor
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, 500, (2, 4, 16)).astype(np.int32))
+    batch = {"tokens": tok, "labels": tok.roll(1, -1)}
+    lam = torch.tensor([1.0, 2.0])
+    for tcfg, opts in (
+            (pt.PoFELTrainConfig(n_clusters=2, inner_lr=1e-2), None),
+            (pt.PoFELTrainConfig(n_clusters=2, inner_lr=1e-2,
+                                 cluster_axis="data"),
+             FwdOptions(remat=True))):
+        setup = specs.build_train_setup("yi-6b", host_mesh, MINI_TRAIN,
+                                        tcfg, opts)
+        run_opts = opts or specs.default_profile_config(
+            "baseline", host_mesh)[1]
+        state = pt.init_train_state(setup.model, tcfg,
+                                    torch.Generator().manual_seed(0))
+        s1, m1 = setup.step(state, batch, lam)
+        s2, m2 = pt.pofel_round(setup.model, state, batch, lam, tcfg,
+                                run_opts)
+        assert torch.equal(m1.similarities, m2.similarities)
+        assert torch.equal(m1.loss, m2.loss)
+        for (p, a), (_, b) in zip(leaves_with_paths(s1.global_params),
+                                  leaves_with_paths(s2.global_params)):
+            assert torch.equal(a, b), p
+        args = [specs.distribute_like(v, a) for v, a in
+                zip((state, batch, lam), setup.abstract_args)]
+        s3, m3 = setup.step(*args)
+        assert isinstance(s3.global_params["embed"], DTensor)
+        np.testing.assert_allclose(m3.loss.numpy(), m2.loss.numpy(),
+                                   atol=1e-5)
+        np.testing.assert_allclose(m3.similarities.numpy(),
+                                   m2.similarities.numpy(), atol=1e-6)
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-1.6b"])

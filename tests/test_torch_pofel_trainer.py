@@ -356,25 +356,34 @@ def test_train_step_no_consensus_keeps_divergence(run):
     _assert_tree_close(s1.cluster_params, ref_params, **WEIGHT_TOL)
 
 
-def test_trainer_refuses_what_one_card_does_not_run(run):
-    """The reference's default options (``FwdOptions()``: remat on)
-    train as the reference's do; the mesh levers and a sharded cluster
-    axis name ROADMAP item 15 instead of running something else."""
+def test_trainer_runs_gather_kv_and_a_cluster_axis_as_the_reference(run):
+    """The reference's default options (``FwdOptions()``: remat on), the
+    ``gather_kv`` lever and the clusters sharded over ``data`` train as
+    the reference's do. On one card a lever is the identity and
+    ``cluster_axis`` a layout; the reference runs the last two under a
+    1 × 1 mesh of Auto axes, which its layout pins need."""
+    from jax.sharding import AxisType
     tm, ts, tb = run["tm"], run["ts"], run["tb"]
     jm = JModel(j_get_config(run["arch"]).reduced())
-    jcfg = jpt.PoFELTrainConfig(n_clusters=C, inner_lr=1e-2)
     jb = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16)
           if v.dtype == torch.bfloat16 else jnp.asarray(v.numpy())
           for k, v in tb.items()}
-    ref_params, ref_losses = _np(jax.jit(lambda cp, b: jpt.local_step(
-        jm, cp, b, jcfg, JFwdOptions()))(run["js"].cluster_params, jb))
-    new_params, losses = pt.local_step(tm, ts.cluster_params, tb,
-                                       run["tcfg"], FwdOptions())
-    np.testing.assert_allclose(losses.numpy(), ref_losses, atol=LOSS_TOL)
-    _assert_tree_close(new_params, ref_params, **WEIGHT_TOL)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pt.local_step(tm, ts.cluster_params, tb, run["tcfg"],
-                      FwdOptions(remat=False, gather_kv=True))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pt.local_step(tm, ts.cluster_params, tb, pt.PoFELTrainConfig(
-            n_clusters=4, cluster_axis="data"), OPTS)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    cases = ((None, JFwdOptions(), FwdOptions()),
+             (None, JFwdOptions(remat=False, gather_kv=True),
+              FwdOptions(remat=False, gather_kv=True)),
+             ("data", J_OPTS, OPTS))
+    for axis, j_opts, opts in cases:
+        jcfg = jpt.PoFELTrainConfig(n_clusters=C, inner_lr=1e-2,
+                                    cluster_axis=axis)
+        with mesh:
+            ref_params, ref_losses = _np(jax.jit(
+                lambda cp, b: jpt.local_step(jm, cp, b, jcfg, j_opts))(
+                    run["js"].cluster_params, jb))
+        new_params, losses = pt.local_step(
+            tm, ts.cluster_params, tb, pt.PoFELTrainConfig(
+                n_clusters=C, inner_lr=1e-2, cluster_axis=axis), opts)
+        np.testing.assert_allclose(losses.numpy(), ref_losses,
+                                   atol=LOSS_TOL)
+        _assert_tree_close(new_params, ref_params, **WEIGHT_TOL)
