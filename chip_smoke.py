@@ -250,10 +250,15 @@ CUDA build of PyTorch. It never imports JAX or the reference package
 
 43. the dry run: ``python -m repro_torch.launch.dryrun --all
     --both-meshes`` as a process (80 combinations on a fake process
-    group of 512 ranks, nothing allocated), then with ``--device cpu``:
-    every combination OK, the rows equal but for ``build_s``, no
-    collective term; the yi-6b ``train_4k`` rows of baseline and zero3
-    (``python -m repro_torch.launch.hillclimb``) on both meshes;
+    group of 512 ranks, nothing allocated, each step's collectives
+    planned on meta tensors), and at once another with ``--device cpu``,
+    each spread over DRYRUN_JOBS processes: every combination OK, the
+    rows equal but for ``build_s`` and the collective term (DTensor
+    all-to-alls on a card mesh, all-gathers and chunks on a CPU one),
+    every row's collective term a number
+    (printed: counts and bytes by kind, each axis's link); the yi-6b
+    ``train_4k`` rows of baseline and zero3 (``python -m
+    repro_torch.launch.hillclimb``) on both meshes;
 44. the specs' steps on ``launch.mesh.make_host_mesh()`` (a world-size-1
     NCCL group): MusicGen-medium's ``build_train_setup(...).step`` at
     full width and depth, C = 4, batch 8 × 64, seeded weights, three
@@ -267,7 +272,24 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     peak) and C = 2 (beside phase 38's run without remat); the reduced
     rwkv6, yi, zamba2, deepseek-moe, musicgen and llama-vision models'
     remat gradients on the card within the bfloat16 rule of the CPU's,
-    each rematerialized block's forward kernel launched once more.
+    each rematerialized block's forward kernel launched once more;
+46. MusicGen-medium's zero3 round as a DTensor step on the 1×1 NCCL mesh
+    (every lever, the clusters over data), from replicas made to differ,
+    against the remat round without levers: the similarities spread and
+    their top two apart, the same leader; the reduced DeepSeek-MoE-16B's
+    expert axis;
+47. ``python -m repro_torch.launch.mesh_check`` as a process on the CPU
+    for MESH_RANK_CASES on a (2, 2) gloo mesh of four processes (the
+    zero3_pod case on a (2, 2, 1) one, its clusters over pod and data),
+    each step's planned collectives equal to those it issued;
+48. the limb verifier: the RLC ladder kernel bit for bit against its
+    plain version on the card at LADDER_LANES lanes (valid, forged and
+    PK = R items), timed beside the plain version and its bound;
+    ``verify_batch`` under ``torch`` against ``batch`` at LADDER_NODES,
+    with and without forgeries (the same ``bad``, warm calls timed);
+    ``python -m repro_torch.core.crypto.aotcache --smoke --expect-hit``
+    as a process; byzantine_third under both backends: the same block
+    hashes and leaders, the ladder's launches, verify_batch's share.
 
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
@@ -439,6 +461,7 @@ ADAMW_STEPS = 3
 # trainer at 12 layers with remat at C = 4 and 2; the reduced six
 # families' gradients with remat against those without, on the card
 DRYRUN_COMBOS = 80
+DRYRUN_JOBS = 4          # processes a dry run; phase 43 runs two at once
 SPECS_TRAIN = ("musicgen-medium", 64, 8, 4)
 SPECS_DECODE = ("yi-6b", 8, 128)
 # (arch, layers, clusters, may run out of memory): C = 4 ran out without
@@ -455,7 +478,7 @@ REMAT_GRAD_ARCHS = ("rwkv6-1.6b", "yi-6b", "zamba2-7b", "deepseek-moe-16b",
 MESH_TRAIN = ("musicgen-medium", 64, 8, 4)
 MESH_MOE = "deepseek-moe-16b"
 MESH_RANK_CASES = ("yi-6b:zero3", "deepseek-moe-16b:zero3",
-                   "rwkv6-1.6b:baseline")
+                   "rwkv6-1.6b:baseline", "yi-6b:zero3_pod")
 ADAMW_RTOL, ADAMW_ATOL = 2e-5, 2e-6
 
 
@@ -2913,17 +2936,22 @@ def diverged(replicas, seed: int = 1):
     """The replicas with seeded noise on every leaf: relative size
     TRAIN_DIVERGE[c] of the leaf's rms (at least 1e-2) for cluster c,
     added in float32 and cast back to the leaf's dtype (the CPU test's
-    ``_diverged``, on torch's generator)."""
+    ``_diverged``, on torch's generator), the noise drawn on the leaves'
+    device."""
     import torch
     from repro_torch.fl import pofel_trainer as pt
-    gen = torch.Generator().manual_seed(seed)
-    rel = torch.tensor(TRAIN_DIVERGE)
+    gen = {}
 
     def leaf(x):
+        if x.device not in gen:
+            gen[x.device] = torch.Generator(device=x.device).manual_seed(
+                seed)
         x32 = x.to(torch.float32)
         rms = max(float(x32[0].pow(2).mean().sqrt()), 1e-2)
+        rel = torch.tensor(TRAIN_DIVERGE[:x.shape[0]], device=x.device)
         scale = (rel * rms).view(-1, *([1] * (x.dim() - 1)))
-        noise = torch.randn(x32.shape, generator=gen)
+        noise = torch.randn(x32.shape, generator=gen[x.device],
+                            device=x.device)
         return (x32 + scale * noise).to(x.dtype)
     return pt._map(leaf, replicas)
 
@@ -3449,48 +3477,120 @@ def launcher_process(*argv, timeout: int = 300) -> tuple:
 
 def phase_dryrun() -> dict:
     """``python -m repro_torch.launch.dryrun --all --both-meshes`` as a
-    process on the card's device type, then with ``--device cpu``: every
-    combination built, rows equal but for ``build_s``; the yi-6b
+    process on the card's device type and another with ``--device cpu``,
+    the two at once, each over DRYRUN_JOBS processes: every combination
+    built, its collectives planned (``launch.collectives``), rows equal
+    but for ``build_s`` and, by kind, the collectives: DTensor
+    all-to-alls on a card mesh where it all-gathers (and chunks) on a CPU
+    mesh, so the two meshes' counts and bytes by kind must be equal with
+    each all-to-all counted as an all-gather of its bytes, and the bytes
+    by axis, the collective term and the dominant term equal on every
+    row (the rows whose kinds differ are printed); every row's collective
+    term a number (each printed: counts and bytes by kind, the links of
+    its axes); the yi-6b
     ``train_4k`` rows of baseline (the dry run's) and zero3 (``python -m
     repro_torch.launch.hillclimb``) on both meshes."""
     where = ROOT / "build" / "chip_smoke_dryrun"
     shutil.rmtree(where, ignore_errors=True)
     where.mkdir(parents=True)
-    rows, secs = {}, {}
+    rows, secs, procs = {}, {}, {}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    argv = {device: ["repro_torch.launch.dryrun", "--all", "--both-meshes",
+                     "--device", device, "--jobs", str(DRYRUN_JOBS)]
+            for device in ("cuda", "cpu")}
+    for name, multi in (("hillclimb", ()), ("hillclimb_mp", ("--multi-pod",))):
+        argv[name] = ["repro_torch.launch.hillclimb", "--arch", "yi-6b",
+                      "--shape", "train_4k", "--profile", "zero3", *multi]
+    t0 = time.perf_counter()
+    try:     # all at once: the dry runs' processes and the two hillclimbs
+        for name, a in argv.items():
+            with open(where / f"{name}.log", "w") as log:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", *a, "--json",
+                     str(where / f"{name}.json")], cwd=ROOT, env=env,
+                    stdout=log, stderr=subprocess.STDOUT)
+        for name, p in procs.items():
+            p.wait(timeout=900)
+            secs[name] = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = {}
+    for name in procs:
+        outs[name] = ((where / f"{name}.log").read_text(), "")
+        check(procs[name].returncode == 0,
+              f"{name} exited {procs[name].returncode}: "
+              f"{outs[name][0][-3000:]}")
+        rows[name] = json.loads((where / f"{name}.json").read_text())
     for device in ("cuda", "cpu"):
-        out = where / f"{device}.json"
-        stdout, secs[device] = launcher_process(
-            "repro_torch.launch.dryrun", "--all", "--both-meshes",
-            "--device", device, "--json", str(out))
-        check(f"{DRYRUN_COMBOS} combos OK, 0 failed" in stdout,
-              f"dry run on {device}: {stdout[-500:]}")
-        rows[device] = json.loads(out.read_text())
+        check(f"{DRYRUN_COMBOS} combos OK, 0 failed" in outs[device][0],
+              f"dry run on {device}: {outs[device][0][-1500:]}")
+    # the kinds of the collectives depend on the mesh's device type:
+    # DTensor moves a tensor from one sharded dim to another by an
+    # all-to-all on a card mesh and by an all-gather (of the same bytes,
+    # over the same axis) and a chunk on a CPU mesh (RWKV-6's rows)
+    by_kind = ("build_s", "collective_counts", "collective_bytes")
 
     def strip(r):
-        return [{k: v for k, v in x.items() if k != "build_s"} for x in r]
+        return [{k: v for k, v in x.items() if k not in by_kind} for x in r]
+
+    def as_gathers(counts):
+        out = dict(counts)
+        if "all-to-all" in out:
+            out["all-gather"] = out.get("all-gather", 0) \
+                + out.pop("all-to-all")
+        return out
     check(strip(rows["cuda"]) == strip(rows["cpu"]),
-          "the dry run's rows differ between the cuda and cpu meshes")
-    check(all(r["collective_s"] is None and "item 15" in r["collective_note"]
-              for r in rows["cuda"]), "a row has a collective term")
+          "the dry run's rows differ between the cuda and cpu meshes "
+          "(outside the collectives' kinds)")
+    check(all(as_gathers(a[k]) == as_gathers(b[k])
+              for a, b in zip(rows["cuda"], rows["cpu"])
+              for k in ("collective_counts", "collective_bytes")),
+          "the dry run's collectives differ between the cuda and cpu "
+          "meshes by more than all-to-alls planned as all-gathers")
+    differ = [(a, b) for a, b in zip(rows["cuda"], rows["cpu"])
+              if a["collective_counts"] != b["collective_counts"]
+              or a["collective_bytes"] != b["collective_bytes"]]
+    for a, b in differ:
+        print(f"dry run {a['arch']} {a['shape']} {a['mesh']}: collectives "
+              f"on the cuda mesh {a['collective_counts']} "
+              f"{a['collective_bytes']}, on the cpu mesh "
+              f"{b['collective_counts']} {b['collective_bytes']}",
+              flush=True)
+    print(f"dry run: {len(differ)} of {len(rows['cuda'])} rows plan "
+          f"all-gathers on a cpu mesh where they plan all-to-alls on a "
+          f"cuda one; the bytes by axis and the collective term equal on "
+          f"every row", flush=True)
+    check(all(isinstance(r["collective_s"], float) and r["collective_counts"]
+              for r in rows["cuda"]), "a row has no collective term")
+    for r in rows["cuda"]:
+        links = {a: v["link"] for a, v in r["collective_axes"].items()}
+        print(f"dry run {r['arch']} {r['shape']} {r['mesh']}: collectives "
+              f"{r['collective_counts']}, bytes a device "
+              f"{r['collective_bytes']}, over {links}: collective "
+              f"{r['collective_s'] * 1e3:.2f} ms, compute "
+              f"{r['compute_s'] * 1e3:.2f} ms, memory "
+              f"{r['memory_s'] * 1e3:.2f} ms, {r['dominant']}-bound",
+              flush=True)
     yi = {("baseline", r["mesh"]): r for r in rows["cuda"]
           if r["arch"] == "yi-6b" and r["shape"] == "train_4k"}
-    for multi in ((), ("--multi-pod",)):
-        out = where / "hillclimb.json"
-        _, secs["hillclimb"] = launcher_process(
-            "repro_torch.launch.hillclimb", "--arch", "yi-6b", "--shape",
-            "train_4k", "--profile", "zero3", "--json", str(out), *multi)
-    for r in json.loads(out.read_text()):
+    for r in rows["hillclimb"] + rows["hillclimb_mp"]:
+        check(isinstance(r["collective_s"], float),
+              f"hillclimb {r['mesh']}: no collective term")
         yi[("zero3", r["mesh"])] = r
     for (profile, mesh), r in sorted(yi.items()):
         print(f"dry run yi-6b train_4k {profile} {mesh}: "
               f"{r['arg_gb_per_dev']:.3f} GB of arguments a device, compute "
               f"{r['compute_s'] * 1e3:.1f} ms, memory "
-              f"{r['memory_s'] * 1e3:.2f} ms, {r['dominant']}-bound",
+              f"{r['memory_s'] * 1e3:.2f} ms, collective "
+              f"{r['collective_s'] * 1e3:.1f} ms, {r['dominant']}-bound",
               flush=True)
-    print(f"dry run: {len(rows['cuda'])} combos OK on cuda in "
-          f"{secs['cuda']:.1f} s, on cpu in {secs['cpu']:.1f} s (processes);"
-          f" rows equal but build_s; hillclimb zero3 "
-          f"{secs['hillclimb']:.1f} s", flush=True)
+    print(f"dry run: {len(rows['cuda'])} combos OK on cuda and on cpu, "
+          f"{DRYRUN_JOBS} processes each, and the hillclimbs, all at once, "
+          f"in {max(secs.values()):.1f} s; rows equal but build_s and the "
+          f"all-to-alls", flush=True)
     return {"combos": len(rows["cuda"]), "seconds": secs}
 
 
@@ -3764,11 +3864,12 @@ def phase_mesh_round(dev) -> dict:
     mesh, C clusters over ``data``, every lever on, its arguments
     DTensors (``specs.distribute_like``): one round through the flash and
     ME custom ops, its time, peak memory, launches and collectives
-    (``CommDebugMode``; none on one device). The same state and batch
+    (``CommDebugMode``; none on one device). The same state, its
+    replicas made to differ (:func:`diverged`, as phase 37's), and batch
     (seeded as phase 44's first round) through the remat round without
     levers on plain tensors: parameters within the bfloat16 rule
-    (``bf16_rule``), similarities within 1e-4, the same leader where the
-    top two lie more than 2e-4 apart. Then the reduced MESH_MOE: the MoE
+    (``bf16_rule``), similarities within 1e-4 and spread over more than
+    10 × 1e-4, a top-two margin above 2 × 1e-4, and the same leader. Then the reduced MESH_MOE: the MoE
     FFN's scatter combine against gather in float32 on the card,
     results and gradients bit for bit; the bfloat16 model's logits with
     ``expert_axis`` within the bfloat16 rule of those without (the
@@ -3805,6 +3906,7 @@ def phase_mesh_round(dev) -> dict:
     torch.cuda.empty_cache()
     state = pt.init_train_state(model, tcfg,
                                 torch.Generator(device=dev).manual_seed(0))
+    state = state._replace(cluster_params=diverged(state.cluster_params))
     b = round_batch(next(synthetic_token_batches(
         TokenBatchSpec(batch, seq, model.cfg.vocab_size), seed=0)), model,
         clusters, dev)
@@ -3835,6 +3937,7 @@ def phase_mesh_round(dev) -> dict:
     sim_err = float((got.similarities - want.similarities).abs().max())
     top = torch.sort(want.similarities, descending=True).values
     margin = float(top[0] - top[1])
+    spread = float(top[0] - top[-1])
     print(f"mesh round {arch} full width, C = {clusters} over data, zero3 "
           f"levers {dict(zero3._asdict())}, DTensors on the card's 1x1 "
           f"mesh: {round_ms:.1f} ms, peak {peak:.1f} GB, launches "
@@ -3843,15 +3946,19 @@ def phase_mesh_round(dev) -> dict:
           f"levers: parameters within {worst[0]:.3e} (max) and "
           f"{worst[1]:.3e} (mean) of a leaf's scale, similarities within "
           f"{sim_err:.2e}, leaders {int(got.leader)} and {int(want.leader)}"
-          f" (top-two margin {margin:.2e}) on {nvidia_smi()}", flush=True)
+          f" (replicas diverged: similarities spread {spread:.2e}, top-two "
+          f"margin {margin:.2e}) on {nvidia_smi()}", flush=True)
     check(worst[0] <= 0.125 and worst[1] <= 0.02,
           f"mesh round {arch}: parameters {worst} from the round without "
           f"levers")
     check(sim_err <= TRAIN_SIM_ATOL, f"mesh round {arch}: similarities "
           f"{got.similarities} against {want.similarities}")
-    check(margin <= 2 * TRAIN_SIM_ATOL or int(got.leader) == int(
-        want.leader), f"mesh round {arch}: leader {int(got.leader)}, "
-          f"want {int(want.leader)}")
+    check(spread > 10 * TRAIN_SIM_ATOL and margin > 2 * TRAIN_SIM_ATOL,
+          f"mesh round {arch}: similarities {want.similarities} spread "
+          f"{spread:.2e}, top-two margin {margin:.2e}: the leader check "
+          f"would mean nothing")
+    check(int(got.leader) == int(want.leader), f"mesh round {arch}: "
+          f"leader {int(got.leader)}, want {int(want.leader)}")
     check(comm.get_total_counts() == 0,
           f"mesh round {arch}: {collectives} on one device")
     n_leaves = trainer_leaves(want_global)
@@ -3922,8 +4029,11 @@ def phase_mesh_round(dev) -> dict:
 def phase_mesh_ranks() -> dict:
     """Phase 47: ``python -m repro_torch.launch.mesh_check`` as a process
     on the card machine's CPU (the card hidden): MESH_RANK_CASES as
-    DTensor steps on a (2, 2) gloo mesh of four processes, each held
-    against the single-process round; seconds and collectives by kind."""
+    DTensor steps on a (2, 2) gloo mesh of four processes (zero3_pod's
+    on a (2, 2, 1) ``("pod", "data", "model")`` one), each held
+    against the single-process round; seconds and collectives by kind,
+    and the collectives the step plans on meta tensors (the roofline's
+    count) equal to those it issued, kind by kind, in count and bytes."""
     where = ROOT / "build" / "chip_smoke_mesh"
     shutil.rmtree(where, ignore_errors=True)
     where.mkdir(parents=True)
@@ -3941,16 +4051,224 @@ def phase_mesh_ranks() -> dict:
           f"{done.stdout[-3000:]}{done.stderr[-3000:]}")
     (summary,) = [json.loads(line) for line in out.read_text().splitlines()]
     for row in summary["rows"]:
-        print(f"mesh ranks {row['case']}: {row['seconds']:.2f} s on a 2x2 "
-              f"gloo mesh of four CPU processes, collectives "
-              f"{row['collectives']}, against one process: "
-              f"{ {k: row[k] for k in row if k not in ('case', 'seconds', 'collectives', 'ok')} }",
+        check(row["planned"] == row["measured"],
+              f"mesh ranks {row['case']}: planned collectives "
+              f"{row['planned']}, measured {row['measured']}")
+        print(f"mesh ranks {row['case']}: {row['seconds']:.2f} s on a "
+              f"{row['mesh']} gloo mesh of four CPU processes, collectives "
+              f"{row['collectives']}; counted (planned on meta tensors) "
+              f"{row['planned']} against measured {row['measured']}: "
+              f"equal; against one process: "
+              f"{ {k: row[k] for k in row if k not in ('case', 'mesh', 'seconds', 'collectives', 'ok', 'planned', 'measured')} }",
               flush=True)
     print(f"mesh ranks: {len(summary['rows'])} cases agree, the first again "
           f"bit-identical: {summary['repeat_bit_identical']}; the process "
           f"took {secs:.1f} s (torch {__import__('torch').__version__})",
           flush=True)
     return {"rows": summary["rows"], "seconds": secs}
+
+
+# phase 48: the limb verifier. The ladder at these lane counts (bit for
+# bit against its plain version); verify_batch at the §7.1 node count and
+# at phase 3's larger N
+LADDER_LANES = (2, 8, 64, 256)
+LADDER_NODES = (8, 50)
+LADDER_MAIN_LANES = 8          # the kernels line's row: n = 8 signatures
+# H100 SXM5: 132 SMs × 64 32-bit integer multiply-adds a clock an SM
+# (CUDA C++ programming guide, arithmetic instruction throughput,
+# compute capability 9.0) × the data sheet's 1.98 GHz boost clock; one
+# 32 × 32 → 64-bit product counted as one
+INT32_MUL_PER_S = 132 * 64 * 1.98e9
+
+
+def signed_items(n: int, forged=(), pk_is_r: bool = False,
+                 seed: int = 0) -> list:
+    """``n`` (tag, PK, digest) triples from seeded keys, the items in
+    ``forged`` with another digest, and (``pk_is_r``) one more whose
+    nonce point R is its public key (r = PK.x, v = PK.y's parity)."""
+    from repro_torch.core import crypto
+    from repro_torch.core.crypto import curve
+    out = []
+    for i in range(n):
+        kp = crypto.ECDSAKeyPair.generate(b"smoke-%d-%d" % (seed, i))
+        d = crypto.sha256_digest(b"m", i.to_bytes(4, "big"), bytes([seed]))
+        tag = crypto.dsign(d, kp.private_key)
+        if i in forged:
+            d = crypto.sha256_digest(b"forged", i.to_bytes(4, "big"))
+        out.append((tag, kp.public_key, d))
+    if pk_is_r:
+        pk = crypto.ECDSAKeyPair.generate(b"smoke-pk-is-r").public_key
+        out.append((crypto.Signature(pk[0] % curve.N, 12345, pk[1] & 1),
+                    pk, crypto.sha256_digest(b"pk-is-r")))
+    return out
+
+
+def rlc_group(items) -> list:
+    """The (u1, u2, PK, R) items ``verify_batch`` hands the equation."""
+    from repro_torch.core import crypto
+    from repro_torch.core.crypto import curve
+    out = []
+    for tag, pk, d in items:
+        w = pow(tag.s, -1, curve.N)
+        out.append((crypto._bits2int(d) * w % curve.N, tag.r * w % curve.N,
+                    pk, crypto._recover_R(tag)))
+    return out
+
+
+def ladder_bound_us(use) -> tuple[float, str]:
+    """The ladder's bound for an (S, L) step mask: 7 field
+    multiplications a doubling of every lane a step, 11 an add where the
+    lane is off infinity (a lane's first add only copies), 64 32-bit
+    products each; the addends and mask read once, X, Y, Z written."""
+    S, L = use.shape
+    adds = int(use.sum()) - int(use.any(0).sum())
+    products = 64 * (7 * S * L + 11 * adds)
+    n_bytes = 2 * S * L * 8 * 8 + S * L + 3 * L * 8 * 8
+    return bound_us(n_bytes, products, INT32_MUL_PER_S)
+
+
+def phase_ladder(dev) -> dict:
+    """Phase 48: the limb verifier on the card. The CUDA ladder against
+    its plain version (on the CPU's copies of the inputs) at LADDER_LANES
+    lanes (each set: one
+    item with PK = R, whose combination slot is the point at infinity, a
+    forged one where L > 2, the rest valid), bit for bit, twice; its
+    device time (CUDA events over graph replays) beside the plain
+    version's and the bound. ``verify_batch`` under ``torch`` against
+    ``batch`` at LADDER_NODES, with and without forgeries: the same
+    ``bad``, warm calls of both timed. ``python -m
+    repro_torch.core.crypto.aotcache --smoke --expect-hit`` as a process:
+    the library loads from the cache (its load and first-call seconds).
+    Then byzantine_third under each backend: the same block hashes and
+    leaders, the ladder launched on the torch run, and the share of
+    ``crypto.verify_batch`` in its rounds."""
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.core import crypto
+    from repro_torch.core.crypto.backends import limb
+    from repro_torch.kernels import rlc_ladder as rl
+    smi = nvidia_smi()
+    rows = {}
+    for L in LADDER_LANES:
+        items = signed_items(L - 1, forged=(1,) if L > 2 else (),
+                             pk_is_r=True, seed=L % 256)
+        sg, sx, sy, su = limb.prepare(rlc_group(items))
+        check(sx.shape == (130, L, 8), f"ladder L={L}: addends {sx.shape}")
+        args = [torch.from_numpy(a).to(dev) for a in (sx, sy, su)]
+        got = rl.rlc_ladder(*args)
+        again = rl.rlc_ladder(*args)
+        torch.cuda.synchronize()
+        # the plain version on the CPU's copies of the inputs (eager on
+        # the card it takes ~6-9 s a call: ~10^6 small launches), timed
+        # on the card at the kernels line's lane count
+        want = limb.rlc_ladder_ref(*[a.cpu() for a in args])
+        plain_s = None
+        if L == LADDER_MAIN_LANES:
+            t0 = time.perf_counter()
+            limb.rlc_ladder_ref(*args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        got = [g.cpu() for g in got]
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        check(err == 0, f"ladder L={L}: the kernel differs from its plain "
+                        f"version by {err}")
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(got, again)),
+              f"ladder L={L}: a second launch gave other limbs")
+        check(not limb.fold(sg, *[t.numpy() for t in got], n=L),
+              f"ladder L={L}: the equation of a set with PK = R holds")
+        k_us = graph_time_us(lambda: rl.rlc_ladder(*args), reps=5,
+                             samples=20)
+        b = ladder_bound_us(su)
+        rows[L] = {"kernel_us": k_us, "plain_s": plain_s, "bound": b,
+                   "bytes": sx.nbytes + sy.nbytes + su.nbytes}
+        plain = ("" if plain_s is None else f", plain version on the card "
+                 f"{plain_s * 1e3:.1f} ms (one call, host clock)")
+        print(f"ladder L={L}: bit-identical to the plain version (and on "
+              f"repeat); kernel {k_us:.1f} us (graph replays){plain}, "
+              f"bound {b[0]:.2f} us ({b[1]}) on {smi}", flush=True)
+    batches = {}
+    for n in LADDER_NODES:
+        for forged in ((), (1, n // 2)):
+            items = signed_items(n, forged=forged, pk_is_r=True, seed=n)
+            got = {b: crypto.verify_batch(items, backend=b)
+                   for b in ("batch", "torch")}
+            check(got["torch"].bad == got["batch"].bad,
+                  f"verify_batch n={n}: torch bad {got['torch'].bad}, "
+                  f"batch {got['batch'].bad}")
+            check(got["batch"].bad == tuple(sorted(set(forged) | {n})),
+                  f"verify_batch n={n}: bad {got['batch'].bad}")
+            ms = {}
+            for b in ("batch", "torch", "torch", "batch"):
+                t0 = time.perf_counter()
+                crypto.verify_batch(items, backend=b)
+                ms.setdefault(b, []).append((time.perf_counter() - t0) * 1e3)
+            key = f"n={n}{' forged' if forged else ''}"
+            batches[key] = {b: min(v) for b, v in ms.items()}
+            print(f"verify_batch {key}: bad {got['torch'].bad} under both; "
+                  f"warm batch {batches[key]['batch']:.1f} ms, torch "
+                  f"{batches[key]['torch']:.1f} ms (best of two) on {smi}",
+                  flush=True)
+    stdout, secs = launcher_process(
+        "repro_torch.core.crypto.aotcache", "--smoke", "--expect-hit",
+        "--lanes", "2,16")
+    smoke = json.loads(stdout)
+    check(smoke["ok"], f"aotcache --smoke: {smoke['failures']}")
+    for bucket in smoke["buckets"]:
+        print(f"aotcache lanes {bucket['lanes']}: source "
+              f"{bucket['source']}, load {bucket['load_s'] * 1e3:.1f} ms, "
+              f"first call {bucket['first_call_s'] * 1e3:.1f} ms (a fresh "
+              f"process)",
+              flush=True)
+    runs = {}
+    for backend in ("batch", "torch"):
+        rec = obs.TraceRecorder(f"byzantine_third {backend}")
+        rl.launches = 0
+        t0 = time.perf_counter()
+        with crypto.use_backend(backend), obs.use_recorder(rec):
+            run = api.run_bhfl(scenario="byzantine_third", seed=0,
+                               engine="reference", device=dev)
+        torch.cuda.synchronize()
+        from repro_torch.blockchain.block import block_hash
+        parts = shares(round_breakdowns(rec))
+        runs[backend] = {
+            "wall_s": time.perf_counter() - t0,
+            "launches": rl.launches,
+            "hashes": [block_hash(b) for b in
+                       run.runtime.consensus.ledgers[0].blocks],
+            "leaders": [m.leader_id for m in run.history],
+            "verify_share": parts.get("crypto.verify_batch"),
+            "rlc_calls": rec.metrics.counters.get("crypto.rlc_torch_calls",
+                                                  0)}
+        check(run.chain_valid, f"byzantine_third under {backend}: the "
+                               f"chain does not verify")
+    check(runs["torch"]["hashes"] == runs["batch"]["hashes"]
+          and runs["torch"]["leaders"] == runs["batch"]["leaders"],
+          f"byzantine_third: torch chain {runs['torch']['hashes'][:2]}... "
+          f"leaders {runs['torch']['leaders']}, batch "
+          f"{runs['batch']['hashes'][:2]}... {runs['batch']['leaders']}")
+    check(runs["torch"]["launches"] > 0 and runs["batch"]["launches"] == 0,
+          f"byzantine_third: ladder launches {runs['torch']['launches']} "
+          f"under torch, {runs['batch']['launches']} under batch")
+    for backend, r in runs.items():
+        print(f"byzantine_third under {backend}: {len(r['hashes'])} blocks, "
+              f"leaders {r['leaders']}, {r['wall_s']:.2f} s, ladder launches "
+              f"{r['launches']}, crypto.verify_batch {r['verify_share']} of "
+              f"the rounds' wall time", flush=True)
+    print(f"byzantine_third: the same block hashes and leaders under both "
+          f"backends on {smi}", flush=True)
+    main = rows[LADDER_MAIN_LANES]
+    row = {"name": "rlc_ladder", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/rlc_ladder.cu",
+           "replaces": "src/repro/core/crypto/backends/jax.py:279 "
+                       "(_rlc_kernel; no pallas_call)",
+           "launches": runs["torch"]["launches"], "max_abs_err": 0,
+           "ms": main["kernel_us"] / 1e3, "plain_ms": main["plain_s"] * 1e3,
+           "bound_ms": main["bound"][0] / 1e3, "bound_by": main["bound"][1],
+           "library_ms": None, "lanes": LADDER_MAIN_LANES,
+           "kernel_us_by_lanes": {L: r["kernel_us"] for L, r in rows.items()},
+           "verify_batch_ms": batches,
+           "aotcache": smoke["buckets"], "aotcache_s": secs}
+    return {"row": row, "runs": runs}
 
 
 def stamp(t0: float, what: str) -> None:
@@ -4155,6 +4473,10 @@ def main() -> int:
     mesh_round = phase_mesh_round(dev)
     phase_mesh_ranks()
     stamp(t_start, "phases 46-47")
+    # 48. the limb verifier: the RLC ladder kernel, verify_batch under
+    # torch against batch, the kernel cache as a process, byzantine_third
+    ladder = phase_ladder(dev)
+    stamp(t_start, "phase 48")
     for row in wkv_rows + flash_rows:
         row["launcher_launches"] = {a: v["launches"].get(row["name"], 0)
                                     for a, v in launcher.items()}
@@ -4182,7 +4504,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows + wkv_rows + flash_rows + wkv_bwd_rows
                       + flash_bwd_rows + fold_rows + f112_rows
                       + f112_bwd_rows + moe_rows + cross_rows + xself_rows
-                      + cross_bwd_rows}),
+                      + cross_bwd_rows + [ladder["row"]]}),
           flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ a dependency-free implementation of both:
   style, HMAC-DRBG) ECDSA over secp256k1.
 * ``verify_batch`` — round-level verification of many (tag, PK, digest)
   triples at once, behind a pluggable backend seam
-  (``set_backend("naive" | "windowed" | "batch" | "glv" | "auto")``).
+  (``set_backend("naive" | "windowed" | "batch" | "glv" | "torch" |
+  "auto")``).
 
 The ``batch`` backend (the default) verifies a whole phase's envelopes with
 one randomized-linear-combination equation: per signature it recovers the
@@ -33,13 +34,20 @@ Package layout (the point-arithmetic hot loop lives below the seam):
   batch equation (plus the affine legacy ops the benchmarks keep as the
   pre-Jacobian baseline);
 * ``backends.python`` — the ``CurveOps`` seam and the naive / windowed /
-  batch / glv backends.
+  batch / glv backends;
+* ``backends.limb`` — the limb-vectorized backend ``"torch"`` (the port
+  of the reference's ``"jax"``): field elements as 8×32-bit limbs in
+  int64 lanes, the whole RLC batch equation as one GLV ladder over all
+  deduplicated signatures, run on the card by the CUDA kernel
+  ``kernels/csrc/rlc_ladder.cu``;
+* ``aotcache`` — that kernel's on-disk library (built once per checkout
+  by ``nvcc``, loaded by later processes in milliseconds).
 
-This is the PyTorch port's copy of ``repro.core.crypto``. The crypto runs
-in the host control plane and never touches the GPU. The reference's
-limb-vectorized JAX backend (``backends/jax.py``) and its AOT kernel cache
-are not carried over, so ``set_backend("auto")`` always settles on the
-pure-Python ``batch`` backend.
+This is the PyTorch port's copy of ``repro.core.crypto``. The Python
+backends run in the host control plane; the ``torch`` backend moves the
+round-level batch equation onto the card (per-message ``dsign`` and
+``dverify`` stay on the host), and needs one unless it is built with
+``LimbOps(device="cpu")``, the plain torch ladder.
 """
 
 from __future__ import annotations
@@ -112,32 +120,42 @@ def _point_mul(k: int, p: Point) -> Point:
 # "glv"      — ``batch`` semantics with a uniform-operation-schedule
 #              fixed-base ladder on the signing side and the interleaved
 #              wNAF engine pinned for the equation.
-# set_backend("auto") resolves to "batch" (see _calibrate).
+# "torch"    — ``batch`` semantics with the RLC equation evaluated by the
+#              limb ladder on the card (``backends.limb``); needs a CUDA
+#              device.
+# set_backend("auto") runs a one-shot calibration probe and picks
+# between "batch" and "torch" (see _calibrate).
 
-BACKENDS = ("naive", "windowed", "batch", "glv")
+BACKENDS = ("naive", "windowed", "batch", "glv", "torch")
 _BACKEND = "batch"
 _OPS: Dict[str, CurveOps] = {}
 
 
 def _get_ops(name: str) -> CurveOps:
-    """The ``CurveOps`` instance for a backend name (constructed lazily)."""
+    """The ``CurveOps`` instance for a backend name (constructed lazily —
+    the torch backend imports its ladder only when first requested)."""
     if name not in BACKENDS:
         raise ValueError(f"unknown crypto backend {name!r}; "
                          f"choose from {BACKENDS + ('auto',)}")
     ops = _OPS.get(name)
     if ops is None:
-        ops = {"naive": NaiveOps,
-               "windowed": WindowedOps,
-               "batch": BatchOps,
-               "glv": GLVOps}[name]()
+        if name == "torch":
+            from repro_torch.core.crypto.backends.limb import LimbOps
+            ops = LimbOps()
+        else:
+            ops = {"naive": NaiveOps,
+                   "windowed": WindowedOps,
+                   "batch": BatchOps,
+                   "glv": GLVOps}[name]()
         _OPS[name] = ops
     return ops
 
 
 def set_backend(name: str) -> None:
     """Select the crypto backend (``"naive" | "windowed" | "batch" |
-    "glv" | "auto"``). ``"auto"`` settles on "batch"
-    (:func:`calibration_info` reports the decision)."""
+    "glv" | "torch" | "auto"``). Selecting ``"torch"`` with no CUDA
+    device raises; ``"auto"`` probes once and settles on "batch" or
+    "torch" (:func:`calibration_info` reports the decision)."""
     global _BACKEND
     if name == "auto":
         name = _calibrate()
@@ -175,19 +193,69 @@ def calibration_info() -> Optional[dict]:
 
 
 def _calibrate(probe_n: int = 16, force: bool = False) -> str:
-    """The decision behind ``set_backend("auto")``.
+    """One-shot probe behind ``set_backend("auto")``.
 
-    The reference probes between the Python ``batch`` backend and its JAX
-    limb kernel. The port has no JAX backend, so the only candidate is
-    ``batch``; the decision record keeps the reference's shape.
+    The torch limb ladder only beats CPython big-ints when its build is
+    already paid, so the probe considers ``torch`` only where a CUDA
+    device is present and the ladder's library is built
+    (``aotcache.has_cached_kernels``) — a cold probe would charge a
+    whole ``nvcc`` build to a "cheap" calibration. Then each candidate
+    checks the RLC equation of a synthetic ``probe_n``-signature batch
+    (which warms per-key tables / loads the library: one-shot costs a
+    long-running round pipeline amortizes away) and verifies the batch
+    once, timed; the faster decides. Past those two gates the card and
+    the kernel are there, so a failed build or launch of the ladder
+    propagates, and a candidate whose equation or batch rejects the
+    valid probe raises: neither settles on ``batch`` in silence.
     """
     global _CALIBRATION
     if _CALIBRATION is not None and not force:
         return _CALIBRATION["chosen"]
-    _CALIBRATION = {"probe_n": probe_n, "chosen": "batch",
-                    "reason": "python batch default (no jax backend in "
-                              "the port)"}
-    return _CALIBRATION["chosen"]
+    import torch
+
+    from repro_torch.core.crypto import aotcache
+    info: dict = {"probe_n": probe_n, "chosen": "batch",
+                  "reason": "python batch default"}
+    if not torch.cuda.is_available():
+        info["reason"] = ("no CUDA device — the torch backend runs its "
+                          "ladder on the card")
+    elif not aotcache.has_cached_kernels():
+        info["reason"] = ("no built ladder library — torch would pay a "
+                          "cold nvcc build; run python -m "
+                          "repro_torch.core.crypto.aotcache --warm to "
+                          "build it")
+    else:
+        items = [(dsign(sha256_digest(b"calib", bytes([i])), kp.private_key),
+                  kp.public_key, sha256_digest(b"calib", bytes([i])))
+                 for i, kp in ((j, ECDSAKeyPair.generate(b"calib%d" % j))
+                               for j in range(probe_n))]
+        # the probe's RLC group, as _verify_batch_impl prepares it: the
+        # equation must hold on it, so a wrong ladder cannot hide behind
+        # the bisection's dverify fallback
+        group = []
+        for sig, pk, d in items:
+            w = field.inv_mod(sig.s, _N)
+            group.append((_bits2int(d) * w % _N, sig.r * w % _N, pk,
+                          _recover_R(sig)))
+        timings = {}
+        for cand in ("batch", "torch"):
+            # the equation check pays the one-shot costs (table builds,
+            # library load); the steady-state call after it decides
+            if not _get_ops(cand).rlc_check(group):
+                raise RuntimeError(f"crypto backend {cand!r}: the RLC "
+                                   f"equation rejected the valid "
+                                   f"calibration probe")
+            t0 = time.perf_counter()
+            ok = _verify_batch_impl(items, backend=cand).ok
+            timings[cand] = time.perf_counter() - t0
+            if not ok:
+                raise RuntimeError(f"crypto backend {cand!r} rejected the "
+                                   f"valid calibration probe")
+        info["probe_seconds"] = timings
+        info["chosen"] = min(timings, key=timings.get)
+        info["reason"] = "timed probe (ladder library built)"
+    _CALIBRATION = info
+    return info["chosen"]
 
 
 # ---------------------------------------------------------------------------
@@ -392,12 +460,13 @@ def verify_batch(items: Sequence[BatchItem],
 
     Under the ``naive``/``windowed`` backends this is a plain loop of
     :func:`dverify` calls (the per-message baseline, timed as such by the
-    benchmarks). Under ``batch``/``glv`` (equation-capable backends),
-    identical triples are deduplicated — one consensus round verifies each
-    sender's tag at N−1 receivers, so a round-level batch collapses
-    N×(N−1) checks to N — and the distinct remainder is checked with one
-    randomized-linear-combination equation (Jacobian Python); on
-    failure, bisection attributes the exact forged items.
+    benchmarks). Under ``batch``/``glv``/``torch`` (equation-capable
+    backends), identical triples are deduplicated — one consensus round
+    verifies each sender's tag at N−1 receivers, so a round-level batch
+    collapses N×(N−1) checks to N — and the distinct remainder is checked
+    with one randomized-linear-combination equation (Jacobian Python or
+    the limb ladder on the card); on failure, bisection attributes the
+    exact forged items.
 
     The acceptance predicate is identical across backends: an item passes
     iff ``dverify`` passes it individually.

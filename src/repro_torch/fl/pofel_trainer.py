@@ -222,32 +222,39 @@ def _cluster_step(model: Model, params: dict, batch: dict,
     return rebuild(params, new), replicated(loss.detach())
 
 
-def _on_submesh(t: torch.Tensor, axis: str):
-    """A DTensor sharded over ``axis`` on its first dim → its local shard
-    as a DTensor over the mesh's other axes (their placements kept)."""
+def _axes(axis) -> tuple:
+    """``cluster_axis`` as a tuple of mesh axis names."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _on_submesh(t: torch.Tensor, axis):
+    """A DTensor sharded over ``axis`` (a mesh axis, or a tuple of them,
+    major first) on its first dim → its local shard as a DTensor over
+    the mesh's other axes (their placements kept)."""
     from torch.distributed.tensor import DTensor, Shard
     mesh = t.device_mesh
     names = list(mesh.mesh_dim_names)
-    ax = names.index(axis)
-    if t.placements[ax] != Shard(0):
-        t = t.redistribute(mesh, [Shard(0) if d == ax else p
-                                  for d, p in enumerate(t.placements)])
-    rest = tuple(n for n in names if n != axis)
+    axes = [names.index(a) for a in _axes(axis)]
+    want = [Shard(0) if d in axes else p for d, p in enumerate(t.placements)]
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    rest = tuple(n for d, n in enumerate(names) if d not in axes)
     sub = mesh[rest[0]] if len(rest) == 1 else mesh[rest]
     local = t.to_local()
     shape = (local.shape[0],) + tuple(t.shape[1:])
     return DTensor.from_local(local, sub, [p for d, p in enumerate(
-        t.placements) if d != ax], run_check=False, shape=shape,
+        t.placements) if d not in axes], run_check=False, shape=shape,
         stride=contiguous_stride(shape))
 
 
-def _from_submesh(t: torch.Tensor, mesh, n: int, axis: str):
+def _from_submesh(t: torch.Tensor, mesh, n: int, axis):
     """The inverse of :func:`_on_submesh`: the ranks' shards along
     ``axis`` (first dim, ``n`` in all) as one DTensor over ``mesh``."""
     from torch.distributed.tensor import DTensor, Shard
-    ax = list(mesh.mesh_dim_names).index(axis)
+    names = list(mesh.mesh_dim_names)
+    axes = [names.index(a) for a in _axes(axis)]
     rest = iter(t.placements)
-    placements = [Shard(0) if d == ax else next(rest)
+    placements = [Shard(0) if d in axes else next(rest)
                   for d in range(mesh.ndim)]
     shape = (n,) + tuple(t.shape[1:])
     return DTensor.from_local(t.to_local(), mesh, placements,
@@ -263,7 +270,8 @@ def _local_step_mesh(model: Model, cluster_params: Any, batch: dict,
     axis = cfg.cluster_axis
     flat = leaves_with_paths(cluster_params)
     first = flat[0][1]
-    if axis is not None and axis not in first.device_mesh.mesh_dim_names:
+    if axis is not None and not set(_axes(axis)) <= set(
+            first.device_mesh.mesh_dim_names):
         raise ValueError(f"cluster_axis={axis!r} is not an axis of the "
                          f"mesh {first.device_mesh.mesh_dim_names}")
     if axis is not None:

@@ -42,6 +42,8 @@ SIGNATURES = {
     "flash_attention_backward": (
         "flash_attention", "repro_flash_attention_backward",
         [*[_P] * 10, *[_L] * 12, *[_I] * 9, _P]),
+    "rlc_ladder": ("rlc_ladder", "repro_rlc_ladder",
+                   [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 

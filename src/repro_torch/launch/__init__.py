@@ -5,5 +5,5 @@ launchers: ``mesh``, ``specs``, ``costs``, ``roofline``, the
 dry run (``python -m repro_torch.launch.dryrun``) and the hillclimb
 driver (``python -m repro_torch.launch.hillclimb``); the steps run as
 DTensor programs on any mesh (several ranks on the CPU through
-``mesh.run_on_ranks``). The roofline's collective term waits for ROADMAP
-Queue 1 item 15, step 5."""
+``mesh.run_on_ranks``), and their collectives are counted without
+moving data (``collectives``) for the roofline's collective term."""

@@ -8,8 +8,7 @@ profile and forward-option variant and report its roofline row (port of
 As the dry run (``launch.dryrun``), the setup is built on a fake process
 group, nothing allocated or compiled. ``--override key=value`` sets a
 ``FwdOptions`` field of a train step; the row records it. The row's
-collective term waits for ROADMAP Queue 1 item 15, step 5
-(``roofline.NO_COLLECTIVES``).
+collective term is the step's planned collectives, as the dry run's.
 """
 
 import argparse
@@ -31,28 +30,34 @@ def run(arch: str, shape_name: str, profile: str, multi_pod: bool = False,
         device_type: str = "cuda") -> dict:
     fake_process_group(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=device_type)
-    shape = INPUT_SHAPES[shape_name]
+
+    def build(cfg=None, shape=INPUT_SHAPES[shape_name]):
+        if shape.kind == "train":
+            tcfg, opts = default_profile_config(profile, mesh)
+            if opts_overrides:
+                opts = opts._replace(**opts_overrides)
+            return build_train_setup(arch, mesh, shape, tcfg, opts,
+                                     profile=profile, cfg=cfg)
+        if shape.kind == "prefill":
+            return build_prefill_setup(arch, mesh, shape, profile=profile,
+                                       cfg=cfg)
+        return build_decode_setup(arch, mesh, shape, profile=profile,
+                                  cfg=cfg)
+
     t0 = time.perf_counter()
-    if shape.kind == "train":
-        tcfg, opts = default_profile_config(profile, mesh)
-        if opts_overrides:
-            opts = opts._replace(**opts_overrides)
-        setup = build_train_setup(arch, mesh, shape, tcfg, opts,
-                                  profile=profile)
-    elif shape.kind == "prefill":
-        setup = build_prefill_setup(arch, mesh, shape, profile=profile)
-    else:
-        setup = build_decode_setup(arch, mesh, shape, profile=profile)
+    setup = build()
     build_s = time.perf_counter() - t0
-    roof = roofline(setup, arch, shape_name, mesh, multi_pod)
+    roof = roofline(setup, arch, shape_name, mesh, multi_pod, build)
     row = roof.row()
     row.update(profile=profile, build_s=build_s,
                opts_overrides=opts_overrides or {}, **XLA_ONLY)
     print(f"== {arch} × {shape_name} × {profile} "
           f"{opts_overrides or ''} (build {build_s:.2f}s) ==")
     print(f"   compute={roof.compute_s:.3f}s memory={roof.memory_s:.3f}s "
-          f"→ {roof.dominant}-bound; args/dev {row['arg_gb_per_dev']:.3f} GB")
-    print(f"   collective: {row['collective_note']}")
+          f"collective={roof.collective_s:.3f}s → {roof.dominant}-bound; "
+          f"args/dev {row['arg_gb_per_dev']:.3f} GB")
+    print(f"   collectives: {row['collective_counts']} over "
+          f"{row['collective_axes']}")
     return row
 
 

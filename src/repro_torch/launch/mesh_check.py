@@ -8,13 +8,21 @@ Here those seven rounds, and prefill and decode for yi-6b and
 deepseek-moe-16b, run as DTensor steps (``launch.specs``) on a (2, 2)
 ``("data", "model")`` mesh of four CPU processes (``mesh.run_on_ranks``:
 gloo, no network), and each is held against the same step in one
-process on plain tensors:
+process on plain tensors. One more round, yi-6b's at ``zero3_pod``,
+runs on a (2, 2, 1) ``("pod", "data", "model")`` mesh of the same four
+processes with its C = 4 clusters over ``("pod", "data")``, pod-major:
+the two-axis cluster split of the production 2 × 16 × 16 mesh's zero3.
+
 
     PYTHONPATH=src python -m repro_torch.launch.mesh_check \\
         [--case yi-6b:zero3 ...] [--no-serve] [--json out.json]
 
 It prints a line a case (seconds on the mesh, collectives by kind, the
-largest differences) and exits 1 if a case disagrees. The tolerances
+largest differences) and exits 1 if a case disagrees. Each case's
+collectives are also planned on the same mesh, on its abstract
+arguments, moving nothing (``launch.collectives``, the roofline's
+count), and the plan must equal what the run issued, kind by kind, in
+count and in bytes a device, and axis by axis in bytes. The tolerances
 are ``tests/test_torch_pofel_trainer.py``'s: losses within 5e-2, weights
 within rtol 1e-2 / atol 1e-3 (bfloat16), similarities within 1e-4 and
 the same leader where the top two lie more than 2e-4 apart; logits of
@@ -41,6 +49,9 @@ TRAIN_CASES = (("yi-6b", "baseline"), ("deepseek-moe-16b", "baseline"),
                ("rwkv6-1.6b", "baseline"), ("zamba2-7b", "baseline"),
                ("musicgen-medium", "baseline"), ("yi-6b", "zero3"),
                ("deepseek-moe-16b", "zero3"))
+POD_CASES = (("yi-6b", "zero3_pod"),)
+POD_MESH_SHAPE = (2, 2, 1)
+POD_MESH_AXES = ("pod", "data", "model")
 SERVE_CASES = (("yi-6b", "prefill"), ("yi-6b", "decode"),
                ("deepseek-moe-16b", "prefill"),
                ("deepseek-moe-16b", "decode"))
@@ -68,11 +79,15 @@ def reduced_configs():
 
 def train_config(profile: str):
     """(PoFELTrainConfig, FwdOptions) of a mini case: the reference's
-    mini test's (remat off; zero3's levers all on, C = 2 over data)."""
+    mini test's (remat off; zero3's levers all on, C = 2 over data;
+    zero3_pod's the same with C = 4 over pod and data)."""
     from repro_torch.fl import pofel_trainer as pt
     from repro_torch.models.transformer import FwdOptions
-    if profile == "zero3":
-        return (pt.PoFELTrainConfig(n_clusters=2, cluster_axis="data",
+    if profile in ("zero3", "zero3_pod"):
+        pod = profile == "zero3_pod"
+        return (pt.PoFELTrainConfig(n_clusters=4 if pod else 2,
+                                    cluster_axis=(POD_MESH_AXES[:2] if pod
+                                                  else "data"),
                                     inner_lr=1e-2),
                 FwdOptions(remat=False, seq_shard_axis="model", dp_axes=(),
                            parallel_q=True, gather_kv=True,
@@ -110,7 +125,7 @@ def train_inputs(arch: str, profile: str, mesh) -> tuple:
     with reduced_configs():
         setup = specs.build_train_setup(
             arch, mesh, InputShape("mini_train", SEQ, BATCH, "train"), tcfg,
-            opts, profile=profile)
+            opts, profile=profile.removesuffix("_pod"))
     model, C, dev = setup.model, tcfg.n_clusters, setup.model.device
     state = pt.init_train_state(
         model, tcfg, torch.Generator(device=dev).manual_seed(0))
@@ -175,10 +190,13 @@ def _outputs(case: tuple, out: tuple) -> dict:
 
 def run_case(case: tuple, mesh) -> dict:
     """A case's step on ``mesh`` with DTensor arguments: its outputs,
-    seconds and collectives by kind (``CommDebugMode``)."""
+    seconds, collectives by op (``CommDebugMode``), and by kind, count,
+    bytes and axis as the run issued them (``measured``) and as the
+    step's plan counts them (``planned``)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.launch import specs
+    from repro_torch.launch.collectives import CollectiveCounter, plan_step
     arch, kind = case
     if kind in ("prefill", "decode"):
         setup, plain = serve_inputs(arch, kind, mesh)
@@ -187,20 +205,36 @@ def run_case(case: tuple, mesh) -> dict:
     args = [specs.distribute_like(v, a)
             for v, a in zip(plain, setup.abstract_args)]
     t0 = time.perf_counter()
-    with CommDebugMode() as comm:
+    with CommDebugMode() as comm, CollectiveCounter(mesh) as measured:
         out = setup.step(*args)
     seconds = time.perf_counter() - t0
     counts = {getattr(op, "_qualified_op_name", str(op)): n
               for op, n in comm.get_comm_counts().items()}
+    planned = plan_step(setup)        # the reduced configs' full depth
     return {"outputs": _outputs(case, out), "seconds": seconds,
-            "collectives": counts}
+            "collectives": counts, "measured": measured.stats.as_dict(),
+            "planned": planned.as_dict()}
+
+
+def case_mesh(case: tuple, host: bool = False):
+    """The mesh a case runs on: (2, 2) ``("data", "model")``, or (2, 2,
+    1) ``("pod", "data", "model")`` for a ``POD_CASES`` one; with
+    ``host``, the same axes of size 1 on a world-size-1 group."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    pod = case[1].endswith("_pod")
+    if host:
+        mesh = make_host_mesh("cpu")        # the group, if there is none
+        if not pod:
+            return mesh
+    shape, names = ((POD_MESH_SHAPE, POD_MESH_AXES) if pod
+                    else (MESH_SHAPE, MESH_AXES))
+    return make_mesh((1,) * len(shape) if host else shape, names)
 
 
 def run_single(case: tuple) -> dict:
     """A case's step in this process on plain tensors (a 1 × 1 mesh's
     one-card path): its outputs."""
-    from repro_torch.launch.mesh import make_host_mesh
-    mesh = make_host_mesh("cpu")
+    mesh = case_mesh(case, host=True)
     arch, kind = case
     if kind in ("prefill", "decode"):
         setup, plain = serve_inputs(arch, kind, mesh)
@@ -210,20 +244,25 @@ def run_single(case: tuple) -> dict:
 
 
 def on_ranks(cases: tuple, repeat: tuple) -> list:
-    """One rank's part of :func:`run_on_mesh`: each case on the (2, 2)
-    mesh, then ``repeat`` again; rank 0 returns the results."""
+    """One rank's part of :func:`run_on_mesh`: each case on its mesh
+    (:func:`case_mesh`), then ``repeat`` again; rank 0 returns the
+    results."""
     import torch.distributed as dist
+    meshes = {}
 
-    from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh(MESH_SHAPE, MESH_AXES)
-    results = [run_case(tuple(c), mesh) for c in cases]
-    again = run_case(tuple(repeat), mesh) if repeat else None
+    def run(case):
+        key = case[1].endswith("_pod")
+        if key not in meshes:
+            meshes[key] = case_mesh(case)
+        return run_case(case, meshes[key])
+    results = [run(tuple(c)) for c in cases]
+    again = run(tuple(repeat)) if repeat else None
     return (results, again) if dist.get_rank() == 0 else None
 
 
 def run_on_mesh(cases: tuple, repeat: tuple = (),
                 timeout: float = 600.0) -> tuple:
-    """Every case on a (2, 2) mesh of four local CPU processes, in one
+    """Every case on its mesh of four local CPU processes, in one
     call: (results a case, the repeated case's second result or None)."""
     from repro_torch.launch.mesh import run_on_ranks
     return run_on_ranks(on_ranks, 4, tuple(cases), tuple(repeat),
@@ -280,15 +319,17 @@ def bit_identical(a: dict, b: dict) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--case", action="append", default=[],
-                    help="arch:profile (baseline, zero3) or arch:prefill, "
-                         "arch:decode; default the seven train cases and "
-                         "the four serving cases")
+                    help="arch:profile (baseline, zero3, zero3_pod) or "
+                         "arch:prefill, arch:decode; default the seven "
+                         "train cases, the pod case and the four serving "
+                         "cases")
     ap.add_argument("--no-serve", action="store_true",
                     help="without the default prefill and decode cases")
     ap.add_argument("--json", help="append the rows to this JSON file")
     args = ap.parse_args(argv)
     cases = [tuple(c.split(":")) for c in args.case] or (
-        list(TRAIN_CASES) + ([] if args.no_serve else list(SERVE_CASES)))
+        list(TRAIN_CASES) + list(POD_CASES)
+        + ([] if args.no_serve else list(SERVE_CASES)))
     torch.set_num_threads(1)
     t0 = time.perf_counter()
     results, again = run_on_mesh(tuple(cases), repeat=cases[0])
@@ -296,15 +337,22 @@ def main(argv=None) -> int:
     rows, bad = [], 0
     for case, res in zip(cases, results):
         diff = differences(res["outputs"], run_single(case))
+        diff["within"]["planned"] = res["planned"] == res["measured"]
         good = all(diff["within"].values())
         bad += not good
-        rows.append({"case": ":".join(case), "seconds": res["seconds"],
+        mesh = "x".join(map(str, POD_MESH_SHAPE if case in POD_CASES
+                            else MESH_SHAPE))
+        rows.append({"case": ":".join(case), "mesh": mesh,
+                     "seconds": res["seconds"],
                      "collectives": res["collectives"],
+                     "measured": res["measured"], "planned": res["planned"],
                      **{k: v for k, v in diff.items() if k != "within"},
                      "ok": good})
         print(f"{':'.join(case)}: {res['seconds']:.2f} s on the "
-              f"{MESH_SHAPE[0]}x{MESH_SHAPE[1]} mesh, collectives "
-              f"{res['collectives']}, against one process "
+              f"{mesh} mesh, collectives "
+              f"{res['collectives']}, measured {res['measured']}, planned "
+              f"{'the same' if diff['within']['planned'] else res['planned']}"
+              f", against one process "
               f"{ {k: v for k, v in diff.items() if k != 'within'} } "
               f"{'ok' if good else 'DISAGREES ' + str(diff['within'])}",
               flush=True)

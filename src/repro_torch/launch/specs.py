@@ -19,7 +19,9 @@ back in the state argument's placements (the reference's
 mesh of one device it also takes plain tensors of those shapes, and
 then runs the one-card path. A step given meta arguments, or built on
 the fake process group, raises ``ValueError``: the fake group moves no
-data.
+data. ``StepSetup.plan`` runs the same DTensor program on the abstract
+arguments themselves, so that every collective the step plans is issued
+on meta tensors and nothing moves (``launch.collectives``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ class StepSetup:
     abstract_args: tuple        # DTensors over meta tensors
     model: Model
     cfg: ArchConfig
+    plan: Callable              # the step's program on abstract_args
+    mesh: Any
 
 
 def abstract_dtensor(shape: tuple, dtype: torch.dtype, spec: PSpec, mesh):
@@ -179,10 +183,18 @@ def _relayout(tree: Any, abstract: Any) -> Any:
 
 
 def _make_step(mesh, abstract_args: tuple, run: Callable,
-               relayout_first: bool = False) -> Callable:
+               relayout_first: bool = False) -> tuple[Callable, Callable]:
     """The step: arguments checked, the DTensor program run with plain
     tensors beside DTensors taken as replicated, and (train) the new
-    state in its argument's placements."""
+    state in its argument's placements. And its plan: the same program
+    on the abstract arguments, unchecked, on any process group."""
+    def program(*args):
+        with implicit_replication():
+            out = run(*args)
+            if relayout_first:
+                out = (_relayout(out[0], abstract_args[0]), *out[1:])
+        return out
+
     def step(*args):
         _runnable(mesh)
         if len(args) != len(abstract_args):
@@ -191,14 +203,15 @@ def _make_step(mesh, abstract_args: tuple, run: Callable,
         on_mesh = False
         for i, (a, w) in enumerate(zip(args, abstract_args)):
             on_mesh |= _checked(a, w, mesh, f"argument {i}")
-        if not on_mesh:
-            return run(*args)
-        with implicit_replication():
-            out = run(*args)
-            if relayout_first:
-                out = (_relayout(out[0], abstract_args[0]), *out[1:])
-        return out
-    return step
+        return program(*args) if on_mesh else run(*args)
+
+    return step, lambda: program(*abstract_args)
+
+
+def _setup(name: str, mesh, args: tuple, run: Callable, model: Model,
+           cfg: ArchConfig, relayout_first: bool = False) -> StepSetup:
+    step, plan = _make_step(mesh, args, run, relayout_first)
+    return StepSetup(name, step, args, model, cfg, plan, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +252,12 @@ def default_profile_config(profile: str, mesh, n_clusters_baseline: int = 8
 def build_train_setup(arch_id: str, mesh, shape: InputShape,
                       tcfg: pt.PoFELTrainConfig | None = None,
                       opts: FwdOptions | None = None,
-                      profile: str = "baseline") -> StepSetup:
+                      profile: str = "baseline",
+                      cfg: ArchConfig | None = None) -> StepSetup:
+    """The PoFEL round of ``arch_id`` (at ``cfg`` where given, else its
+    config) on ``mesh`` for ``shape``."""
     assert shape.kind == "train"
-    cfg = get_config(arch_id)
+    cfg = cfg or get_config(arch_id)
     model = Model(cfg, device=mesh.device_type)
     ax = mesh_axes(mesh)
     dp_axes, dp_total, tp = ax["dp_axes"], ax["dp_total"], ax["tp"]
@@ -295,9 +311,8 @@ def build_train_setup(arch_id: str, mesh, shape: InputShape,
     def run(state, batch, lambdas):
         return pt.pofel_round(model, state, batch, lambdas, tcfg, opts)
 
-    return StepSetup(f"{arch_id}/{shape.name}",
-                     _make_step(mesh, args, run, relayout_first=True), args,
-                     model, cfg)
+    return _setup(f"{arch_id}/{shape.name}", mesh, args, run, model, cfg,
+                  relayout_first=True)
 
 
 def build_local_step_setup(arch_id: str, mesh, shape: InputShape,
@@ -316,9 +331,8 @@ def build_local_step_setup(arch_id: str, mesh, shape: InputShape,
     def run(state, batch):
         return pt.train_step(model, state, batch, tcfg, opts)
 
-    return StepSetup(f"{arch_id}/{shape.name}/local",
-                     _make_step(mesh, args, run, relayout_first=True), args,
-                     model, setup.cfg)
+    return _setup(f"{arch_id}/{shape.name}/local", mesh, args, run, model,
+                  setup.cfg, relayout_first=True)
 
 
 # ---------------------------------------------------------------------------
@@ -341,9 +355,10 @@ def _serving_params_arg(model: Model, mesh, tp, dp_total,
 
 def build_prefill_setup(arch_id: str, mesh, shape: InputShape,
                         opts: FwdOptions | None = None,
-                        profile: str = "baseline") -> StepSetup:
+                        profile: str = "baseline",
+                        cfg: ArchConfig | None = None) -> StepSetup:
     assert shape.kind == "prefill"
-    cfg = serving_config(get_config(arch_id), shape)
+    cfg = serving_config(cfg or get_config(arch_id), shape)
     model = Model(cfg, device=mesh.device_type)
     ax = mesh_axes(mesh)
     dp_axes, dp_total, tp = ax["dp_axes"], ax["dp_total"], ax["tp"]
@@ -378,14 +393,14 @@ def build_prefill_setup(arch_id: str, mesh, shape: InputShape,
     def run(params, batch):
         return model.prefill(params, batch, opts)
 
-    return StepSetup(f"{arch_id}/{shape.name}",
-                     _make_step(mesh, args, run), args, model, cfg)
+    return _setup(f"{arch_id}/{shape.name}", mesh, args, run, model, cfg)
 
 
 def build_decode_setup(arch_id: str, mesh, shape: InputShape,
-                       profile: str = "baseline") -> StepSetup:
+                       profile: str = "baseline",
+                       cfg: ArchConfig | None = None) -> StepSetup:
     assert shape.kind == "decode"
-    cfg = serving_config(get_config(arch_id), shape)
+    cfg = serving_config(cfg or get_config(arch_id), shape)
     model = Model(cfg, device=mesh.device_type)
     ax = mesh_axes(mesh)
     dp_axes, dp_total, tp = ax["dp_axes"], ax["dp_total"], ax["tp"]
@@ -405,12 +420,16 @@ def build_decode_setup(arch_id: str, mesh, shape: InputShape,
     def run(params, cache, tokens, pos):
         return model.decode_step(params, cache, tokens, pos)
 
-    return StepSetup(f"{arch_id}/{shape.name}",
-                     _make_step(mesh, args, run), args, model, cfg)
+    return _setup(f"{arch_id}/{shape.name}", mesh, args, run, model, cfg)
 
 
-def build_setup(arch_id: str, shape_name: str, mesh, **kw) -> StepSetup:
-    shape = INPUT_SHAPES[shape_name]
+def build_setup(arch_id: str, shape: str | InputShape, mesh,
+                **kw) -> StepSetup:
+    """The step of ``arch_id`` for ``shape`` (an ``InputShape`` or the
+    name of one of ``INPUT_SHAPES``); ``cfg=`` builds on another config
+    of the arch (a cut depth, a reduced width)."""
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
     if shape.kind == "train":
         return build_train_setup(arch_id, mesh, shape, **kw)
     if shape.kind == "prefill":

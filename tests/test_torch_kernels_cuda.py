@@ -1680,3 +1680,90 @@ def test_model_round_on_the_card_mesh_launches_as_plain(cuda_device,
     assert mesh["weighted_aggregate"] == plain["weighted_aggregate"] \
         == n_leaves
     assert mesh["cosine_partials"] == plain["cosine_partials"] == n_leaves
+
+
+# ---------------------------------------------------------------------------
+# the RLC ladder of the limb crypto backend
+# ---------------------------------------------------------------------------
+
+def _ladder_items(n: int, forged=(), seed: int = 0) -> list:
+    """``n`` signed (tag, PK, digest) triples (those in ``forged`` with
+    another digest) and one more whose nonce point R is its public key."""
+    from repro_torch.core import crypto
+    from repro_torch.core.crypto import curve
+    out = []
+    for i in range(n):
+        kp = crypto.ECDSAKeyPair.generate(b"ladder-%d-%d" % (seed, i))
+        d = crypto.sha256_digest(b"m", bytes([seed, i]))
+        tag = crypto.dsign(d, kp.private_key)
+        if i in forged:
+            d = crypto.sha256_digest(b"forged", bytes([seed, i]))
+        out.append((tag, kp.public_key, d))
+    pk = crypto.ECDSAKeyPair.generate(b"ladder-pk-is-r").public_key
+    out.append((crypto.Signature(pk[0] % curve.N, 12345, pk[1] & 1), pk,
+                crypto.sha256_digest(b"pk-is-r")))
+    return out
+
+
+def _ladder_group(items) -> list:
+    from repro_torch.core import crypto
+    from repro_torch.core.crypto import curve
+    out = []
+    for tag, pk, d in items:
+        w = pow(tag.s, -1, curve.N)
+        out.append((crypto._bits2int(d) * w % curve.N, tag.r * w % curve.N,
+                    pk, crypto._recover_R(tag)))
+    return out
+
+
+@pytest.mark.parametrize("lanes", [2, 8, 64])
+def test_rlc_ladder_matches_plain_bit_for_bit(cuda_device, lanes):
+    """The kernel's limbs are the plain version's, a PK = R lane (a
+    combination slot at infinity) and a forged one included."""
+    from repro_torch.core.crypto.backends import limb
+    from repro_torch.kernels.rlc_ladder import rlc_ladder
+    items = _ladder_items(lanes - 1, forged=(0,), seed=lanes)
+    _sg, sx, sy, su = limb.prepare(_ladder_group(items))
+    args = [torch.from_numpy(a).to(cuda_device) for a in (sx, sy, su)]
+    from repro_torch.kernels import rlc_ladder as rl
+    before = rl.launches
+    got = rlc_ladder(*args)
+    torch.cuda.synchronize()
+    assert rl.launches == before + 1
+    want = limb.rlc_ladder_ref(*[a.cpu() for a in args])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and g.shape == (lanes, 8)
+        assert torch.equal(g.cpu(), w)
+
+
+def test_rlc_ladder_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.rlc_ladder import rlc_ladder
+    x = torch.zeros((130, 4, 8), dtype=torch.int64, device=cuda_device)
+    use = torch.zeros((130, 4), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        rlc_ladder(x.to(torch.int32), x, use)
+    with pytest.raises(ValueError):
+        rlc_ladder(x, x, use.cpu())
+    with pytest.raises(ValueError):
+        rlc_ladder(x[:, :2], x, use)
+
+
+@pytest.mark.parametrize("forged", [(), (1, 4)], ids=["valid", "forged"])
+def test_torch_backend_rlc_check_runs_the_kernel(cuda_device, forged,
+                                                 monkeypatch):
+    """``verify_batch`` under the ``torch`` backend on the card decides as
+    ``batch`` does, through the kernel: its launch count moves and the
+    plain ladder is never called."""
+    from repro_torch.core import crypto
+    from repro_torch.core.crypto.backends import limb
+    from repro_torch.kernels import rlc_ladder as rl
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain ladder ran on the card path")
+    monkeypatch.setattr(limb, "rlc_ladder_ref", refuse)
+    items = _ladder_items(8, forged=forged, seed=9)
+    before = rl.launches
+    got = crypto.verify_batch(items, backend="torch")
+    assert rl.launches > before
+    assert got.bad == crypto.verify_batch(items, backend="batch").bad \
+        == tuple(sorted(set(forged) | {8}))

@@ -190,8 +190,11 @@ def _run(*argv, tmp_path):
 
 def test_dryrun_process_rows(tmp_path):
     """One row: the reference's row keys plus ``build_s`` and
-    ``collective_note``; ``arg_gb_per_dev`` the sum of the reference's
-    shard bytes; the terms at the H100 SXM5 rates; no collective term."""
+    ``collective_axes``; ``arg_gb_per_dev`` the sum of the reference's
+    shard bytes; the terms at the H100 SXM5 rates; the collective term
+    each axis's planned bytes over its link's rate (InfiniBand for both
+    axes of the 16 × 16 mesh: each spans nodes of 8), the three terms
+    deciding ``dominant``."""
     out = tmp_path / "rows.json"
     done = _run("repro_torch.launch.dryrun", "--device", "cpu", "--arch",
                 "yi-6b", "--shape", "train_4k", "--json", str(out),
@@ -199,7 +202,7 @@ def test_dryrun_process_rows(tmp_path):
     assert done.returncode == 0, done.stderr[-3000:]
     assert "1 combos OK, 0 failed" in done.stdout
     (row,) = json.loads(out.read_text())
-    assert set(row) == _reference_row_keys() | {"build_s", "collective_note"}
+    assert set(row) == _reference_row_keys() | {"build_s", "collective_axes"}
     ref = jspecs.build_setup("yi-6b", "train_4k",
                              AbstractMesh(*MESHES["16x16"])).abstract_args
     shard_bytes = sum(math.prod(x.sharding.shard_shape(x.shape))
@@ -209,10 +212,17 @@ def test_dryrun_process_rows(tmp_path):
                             J_SHAPES["train_4k"])
     assert row["compute_s"] == cost.flops / (256 * 989e12)
     assert row["memory_s"] == cost.hbm_bytes / (256 * 3.35e12)
-    assert row["collective_s"] is None and "item 15" in row[
-        "collective_note"]
-    assert row["dominant"] == ("compute" if row["compute_s"]
-                               > row["memory_s"] else "memory")
+    axes = row["collective_axes"]
+    assert {"data", "model"} <= set(axes) <= {"data", "model", "data+model"}
+    assert all(v["link"] == "infiniband" for v in axes.values())
+    assert row["collective_s"] == sum(v["bytes"] / 50e9
+                                      for v in axes.values()) > 0
+    assert sum(v["bytes"] for v in axes.values()) == \
+        sum(row["collective_bytes"].values())
+    assert set(row["collective_counts"]) <= set(jroof._COLLECTIVES)
+    assert row["collective_counts"]["all-gather"] > 0
+    terms = {k: row[k + "_s"] for k in ("compute", "memory", "collective")}
+    assert row["dominant"] == max(terms, key=terms.get)
     for key in ("raw_cost_flops_per_dev", "raw_cost_bytes_per_dev",
                 "lower_s", "compile_s", "memory_analysis"):
         assert row[key] is None
@@ -228,6 +238,73 @@ def test_hillclimb_process_records_its_override(tmp_path):
     (row,) = json.loads(out.read_text())
     assert row["profile"] == "zero3"
     assert row["opts_overrides"] == {"gather_kv": False}
+    assert row["collective_s"] > 0 and row["collective_counts"]
+
+
+def test_axis_links_by_node():
+    """An axis (or a join of axes, which DTensor reduces over at once) runs
+    at the NVLink rate where every group of it lies in one node of 8
+    ranks, else at InfiniBand's; a collective over no axis at
+    InfiniBand's."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.collectives import CollectiveStats
+    tmesh.fake_process_group(16)
+    try:
+        mesh = init_device_mesh("cpu", (4, 4),
+                                mesh_dim_names=("data", "model"))
+        links = roofline.axis_links(mesh)
+        assert links == {"data": "infiniband", "model": "nvlink",
+                         "data+model": "infiniband"}
+        one_node = init_device_mesh("cpu", (2, 4),
+                                    mesh_dim_names=("data", "model"))
+        assert roofline.axis_links(one_node) == {
+            "data": "nvlink", "model": "nvlink", "data+model": "nvlink"}
+    finally:
+        _destroy()
+    stats = CollectiveStats()
+    stats.add("all-gather", 900, 1, "model")
+    stats.add("all-reduce", 100, 2, "data")
+    stats.add("all-gather", 50, 1, "other")
+    roof = roofline.Roofline("a", "s", "m", 0.0, 0.0, stats, 0.0, 16,
+                             links=links)
+    assert roof.collective_s == 900 / 450e9 + 200 / 50e9 + 50 / 50e9
+    assert roof.dominant == "collective"
+    assert roof.bound_time_s == roof.collective_s
+    row = roof.row()
+    assert row["collective_counts"] == {"all-gather": 2, "all-reduce": 2}
+    assert row["collective_axes"]["model"] == {
+        "bytes": 900, "link": "nvlink", "bytes_per_s": 450e9}
+
+
+@pytest.mark.parametrize("arch,layers", [("yi-6b", 5), ("zamba2-7b", 7),
+                                         ("llama-3.2-vision-90b", 6)])
+def test_depth_extrapolated_collectives_equal_the_full_plan(arch, layers):
+    """``count_collectives``'s plans at cut depths (and, for the hybrid's
+    per-token scan, at two cut lengths), extended to the full step, give
+    the full step's planned collectives exactly: reduced configs on a
+    fake (2, 2) mesh, deeper than the cut plans."""
+    import dataclasses
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import collectives as co
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=layers)
+    shape = InputShape("mini_train", 48, 4, "train")    # C = 2, 2 a cluster
+    tcfg = pt.PoFELTrainConfig(n_clusters=2)
+    tmesh.fake_process_group(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+
+        def build(cfg, shape):
+            return specs.build_setup(arch, shape, mesh, tcfg=tcfg, cfg=cfg)
+        setup = build(cfg, shape)
+        assert setup.cfg.n_layers == layers
+        assert co.layer_period(setup.cfg) == (cfg.attn_every
+                                              or cfg.cross_attn_every or 1)
+        got = co.count_collectives(setup, build, shape)
+        want = co.plan_step(setup)
+    finally:
+        _destroy()
+    assert got == want and want.count_by_kind
 
 
 def test_launchers_default_to_the_card(tmp_path):
