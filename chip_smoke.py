@@ -291,6 +291,19 @@ CUDA build of PyTorch. It never imports JAX or the reference package
     as a process; byzantine_third under both backends: the same block
     hashes and leaders, the ladder's launches, verify_batch's share.
 
+49-55. the seven example scripts of ``examples_torch/`` (quickstart,
+    bhfl_train, full_system, attack_simulation, llm_pofel_round,
+    serve_llm, batched_serving), each as a process on the card with its
+    default sizes, all seven at once: the round scripts' leader ids in
+    range, votes that agree with the leader and a minted block
+    (quickstart), a verified chain with one block a printed round and
+    leader counts that tally (bhfl_train, full_system), every scenario
+    live and safe (attack_simulation), five blocks of the reduced
+    trainer (llm_pofel_round); the serving scripts' tokens, as many as
+    asked and inside the vocabulary; each process's kernel launches (the
+    ME kernels once a round, flash forward and backward in the trainer,
+    flash in the serving prefills).
+
 It prints a JSON line of kernel results, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero, before that
 line, when there is no CUDA device or any check fails.
@@ -301,6 +314,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -4271,6 +4285,137 @@ def phase_ladder(dev) -> dict:
     return {"row": row, "runs": runs}
 
 
+# phases 49-55: the seven example scripts of examples_torch/, each as a
+# process on the card at its own default sizes
+EXAMPLES = ("quickstart", "bhfl_train", "full_system", "attack_simulation",
+            "llm_pofel_round", "serve_llm", "batched_serving")
+# runs a script as ``python path args`` would, then prints the kernel
+# launches its process made
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "from repro_torch.kernels import ops\n"
+    "print('LAUNCHES ' + json.dumps(ops.launch_counts()), flush=True)\n")
+
+
+def example_process(name: str, timeout: int = 600) -> dict:
+    """``python examples_torch/<name>.py`` with its defaults, as a process
+    on the card: its stdout, seconds, and the kernel launches it made."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_RUNNER,
+         str(ROOT / "examples_torch" / f"{name}.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    secs = time.perf_counter() - t0
+    check(done.returncode == 0, f"examples_torch/{name}.py exited "
+          f"{done.returncode}: {done.stdout[-2000:]}{done.stderr[-3000:]}")
+    out, _, counts = done.stdout.rpartition("LAUNCHES ")
+    return {"out": out, "s": secs, "launches": json.loads(counts)}
+
+
+def printed_rounds(out: str) -> list:
+    """(round, leader) of each ``round k  leader=i`` line."""
+    return [(int(m[1]), int(m[2])) for m in re.finditer(
+        r"^round\s+(\d+)\s+(?:loss=\S+\s+)?leader=(\d+)", out, re.M)]
+
+
+def printed_tokens(out: str) -> dict:
+    return {int(m[1]): [int(t) for t in m[2].split(",")]
+            for m in re.finditer(r"req(\d+)[^:\n]*: \[([0-9, ]+)\]", out)}
+
+
+def check_example(name: str, run: dict) -> str:
+    """The script's printed result, and the kernels its path runs
+    launched; returns a one-line summary."""
+    out, n = run["out"], run["launches"]
+    me = n["cosine_partials"], n["weighted_aggregate"]
+    if name == "quickstart":
+        votes = json.loads(re.search(r"^votes: (\[.*\])$", out, re.M)[1])
+        leader = int(re.search(r"leader e\*\(k\) = node (\d+)", out)[1])
+        block = int(re.search(r"block 0: leader=(\d+) .*signature "
+                              r"valid=True", out)[1])
+        check(len(votes) == 5 and set(votes) == {leader} and block == leader
+              and "all ledgers consistent" in out,
+              f"quickstart: votes {votes}, leader {leader}, block {block}")
+        check(me == (1, 1), f"quickstart: ME launches {me}")
+        return f"leader {leader}, votes {votes}, block 0 minted"
+    if name in ("bhfl_train", "full_system"):
+        rounds = printed_rounds(out)
+        nodes = 8 if name == "bhfl_train" else 6
+        height = int(re.search(r"chain verified(?: at height|: True "
+                               r"height:) (\d+)", out)[1])
+        check(len(rounds) == height > 0
+              and [k for k, _ in rounds] == list(range(height))
+              and all(0 <= i < nodes for _, i in rounds),
+              f"{name}: rounds {rounds}, height {height}")
+        if name == "bhfl_train":
+            counts = {int(k): v for k, v in re.findall(
+                r"(\d+): (\d+)", re.search(r"leader counts .*: (\{.*\})",
+                                            out)[1])}
+            tally = {i: sum(1 for _, j in rounds if j == i)
+                     for i in range(nodes)}
+            check({k: int(v) for k, v in counts.items()} == tally,
+                  f"bhfl_train: leader counts {counts} against {tally}")
+        check(me == (height, height), f"{name}: ME launches {me} in "
+              f"{height} rounds")
+        return f"{height} blocks, leaders {[i for _, i in rounds]}"
+    if name == "attack_simulation":
+        summaries = re.findall(r"^    (\w+): (\d+)/(\d+) rounds, "
+                               r"liveness=ok, safety_violations=0", out, re.M)
+        check([s[0] for s in summaries] == ["plagiarist", "bribery_targeted",
+                                            "bribery_random"]
+              and all(s[1] == s[2] for s in summaries)
+              and "suppressed all three attacks" in out,
+              f"attack_simulation: {summaries}")
+        check(min(me) > 0, f"attack_simulation: ME launches {me}")
+        return ", ".join(f"{s[0]} {s[1]}/{s[2]}" for s in summaries)
+    if name == "llm_pofel_round":
+        rounds = printed_rounds(out)
+        check([k for k, _ in rounds] == list(range(5))
+              and all(0 <= i < 4 for _, i in rounds)
+              and "done: 5 PoFEL rounds, chain verified at height 5" in out,
+              f"llm_pofel_round: {rounds}")
+        check(n["flash_attention"] > 0 and n["flash_attention_backward"] > 0
+              and min(me) > 0, f"llm_pofel_round: launches {n}")
+        return f"5 blocks, leaders {[i for _, i in rounds]}"
+    tokens = printed_tokens(out)
+    if name == "serve_llm":
+        check(sorted(tokens) == [0, 1] and all(
+            len(t) == 12 for t in tokens.values()),
+            f"serve_llm: tokens {tokens}")
+    else:
+        lengths = [len(tokens.get(r, [])) for r in range(3)]
+        check(lengths[:2] == [12, 8] and 1 <= lengths[2] <= 12,
+              f"batched_serving: tokens {tokens}")
+    check(all(0 <= t < 512 for ts in tokens.values() for t in ts)
+          and n["flash_attention"] > 0, f"{name}: launches {n}")
+    return f"tokens {tokens}"
+
+
+def phase_examples() -> dict:
+    """Phases 49-55: each script of examples_torch/ as a process on the
+    card, its result checked. The seven run at once: each spends most of
+    its time reaching the card, and one after another they took 171.5 s
+    (PERF.md, PR 27); a script's seconds are then its own process's wall
+    time beside the other six."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        futures = {name: pool.submit(example_process, name)
+                   for name in EXAMPLES}
+        runs = {name: f.result() for name, f in futures.items()}
+    for name, run in runs.items():
+        summary = check_example(name, run)
+        launched = {k: v for k, v in run["launches"].items() if v}
+        print(f"example {name}: {run['s']:.1f} s, {summary}; "
+              f"launches {launched}", flush=True)
+    print(f"examples: {time.perf_counter() - t0:.1f} s for the seven "
+          f"processes at once", flush=True)
+    return runs
+
+
 def stamp(t0: float, what: str) -> None:
     print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
 
@@ -4477,6 +4622,10 @@ def main() -> int:
     # torch against batch, the kernel cache as a process, byzantine_third
     ladder = phase_ladder(dev)
     stamp(t_start, "phase 48")
+    # 49-55. the example scripts of examples_torch/, each as a process
+    torch.cuda.empty_cache()
+    phase_examples()
+    stamp(t_start, "phases 49-55")
     for row in wkv_rows + flash_rows:
         row["launcher_launches"] = {a: v["launches"].get(row["name"], 0)
                                     for a, v in launcher.items()}

@@ -18,13 +18,20 @@ from __future__ import annotations
 import torch
 
 _registered = False
+_DTensor = None          # torch.distributed.tensor.DTensor, at first use
 
 
 def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor. The class is imported at the first
+    tensor asked about, once a process, and kept: every plain ``linear``
+    and ``bmm`` asks twice."""
+    global _DTensor
     if not isinstance(t, torch.Tensor):
         return False
-    from torch.distributed.tensor import DTensor
-    return isinstance(t, DTensor)
+    if _DTensor is None:
+        from torch.distributed.tensor import DTensor
+        _DTensor = DTensor
+    return isinstance(t, _DTensor)
 
 
 def refuse_device(t, kernel: str) -> None:

@@ -21,12 +21,15 @@ in one process.
   reference's own replicas and aggregate, the reference's leader where
   the top two are clear. The weights are also held to the port's own
   round without levers on plain tensors (the same rule). The reduced
-  RWKV-6's bfloat16 round is ill-conditioned (``tests/test_torch_lm_round.py``):
-  the port's round without levers already lies outside the weight rule
-  of the reference's (u in 71 elements, up to 0.0104; embed in 4, up to
-  0.0017; a CPU measurement), so for it the reference's round with
-  levers is held to the reference's without, and the port's to the
-  port's, each by the weight rule.
+  RWKV-6's bfloat16 round is ill-conditioned (``tests/test_torch_lm_round.py``;
+  traced in ``tests/test_torch_rwkv6_grad_parity.py``: the group norm of
+  the recurrence's first nonzero output, where a head's variance falls
+  below its eps, turns rounding into gradient): the port's round without
+  levers already lies outside the weight rule of the reference's (u in
+  71 elements, up to 0.0104; embed in 4, up to 0.0017; a CPU
+  measurement), so for it the reference's round with levers is held to
+  the reference's without, and the port's to the port's, each by the
+  weight rule.
 * ``parallel_q`` in float32 against the reference's
   ``blockwise_attention(parallel_q=True)`` at ``tests/test_layers_moe.py``'s
   shapes (the kernel tolerances, rtol 2e-5 / atol 2e-6), and in bfloat16

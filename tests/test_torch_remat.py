@@ -18,7 +18,9 @@ nonzero, so the cross blocks take part).
   is the exception: its two backends' float32 gradients lie up to 7e-4
   of a leaf's largest entry apart (the embedding's, 3.2e-3 of 5.3) with
   remat and without alike, the ill-conditioning
-  ``tests/test_torch_lm_round.py`` describes (a CPU measurement), so it
+  ``tests/test_torch_lm_round.py`` describes and
+  ``tests/test_torch_rwkv6_grad_parity.py`` traces to the group norm of
+  the first nonzero recurrence output (a CPU measurement), so it
   is held at atol 1e-3 of each leaf's largest entry, and the reference's
   remat gradients are checked bit-identical to its own without remat: on
   both sides remat adds nothing.
