@@ -3034,35 +3034,14 @@ def phase_train_agreement(dev) -> None:
               f"{int(got.leader)} on both", flush=True)
 
 
-class ForwardMemory:
+def forward_memory(rec) -> tuple:
     """What the forward of ``Model.loss`` leaves alive for the backward,
-    under whatever transform calls it (``vmap(grad_and_value)`` in the
-    trainer): the card's allocated bytes at the loss's return less those
-    at its call, and the allocated bytes at its return; the largest over
-    the calls made while it is on. A wrapper on the model's class, whose
-    ``loss`` ``local_step`` looks up at each call."""
-
-    def __init__(self, model, dev):
-        self.cls, self.dev = type(model), dev
-        self.held = self.end = 0
-
-    def __enter__(self):
-        import torch
-        self.inner = inner = self.cls.__dict__["loss"]
-
-        def loss(model, *a, **kw):
-            before = torch.cuda.memory_allocated(self.dev)
-            value = inner(model, *a, **kw)
-            end = torch.cuda.memory_allocated(self.dev)
-            self.held = max(self.held, end - before)
-            self.end = max(self.end, end)
-            return value
-
-        self.cls.loss = loss
-        return self
-
-    def __exit__(self, *exc):
-        self.cls.loss = self.inner
+    read from the ``forward`` spans of ``rec`` (a ``TraceRecorder`` on the
+    card): the largest allocated bytes at a span's close less those at
+    its open, and the largest at its close."""
+    fwd = [s for s in rec.spans if s.name == "forward"]
+    return (max(s.mem_bytes - s.mem_start_bytes for s in fwd),
+            max(s.mem_bytes for s in fwd))
 
 
 def trainer_full_cfg(arch: str, layers):
@@ -3079,11 +3058,12 @@ def phase_train_full(dev, arch: str, layers, clusters: int,
     layers, or all), ``clusters`` clusters sharing a batch of TRAIN_BATCH
     sequences of TRAIN_SEQ tokens, with the launcher's context: the first
     plain, the second with
-    ``local_step`` and ``consensus`` timed apart (a synchronize around
-    each), the third under ``torch.profiler`` (busy share against the
+    ``local_step`` and ``consensus`` timed apart (their spans' device
+    time), the third under ``torch.profiler`` (busy share against the
     second's wall time). Finite losses and exactly the launches of
     :func:`trainer_round_launches` a round; the peak memory."""
     import torch
+    from repro_torch import obs
     from repro_torch.data.tokens import (TokenBatchSpec,
                                          synthetic_token_batches)
     from repro_torch.fl import pofel_trainer as pt
@@ -3102,18 +3082,6 @@ def phase_train_full(dev, arch: str, layers, clusters: int,
     stream = synthetic_token_batches(
         TokenBatchSpec(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), seed=0)
     lam = torch.ones((clusters,), device=dev)
-    parts = {"local_step": 0.0, "consensus": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn(*a, **kw)
-            torch.cuda.synchronize()
-            parts[key] += time.perf_counter() - t0
-            return res
-        return run
-
     walls, losses, shapes = [], [], {}
     box = {"state": state}
     del state
@@ -3125,24 +3093,16 @@ def phase_train_full(dev, arch: str, layers, clusters: int,
         torch.cuda.synchronize()
         box["metrics"] = m
 
-    fwd = ForwardMemory(model, dev)
+    rec = obs.TraceRecorder("trainer", device=dev)
     for k in range(3):
         ops.reset_launch_counts()
-        if k == 1:
-            inner = (pt.local_step, pt.consensus)
-            pt.local_step = timed(inner[0], "local_step")
-            pt.consensus = timed(inner[1], "consensus")
         t0 = time.perf_counter()
-        try:
-            with fwd:
-                if k == 2:
-                    n_ops, busy_us, top = device_busy(
-                        one_round, f"trainer {arch}", host=False)
-                else:
-                    one_round()
-        finally:
-            if k == 1:
-                pt.local_step, pt.consensus = inner
+        with obs.use_recorder(rec):
+            if k == 2:
+                n_ops, busy_us, top = device_busy(
+                    one_round, f"trainer {arch}", host=False)
+            else:
+                one_round()
         walls.append(time.perf_counter() - t0)
         m = box["metrics"]
         losses.append([float(x) for x in m.loss.cpu()])
@@ -3155,11 +3115,13 @@ def phase_train_full(dev, arch: str, layers, clusters: int,
               f"{m.similarities}")
         for key, n in ops.flash_backward_launch_shapes().items():
             shapes[key] = shapes.get(key, 0) + n
-    check(parts["local_step"] > 0 and parts["consensus"] > 0,
-          f"trainer {arch}: round 2 timed local_step {parts['local_step']} "
-          f"s and consensus {parts['consensus']} s; pofel_round did not "
-          f"call them through the module")
+    rec.resolve()
+    second = sorted((s for s in rec.spans if s.name == "pofel_round"),
+                    key=lambda s: s.wall_start)[1]
+    parts = {s.name: s.device_ms * 1e-3 for s in rec.spans
+             if s.parent == second.span_id}
     round_ms = walls[1] * 1e3
+    fwd_held, fwd_end = forward_memory(rec)
     out = {"arch": arch, "layers": cfg.n_layers, "params": model.n_params(),
            "clusters": clusters, "remat": opts is not None and opts.remat,
            "leaves": n_leaves, "per_round": per_round,
@@ -3171,7 +3133,7 @@ def phase_train_full(dev, arch: str, layers, clusters: int,
            "busy_us": busy_us, "busy_share": busy_us / (round_ms * 1e3),
            "device_ops": n_ops, "top_us": top,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "fwd_held_gb": fwd.held / 1e9, "fwd_end_gb": fwd.end / 1e9,
+           "fwd_held_gb": fwd_held / 1e9, "fwd_end_gb": fwd_end / 1e9,
            "losses": losses, "backward_shapes": shapes}
     print(f"trainer {arch} full width, {cfg.n_layers} layers, "
           f"{out['params']:,} parameters, C = {clusters}, remat "
@@ -3615,13 +3577,14 @@ def phase_specs_steps(dev) -> dict:
     rounds through ``build_train_setup(...).step`` with remat and three
     without from the same state and batches: the round times, peak
     memory, the bytes the forward holds for the backward (fewer with
-    remat: :class:`ForwardMemory`), flash launches a round, leaders;
+    remat: :func:`forward_memory`), flash launches a round, leaders;
     losses and similarities
     equal (float32 rounding at most), the same leader where the top two
     are clear. Then SPECS_DECODE's decode step at full width against
     ``Model.decode_step`` on the same weights and a cache of its own:
     bit-identical logits."""
     import torch
+    from repro_torch import obs
     from repro_torch.configs.shapes import InputShape
     from repro_torch.data.tokens import (TokenBatchSpec,
                                          synthetic_token_batches)
@@ -3649,7 +3612,7 @@ def phase_specs_steps(dev) -> dict:
             TokenBatchSpec(batch, seq, model.cfg.vocab_size), seed=0)
         lam = torch.ones((clusters,), device=dev)
         walls, launches, metrics = [], [], []
-        fwd = ForwardMemory(model, dev)
+        rec = obs.TraceRecorder("specs step", device=dev)
         for _ in range(TRAIN_STEPS):
             b = round_batch(next(stream), model, clusters, dev)
             b = {k: v.to(torch.int32) if k != "context" else v
@@ -3657,7 +3620,7 @@ def phase_specs_steps(dev) -> dict:
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with fwd:
+            with obs.use_recorder(rec):
                 state, m = setup.step(state, b, lam)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
@@ -3670,10 +3633,11 @@ def phase_specs_steps(dev) -> dict:
             state.global_params), remat)
         check(all(n == want for n in launches), f"specs step {arch} remat "
               f"{remat}: launches {launches}, want {want} a round")
+        fwd_held, fwd_end = forward_memory(rec)
         out[remat] = {"round_ms": [w * 1e3 for w in walls],
                       "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                      "fwd_held_gb": fwd.held / 1e9,
-                      "fwd_end_gb": fwd.end / 1e9, "launches": want,
+                      "fwd_held_gb": fwd_held / 1e9,
+                      "fwd_end_gb": fwd_end / 1e9, "launches": want,
                       "losses": [m.loss.cpu() for m in metrics],
                       "sims": [m.similarities.cpu() for m in metrics],
                       "leaders": [int(m.leader) for m in metrics]}

@@ -68,6 +68,7 @@ from repro_torch.models.mesh_ops import (contiguous_stride,
 from repro_torch.models.model_api import Model
 from repro_torch.models.params_io import tree_from_numpy
 from repro_torch.models.transformer import FwdOptions
+from repro_torch.obs import get_recorder
 
 CONSENSUS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -185,20 +186,32 @@ def local_step(model: Model, cluster_params: Any, batch: dict,
                ) -> tuple[Any, torch.Tensor]:
     """One FedSGD step per cluster. batch leaves lead with (C, B/C, ...).
     Returns (new replicas, losses (C,)). DTensor replicas take the mesh
-    path (:func:`_local_step_mesh`)."""
-    if any(is_dtensor(t) for t in _leaves(cluster_params)):
-        return _local_step_mesh(model, cluster_params, batch, cfg, opts)
+    path (:func:`_local_step_mesh`).
 
-    def one(params, b):
-        return torch.func.grad_and_value(model.loss)(params, b, opts,
-                                                     cfg.aux_weight)
+    Traced as a ``local_step`` span holding ``forward`` (``Model.loss``,
+    run once under ``vmap``) and ``update`` (the SGD update): its time
+    outside the two is the backward, autograd's sums of the stacked
+    leaves' gradients included. The mesh path opens a ``forward`` a
+    cluster and no ``update``."""
+    rec = get_recorder()
+    with rec.span("local_step", cat="trainer"):
+        if any(is_dtensor(t) for t in _leaves(cluster_params)):
+            return _local_step_mesh(model, cluster_params, batch, cfg, opts)
 
-    grads, losses = torch.func.vmap(one)(cluster_params, batch)
-    flat_g = dict(leaves_with_paths(grads))
-    del grads     # each gradient goes once it is applied
-    new = {path: _sgd(p, flat_g.pop(path), cfg.inner_lr)
-           for path, p in leaves_with_paths(cluster_params)}
-    return rebuild(cluster_params, new), losses
+        def loss(params, b):
+            with rec.span("forward", cat="trainer"):
+                return model.loss(params, b, opts, cfg.aux_weight)
+
+        def one(params, b):
+            return torch.func.grad_and_value(loss)(params, b)
+
+        grads, losses = torch.func.vmap(one)(cluster_params, batch)
+        flat_g = dict(leaves_with_paths(grads))
+        del grads     # each gradient goes once it is applied
+        with rec.span("update", cat="trainer"):
+            new = {path: _sgd(p, flat_g.pop(path), cfg.inner_lr)
+                   for path, p in leaves_with_paths(cluster_params)}
+        return rebuild(cluster_params, new), losses
 
 
 def _cluster_step(model: Model, params: dict, batch: dict,
@@ -210,8 +223,9 @@ def _cluster_step(model: Model, params: dict, batch: dict,
             for p, t in leaves_with_paths(params)]
     leaves = [t for _, t in flat if t.requires_grad]
     with implicit_replication():
-        loss = model.loss(rebuild(params, dict(flat)), batch, opts,
-                          cfg.aux_weight)
+        with get_recorder().span("forward", cat="trainer"):
+            loss = model.loss(rebuild(params, dict(flat)), batch, opts,
+                              cfg.aux_weight)
         grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
         new = {}
         for p, t in flat:
@@ -381,20 +395,21 @@ def consensus(cluster_params: Any, lambdas: torch.Tensor,
     runs so vote weights and scores are produced for the ledger. On
     DTensor replicas gw is a DTensor tree, the tally runs on the whole
     similarities, the metrics are plain tensors and the history a
-    replicated DTensor."""
-    C = lambdas.shape[0]
-    if any(is_dtensor(t) for t in _leaves(cluster_params)):
-        with implicit_replication():
-            gw = _weighted_global(cluster_params, lambdas,
-                                  cfg.consensus_dtype)
-            sims = whole(_similarities(cluster_params, gw))
-        new_history, metrics = _tally(sims, whole(btsv_history), cfg, C)
-        if is_dtensor(btsv_history):
-            new_history = _replicated_like(new_history, btsv_history)
-        return gw, new_history, metrics
-    gw = _weighted_global(cluster_params, lambdas, cfg.consensus_dtype)
-    sims = _similarities(cluster_params, gw)
-    return (gw, *_tally(sims, btsv_history, cfg, C))
+    replicated DTensor. Traced as a ``consensus`` span."""
+    with get_recorder().span("consensus", cat="trainer"):
+        C = lambdas.shape[0]
+        if any(is_dtensor(t) for t in _leaves(cluster_params)):
+            with implicit_replication():
+                gw = _weighted_global(cluster_params, lambdas,
+                                      cfg.consensus_dtype)
+                sims = whole(_similarities(cluster_params, gw))
+            new_history, metrics = _tally(sims, whole(btsv_history), cfg, C)
+            if is_dtensor(btsv_history):
+                new_history = _replicated_like(new_history, btsv_history)
+            return gw, new_history, metrics
+        gw = _weighted_global(cluster_params, lambdas, cfg.consensus_dtype)
+        sims = _similarities(cluster_params, gw)
+        return (gw, *_tally(sims, btsv_history, cfg, C))
 
 
 def _replicated_like(t: torch.Tensor, like: torch.Tensor):
@@ -429,14 +444,17 @@ def pofel_round(model: Model, state: PoFELTrainState, batch: dict,
                 lambdas: torch.Tensor, cfg: PoFELTrainConfig,
                 opts: Optional[FwdOptions] = None,
                 ) -> tuple[PoFELTrainState, ConsensusMetrics]:
-    cluster_params, losses = local_step(model, state.cluster_params, batch,
-                                        cfg, opts)
-    gw, new_history, metrics = consensus(cluster_params, lambdas,
-                                         state.btsv_history, cfg)
-    del cluster_params
-    with on_mesh(gw):
-        return _outer(state, gw, new_history, metrics._replace(
-            loss=whole(losses)), cfg)
+    """One round, traced as a ``pofel_round`` span around the
+    ``local_step`` and ``consensus`` spans."""
+    with get_recorder().span("pofel_round", cat="trainer"):
+        cluster_params, losses = local_step(model, state.cluster_params,
+                                            batch, cfg, opts)
+        gw, new_history, metrics = consensus(cluster_params, lambdas,
+                                             state.btsv_history, cfg)
+        del cluster_params
+        with on_mesh(gw):
+            return _outer(state, gw, new_history, metrics._replace(
+                loss=whole(losses)), cfg)
 
 
 def _outer(state: PoFELTrainState, gw: Any, new_history: torch.Tensor,

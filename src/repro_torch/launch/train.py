@@ -14,18 +14,24 @@ Runs on the card unless ``--device cpu`` asks for the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --steps 3 \\
       --device cpu
+
+``--trace PATH`` writes the run's spans (``repro_torch.obs``: each
+round's ``pofel_round`` tree, each block's ``chain``, the garbage
+collector's passes; on the card with the device's readings) as a Chrome
+trace (``repro_torch.obs.load_trace``, or https://ui.perfetto.dev).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List, NamedTuple
+from contextlib import contextmanager
+from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.blockchain.block import Block
 from repro_torch.blockchain.ledger import Ledger
 from repro_torch.configs import ARCH_IDS, get_config
@@ -39,22 +45,24 @@ from repro_torch.models.transformer import FwdOptions
 def append_round_block(ledger: Ledger, keypair: crypto.ECDSAKeyPair,
                        round_: int, metrics: pt.ConsensusMetrics) -> Block:
     """Host-side chain append: the device produced the consensus stats;
-    the control plane signs and records them."""
-    sims = metrics.similarities.detach().cpu().numpy()
-    wv = metrics.vote_weights.detach().cpu().numpy()
-    adv = {int(np.argmax(sims)): float(wv.sum())}
-    block = Block(
-        index=ledger.height, round=round_, leader_id=int(metrics.leader),
-        prev_hash=ledger.head_hash,
-        model_digests={i: crypto.sha256_digest(sims[i].tobytes()).hex()
-                       for i in range(len(sims))},
-        global_model_digest=crypto.sha256_digest(sims.tobytes()).hex(),
-        votes={i: int(np.argmax(sims)) for i in range(len(sims))},
-        vote_weights={i: float(wv[i]) for i in range(len(wv))},
-        advotes=adv,
-    ).signed(keypair)
-    ledger.append(block, leader_pk=keypair.public_key)
-    return block
+    the control plane signs and records them. Traced as a ``chain``
+    span."""
+    with obs.get_recorder().span("chain", cat="chain"):
+        sims = metrics.similarities.detach().cpu().numpy()
+        wv = metrics.vote_weights.detach().cpu().numpy()
+        adv = {int(np.argmax(sims)): float(wv.sum())}
+        block = Block(
+            index=ledger.height, round=round_,
+            leader_id=int(metrics.leader), prev_hash=ledger.head_hash,
+            model_digests={i: crypto.sha256_digest(sims[i].tobytes()).hex()
+                           for i in range(len(sims))},
+            global_model_digest=crypto.sha256_digest(sims.tobytes()).hex(),
+            votes={i: int(np.argmax(sims)) for i in range(len(sims))},
+            vote_weights={i: float(wv[i]) for i in range(len(wv))},
+            advotes=adv,
+        ).signed(keypair)
+        ledger.append(block, leader_pk=keypair.public_key)
+        return block
 
 
 class TrainRun(NamedTuple):
@@ -123,6 +131,22 @@ def train_reduced(arch: str, steps: int, n_clusters: int, batch: int,
     return TrainRun(state, ledger, history)
 
 
+@contextmanager
+def trace_to(path: Optional[str], label: str, device) -> Iterator[None]:
+    """Where a path is given, the block's spans and the collector's passes
+    written there as a Chrome trace when it ends (the device's readings
+    resolved first)."""
+    if path is None:
+        yield
+        return
+    rec = obs.TraceRecorder(label, device=resolve_device(device))
+    with obs.use_recorder(rec), obs.record_collector(rec):
+        yield
+    rec.resolve()
+    obs.write_chrome_trace(path, [(label, rec)])
+    print(f"trace: {len(rec.spans)} spans written to {path}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-6b",
@@ -136,9 +160,12 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the run's spans as a Chrome trace")
     args = ap.parse_args(argv)
-    train_reduced(args.arch, args.steps, args.clusters, args.batch, args.seq,
-                  args.seed, args.outer, device=args.device)
+    with trace_to(args.trace, args.arch, args.device):
+        train_reduced(args.arch, args.steps, args.clusters, args.batch,
+                      args.seq, args.seed, args.outer, device=args.device)
 
 
 if __name__ == "__main__":

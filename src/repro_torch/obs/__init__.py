@@ -22,8 +22,8 @@ from repro_torch.obs.profile import (critical_paths, events_to_trace,
                                      phase_percentiles)
 from repro_torch.obs.recorder import (NullRecorder, Recorder, TraceRecorder,
                                       get_recorder, phase_span_after,
-                                      phase_span_before, set_recorder,
-                                      use_recorder)
+                                      phase_span_before, record_collector,
+                                      set_recorder, use_recorder)
 from repro_torch.obs.spans import SpanRecord, sim_now
 
 __all__ = [
@@ -34,6 +34,7 @@ __all__ = [
     "critical_paths", "events_to_trace", "format_summary", "load_trace",
     "phase_percentiles",
     "NullRecorder", "Recorder", "TraceRecorder", "get_recorder",
-    "phase_span_after", "phase_span_before", "set_recorder", "use_recorder",
+    "phase_span_after", "phase_span_before", "record_collector",
+    "set_recorder", "use_recorder",
     "SpanRecord", "sim_now",
 ]

@@ -7,7 +7,8 @@ Two output formats, two clock domains — deliberately:
   time** (microseconds from the earliest record), because the view is a
   profiler: where did the host actually spend its time. Each span's
   ``args`` carries the sim-clock endpoints, the span tree ids
-  (``span_id``/``parent``), and the round/node scope, so the profiler
+  (``span_id``/``parent``), the round/node scope and the device's
+  readings where they were taken, so the profiler
   (``repro_torch.obs.profile``) reconstructs the exact nesting from the file
   with no interval arithmetic. One traced run = one pid; tid 0 is the
   driver, tid ``n+1`` is node ``n``.
@@ -36,6 +37,9 @@ def _span_args(s: Any) -> Dict[str, Any]:
                             "sim_dur_ms": s.sim_dur}
     if s.error is not None:
         args["error"] = s.error
+    for key in ("device_ms", "alloc_bytes", "mem_start_bytes", "mem_bytes"):
+        if getattr(s, key) is not None:
+            args[key] = getattr(s, key)
     args.update(s.attrs)
     return args
 

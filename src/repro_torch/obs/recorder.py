@@ -15,6 +15,15 @@ Two implementations share one interface:
   stream replays byte-identically for a seed (pinned by
   ``tests/test_determinism_smoke.py``).
 
+A :class:`TraceRecorder` given a CUDA ``device`` also takes the device's
+readings at each span's open and close (``SpanRecord.device_ms``,
+``alloc_bytes``, ``mem_start_bytes``, ``mem_bytes``): a timing event on
+the current stream and one read of the caching allocator's statistics
+each. It never synchronizes: :meth:`TraceRecorder.resolve` turns the
+event pairs into ``device_ms`` once the caller's work is done.
+:func:`record_collector` adds a ``gc`` span for each pass of the garbage
+collector.
+
 The active recorder is module state, swapped with
 :func:`set_recorder`/:func:`use_recorder`. Instrumented modules call
 :func:`get_recorder` at each site (never caching it across calls), so a
@@ -28,9 +37,13 @@ context they are handed (enforced statically by analysis rule RA151).
 
 from __future__ import annotations
 
+import gc
+import itertools
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional
+
+import torch
 
 from repro_torch.obs.events import ObsEvent, validate_security_event
 from repro_torch.obs.metrics import MetricsRegistry
@@ -76,6 +89,9 @@ class Recorder:
         return 0
 
     def unwind(self, depth: int, error: Optional[str] = None) -> None:
+        pass
+
+    def collector_pass(self, phase: str, info: Dict[str, int]) -> None:
         pass
 
     # -- events --------------------------------------------------------------
@@ -125,22 +141,45 @@ class TraceRecorder(Recorder):
     """Buffering recorder: spans + events + metrics for one traced run.
 
     ``label`` names the run (e.g. the scenario) in multi-run exports.
+    ``device``: where it is a CUDA device, each span carries the device's
+    readings (see :mod:`repro_torch.obs.spans`); elsewhere they are None.
     """
 
     enabled = True
 
-    def __init__(self, label: str = "run"):
+    def __init__(self, label: str = "run",
+                 device: Optional[torch.device | str] = None):
         self.label = label
         self.spans: List[SpanRecord] = []
         self.events: List[ObsEvent] = []
         self.metrics = MetricsRegistry()
         self._stack: List[_OpenSpan] = []
-        self._next_span_id = 0
+        # ids from one counter: a collector pass that fires inside
+        # open_span takes an id of its own, never the opening span's
+        self._ids = itertools.count()
         self._next_seq = 0
+        dev = None if device is None else torch.device(device)
+        self._cuda = dev if dev is not None and dev.type == "cuda" else None
+        self._pending: List[tuple] = []     # (record, start, end) events
+        self._gc_start: Optional[float] = None
 
     # -- spans ---------------------------------------------------------------
     def span(self, name: str, **kw: Any) -> _SpanCM:
         return _SpanCM(self, name, kw)
+
+    def _device_reading(self) -> Optional[tuple]:
+        """(a timing event recorded on the current stream, the allocator's
+        cumulative and current allocated bytes), or None without a card.
+        Reads no tensor and waits for nothing."""
+        if self._cuda is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self._cuda))
+        # the allocator's own nested dict: ``memory_stats`` flattens it in
+        # Python, ~0.2 ms a call on the H100's host
+        stats = torch.cuda.memory_stats_as_nested_dict(self._cuda)
+        got = stats.get("allocated_bytes", {}).get("all", {})
+        return ev, got.get("allocated", 0), got.get("current", 0)
 
     def open_span(self, name: str, *, cat: str = "obs",
                   round: Optional[int] = None, node: Optional[int] = None,
@@ -150,16 +189,16 @@ class TraceRecorder(Recorder):
         if start_sim is None and sim_env is not None:
             start_sim = _env_sim_now(sim_env)
         parent = self._stack[-1].span_id if self._stack else None
-        span = _OpenSpan(self._next_span_id, name, cat, round, node, parent,
+        span = _OpenSpan(next(self._ids), name, cat, round, node, parent,
                          len(self._stack), time.perf_counter(), start_sim,
-                         sim_env, dict(attrs))
-        self._next_span_id += 1
+                         sim_env, dict(attrs), self._device_reading())
         self._stack.append(span)
 
     def close_span(self, *, sim_now: Optional[float] = None,
                    error: Optional[str] = None, **attrs: Any) -> None:
         if not self._stack:
             return      # tolerate an unmatched close rather than raise
+        end = self._device_reading()
         open_span = self._stack.pop()
         end_sim = sim_now
         if end_sim is None and open_span.sim_env is not None:
@@ -168,14 +207,51 @@ class TraceRecorder(Recorder):
         if attrs:
             merged = dict(merged)
             merged.update(attrs)
-        self.spans.append(SpanRecord(
+        record = SpanRecord(
             span_id=open_span.span_id, name=open_span.name,
             cat=open_span.cat, round=open_span.round, node=open_span.node,
             parent=open_span.parent, depth=open_span.depth,
             wall_start=open_span.wall_start,
             wall_dur=time.perf_counter() - open_span.wall_start,
             sim_start=open_span.sim_start, sim_end=end_sim,
-            error=error, attrs=merged))
+            error=error, attrs=merged)
+        start = open_span.device
+        if start is not None and end is not None:
+            record.alloc_bytes = end[1] - start[1]
+            record.mem_start_bytes, record.mem_bytes = start[2], end[2]
+            self._pending.append((record, start[0], end[0]))
+        self.spans.append(record)
+
+    def resolve(self) -> None:
+        """Set ``device_ms`` of every span closed since the last call from
+        its two events. Call it once the spans' device work is done (after
+        the caller's synchronize); it waits on each closing event."""
+        for record, start, end in self._pending:
+            end.synchronize()
+            record.device_ms = start.elapsed_time(end)
+        self._pending.clear()
+
+    def collector_pass(self, phase: str, info: Dict[str, int]) -> None:
+        """A ``gc.callbacks`` entry (see :func:`record_collector`): a
+        ``gc`` span (cat ``host``) from a pass's start to its stop, with
+        its ``generation`` and ``collected``, under whatever span is
+        open. It touches neither the stack nor an open span, so a pass
+        that fires inside ``open_span`` or ``close_span`` leaves both
+        intact."""
+        if phase == "start":
+            self._gc_start = time.perf_counter()
+            return
+        start, self._gc_start = self._gc_start, None
+        if start is None:
+            return
+        top = self._stack[-1] if self._stack else None
+        self.spans.append(SpanRecord(
+            span_id=next(self._ids), name="gc", cat="host", round=None,
+            node=None, parent=None if top is None else top.span_id,
+            depth=len(self._stack), wall_start=start,
+            wall_dur=time.perf_counter() - start,
+            attrs={"generation": info["generation"],
+                   "collected": info["collected"]}))
 
     def depth(self) -> int:
         return len(self._stack)
@@ -236,6 +312,22 @@ def use_recorder(rec: Recorder) -> Iterator[Recorder]:
         yield rec
     finally:
         set_recorder(prev)
+
+
+@contextmanager
+def record_collector(rec: Recorder) -> Iterator[Recorder]:
+    """Record each pass of the garbage collector in ``rec`` as a ``gc``
+    span for a ``with`` block (a ``gc.callbacks`` entry, removed on exit
+    and on an exception); nothing for a recorder that stores nothing."""
+    if not rec.enabled:
+        yield rec
+        return
+    hook = rec.collector_pass
+    gc.callbacks.append(hook)
+    try:
+        yield rec
+    finally:
+        gc.callbacks.remove(hook)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,14 @@ Spans nest on a stack per recorder: ``parent`` is the ``span_id`` of the
 span that was open when this one opened (None for a top-level span such
 as a BHFL round), ``depth`` its nesting depth. Exporters and the
 profiler rebuild the tree from these ids — no interval arithmetic.
+
+A recorder given a CUDA device adds the device's readings to each span
+(None elsewhere): ``device_ms``, the time between two events recorded on
+the current stream at its open and close (the span's length on the
+device's timeline, the device's waits for the host inside it included;
+set by ``TraceRecorder.resolve``), ``alloc_bytes``, the bytes the caching
+allocator handed out inside it, and ``mem_start_bytes``/``mem_bytes``,
+the allocated bytes at its open and close.
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ class SpanRecord:
     sim_end: Optional[float] = None
     error: Optional[str] = None
     attrs: Dict[str, Any] = field(default_factory=dict)
+    device_ms: Optional[float] = None
+    alloc_bytes: Optional[int] = None
+    mem_start_bytes: Optional[int] = None
+    mem_bytes: Optional[int] = None
 
     @property
     def sim_dur(self) -> Optional[float]:
@@ -62,13 +74,14 @@ class _OpenSpan:
     """Stack entry for a span that has been opened but not yet closed."""
 
     __slots__ = ("span_id", "name", "cat", "round", "node", "parent",
-                 "depth", "wall_start", "sim_start", "sim_env", "attrs")
+                 "depth", "wall_start", "sim_start", "sim_env", "attrs",
+                 "device")
 
     def __init__(self, span_id: int, name: str, cat: str,
                  round: Optional[int], node: Optional[int],
                  parent: Optional[int], depth: int, wall_start: float,
                  sim_start: Optional[float], sim_env: Optional[Any],
-                 attrs: Dict[str, Any]):
+                 attrs: Dict[str, Any], device: Optional[tuple] = None):
         self.span_id = span_id
         self.name = name
         self.cat = cat
@@ -80,6 +93,7 @@ class _OpenSpan:
         self.sim_start = sim_start
         self.sim_env = sim_env
         self.attrs = attrs
+        self.device = device    # (event, allocated, current) at the open
 
 
 def sim_now(env: Optional[Any]) -> Optional[float]:
