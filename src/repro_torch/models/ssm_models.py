@@ -11,7 +11,8 @@
   as in the reference.
 
 The block weights are stacked along leading layer axes, as the reference
-stacks them for ``lax.scan``; here Python loops walk the layers. With
+stacks them for ``lax.scan``; here Python loops walk the layers, each
+stack unbound once a forward (``transformer.unstack``). With
 ``remat`` each RWKV-6 block and each Mamba2 block goes through
 :func:`repro_torch.models.remat.checkpoint`, where the reference has
 ``jax.checkpoint``; the hybrid's shared attention block is not
@@ -42,8 +43,8 @@ from repro_torch.models.remat import checkpoint
 from repro_torch.models.rwkv6 import (RWKVBlockState, RWKVConfig,
                                       rwkv_block_apply, rwkv_block_init,
                                       rwkv_init_state)
-from repro_torch.models.transformer import (_decode_self, _map,
-                                            _self_attention)
+from repro_torch.models.transformer import (_decode_self, _layer, _map,
+                                            _self_attention, unstack)
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -71,10 +72,6 @@ def rwkv_init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     }
 
 
-def _layer(layers: dict, i: int) -> dict:
-    return {k: v[i] for k, v in layers.items()}
-
-
 def _rwkv_step(layer: dict, x: torch.Tensor,
                rcfg: RWKVConfig) -> torch.Tensor:
     return rwkv_block_apply(layer, x, rcfg)[0]
@@ -86,8 +83,7 @@ def rwkv_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     rematerializes each block in the backward."""
     rcfg = rwkv_cfg_of(cfg)
     x = embed(params["embed"].to(COMPUTE_DTYPE), tokens)
-    for i in range(cfg.n_layers):
-        layer = _layer(params["layers"], i)
+    for layer in unstack(params["layers"]):
         x = (checkpoint(_rwkv_step, layer, x, rcfg) if remat
              else _rwkv_step(layer, x, rcfg))
     x = rms_norm(x, params["final_norm"])
@@ -277,10 +273,6 @@ def _shared_attn_apply(sa: dict, x: torch.Tensor, cfg: ArchConfig,
     return x + swiglu_mlp(h, m["w_gate"], m["w_up"], m["w_down"])
 
 
-def _block(stack: dict, *idx) -> dict:
-    return {k: v[idx] for k, v in stack.items()}
-
-
 def _mamba_out(block: dict, x: torch.Tensor, mcfg: Mamba2Config,
                sharded: bool = False) -> torch.Tensor:
     return mamba2_apply(block, x, mcfg, sharded=sharded)[0]
@@ -304,13 +296,14 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     else:
         def mamba(b, x):
             return _mamba_out(b, x, mcfg, sharded)
+    blocks = unstack(params["mamba_groups"], 2)
     for g in range(n_groups):
-        for j in range(mpg):
-            x = x + mamba(_block(params["mamba_groups"], g, j), x)
+        for b in blocks[g * mpg:(g + 1) * mpg]:
+            x = x + mamba(b, x)
         x = _shared_attn_apply(params["shared_attn"], x, cfg, positions)
     if "mamba_tail" in params:
-        for j in range(params["mamba_tail"]["norm"].shape[0]):
-            x = x + mamba(_block(params["mamba_tail"], j), x)
+        for b in unstack(params["mamba_tail"]):
+            x = x + mamba(b, x)
     x = rms_norm(x, params["final_norm"])      # the default eps, as the reference
     return linear(x, params["lm_head"])
 
@@ -359,8 +352,8 @@ def hybrid_decode_step(params: dict, cache: HybridCache,
         states = []
         for j in range(mpg):
             st = Mamba2State(*(t[g, j] for t in cache.mamba_groups))
-            out, st = mamba2_apply(_block(params["mamba_groups"], g, j), x,
-                                   mcfg, state=st)
+            out, st = mamba2_apply(_layer(params["mamba_groups"], (g, j)),
+                                   x, mcfg, state=st)
             x = x + out
             states.append(st)
         groups.append(_stack_states(states))
@@ -375,8 +368,8 @@ def hybrid_decode_step(params: dict, cache: HybridCache,
         states = []
         for j in range(params["mamba_tail"]["norm"].shape[0]):
             st = Mamba2State(*(t[j] for t in cache.mamba_tail))
-            out, st = mamba2_apply(_block(params["mamba_tail"], j), x, mcfg,
-                                   state=st)
+            out, st = mamba2_apply(_layer(params["mamba_tail"], j), x,
+                                   mcfg, state=st)
             x = x + out
             states.append(st)
         tail = _stack_states(states)

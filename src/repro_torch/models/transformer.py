@@ -11,9 +11,10 @@ The layer weights are stacked along leading layer axes, as the reference
 stacks them for ``lax.scan`` (``params["layers"]["attn"]["wq"]`` is
 (L, D, q_dim); for vlm ``params["layers"]`` is (n_groups, spg, ...) and
 ``params["cross_layers"]`` (n_groups, ...)); here Python loops walk the
-layers. Every self- and cross-attention of a prefill or forward goes
-through ``ops.flash_attention`` (the flash kernel on the card; a
-cross-attention with keys of their own length, Nc). Decode keeps
+layers, each stack unbound once a forward (:func:`unstack`). Every self-
+and cross-attention of a prefill or forward goes through
+``ops.flash_attention`` (the flash kernel on the card; a cross-attention
+with keys of their own length, Nc). Decode keeps
 per-layer KV caches stacked on a leading layer axis and attends over the
 whole cache, and over the context K/V the prefill computed, as the
 reference.
@@ -60,8 +61,8 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope,
                                        dense_init, embed, embed_init,
                                        linear, rms_norm, swiglu_mlp)
 from repro_torch.models.mesh_ops import (constrain, first_dim_only,
-                                         grad_first_dim_only, replicated,
-                                         whole)
+                                         grad_first_dim_only, is_dtensor,
+                                         replicated, whole)
 from repro_torch.models.moe import MoEConfig, moe_ffn
 from repro_torch.models.params_io import tree_from_numpy
 from repro_torch.models.remat import checkpoint
@@ -330,6 +331,29 @@ def _layer(layers: dict, i) -> dict:
     return _map(lambda t: t[i], layers)
 
 
+def layer_slices(t: torch.Tensor, lead: int = 1) -> list:
+    """The layers of the stacked leaf ``t``, its first ``lead`` axes
+    walked as one, so (group, j) is entry ``group * spg + j``.
+
+    A plain tensor is unbound once: the backward of ``unbind`` writes the
+    whole stack's gradient with one ``stack``, where an index a layer has
+    autograd zero-fill a stack-sized gradient for each layer and add them
+    all up. A DTensor (the mesh path) is indexed layer by layer, as
+    torch's versions differ in how they shard an ``unbind``."""
+    if is_dtensor(t):
+        return [t[i] for i in itertools.product(*map(range, t.shape[:lead]))]
+    return list(t.flatten(0, lead - 1).unbind(0))
+
+
+def unstack(layers: dict, lead: int = 1) -> list:
+    """Each layer of the stack ``layers`` as a dict of its own, in the
+    order of :func:`layer_slices`. For a forward that is differentiated:
+    the no-grad paths index the one layer they need."""
+    slices = _map(lambda t: layer_slices(t, lead), layers)
+    n = len(leaves_with_paths(slices)[0][1])
+    return [_map(lambda s: s[k], slices) for k in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -552,16 +576,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs, cks, cvs = [], [], [], []
     spg = vlm_group_shape(cfg)[1] if cfg.family == "vlm" else 0
-    for i in _self_layer_index(cfg):
-        layer = _layer(params["layers"], i)
+    layers = unstack(params["layers"], 2 if spg else 1)
+    cross = unstack(params["cross_layers"]) if spg else None
+    for layer, i in zip(layers, _self_layer_index(cfg)):
         if remat:
             x, aux_l = checkpoint(_self_step, layer, x, positions,
                                   context, cfg, opts)
             aux = aux + aux_l
             if spg and i[1] == spg - 1:
-                x = checkpoint(_cross_step,
-                               _layer(params["cross_layers"], i[0]), x,
-                               context, cfg, opts)
+                x = checkpoint(_cross_step, cross[i[0]], x, context, cfg,
+                               opts)
             continue
         layer = _gather_weights(layer, opts)
         ctx_kv = None
@@ -571,7 +595,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                                        opts)
         aux = aux + aux_l
         if spg and i[1] == spg - 1:           # the group's cross block
-            block = _layer(params["cross_layers"], i[0])
+            block = cross[i[0]]
             ctx_kv = _context_kv(block["xattn"], context, cfg)
             x = _shard_seq(_cross_block(
                 block, x, cfg, lambda xa, h: _cross_attention(

@@ -11,6 +11,7 @@ JAX.
 import contextlib
 import gc
 import importlib.util
+import threading
 from pathlib import Path
 
 import pytest
@@ -273,6 +274,44 @@ def test_device_readings_on_the_card(card):
     for step in _named(rec, "local_step"):
         kids = _children(rec, step)
         assert step.alloc_bytes >= sum(k.alloc_bytes for k in kids)
+
+
+class _BackwardThread(torch.autograd.Function):
+    """The identity, noting in ``threads`` the thread its backward runs
+    on."""
+
+    generate_vmap_rule = True
+    threads: list = []
+
+    @staticmethod
+    def forward(x):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        _BackwardThread.threads.append(threading.get_ident())
+        return g
+
+
+@pytest.mark.cuda
+def test_local_step_backward_runs_on_the_calling_thread(card, monkeypatch):
+    """On the card autograd would run the backward on its device thread,
+    whose graph task holds the gradients until that thread next runs;
+    ``local_step`` keeps the backward on the caller's thread, so the
+    update frees each gradient as it applies it."""
+    model, tcfg, state, batch, _ = _trainer(card)
+    loss = type(model).loss
+    monkeypatch.setattr(type(model), "loss", lambda self, *a, **kw:
+                        _BackwardThread.apply(loss(self, *a, **kw)))
+    monkeypatch.setattr(_BackwardThread, "threads", [])
+    pt.local_step(model, state.cluster_params, batch, tcfg,
+                  FwdOptions(remat=False))
+    assert _BackwardThread.threads
+    assert set(_BackwardThread.threads) == {threading.get_ident()}
 
 
 def _tool():

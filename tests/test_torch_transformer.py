@@ -24,14 +24,18 @@ Tolerances:
   flash attention keeps float32.
 """
 
+import collections
 import dataclasses
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map
 
 from repro.configs import get_config as j_get_config
 from repro.core import serialization as jser
@@ -42,9 +46,10 @@ from repro.serving import ServingEngine as JEngine
 from repro_torch.configs import get_config
 from repro_torch.core import serialization as tser
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, transformer
 from repro_torch.models.model_api import Model
-from repro_torch.models.transformer import (DecodeCache, init_params,
+from repro_torch.models.transformer import (DecodeCache, FwdOptions,
+                                            init_params,
                                             transformer_params_from_jax)
 from repro_torch.serving import GenerationRequest, ServingEngine, grow_cache
 
@@ -433,3 +438,133 @@ def test_dense_configs_are_the_references(name):
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(j_get_config(name))
     assert get_config(name).family == "dense"
+
+
+# ---------------------------------------------------------------------------
+# the walk over the stacked layers under the trainer's vmap(grad)
+# ---------------------------------------------------------------------------
+
+# One family of each kind, at depths that walk more than one layer of
+# each stack: vlm in 2 groups of 2 self layers, the hybrid in 2 groups of
+# 2 Mamba2 blocks and a tail of 1.
+WALK_CONFIGS = {
+    "audio": ("musicgen-medium", 3, {}),
+    "dense": ("yi-6b", 3, {}),
+    "moe": ("deepseek-moe-16b", 3, {}),
+    "vlm": ("llama-3.2-vision-90b", 6, {"cross_attn_every": 3}),
+    "rwkv6": ("rwkv6-1.6b", 3, {}),
+    "hybrid": ("zamba2-7b", 7, {"attn_every": 3}),
+}
+STACKS = ("layers", "cross_layers", "mamba_groups", "mamba_tail")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: these shapes are tiny, and beside the suite's
+    other workers a pool of threads a process made them ~20× slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_case(kind):
+    """(model, two replicas stacked on a leading axis, their batch)."""
+    name, n_layers, extra = WALK_CONFIGS[kind]
+    cfg = dataclasses.replace(get_config(name).reduced(n_layers=n_layers),
+                              **extra)
+    m = Model(cfg, device="cpu")
+    stacked = tree_map(lambda a, b: torch.stack([a, b]),
+                       *(m.init(torch.Generator().manual_seed(s))
+                         for s in (0, 1)))
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2, 8), generator=g)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=-1)}
+    if m.needs_context():
+        batch["context"] = torch.randn((2,) + m.context_shape(2),
+                                       generator=g)
+    return m, stacked, batch
+
+
+def _trainer_grads(m, params, batch, opts=None):
+    """The PoFEL trainer's ``local_step`` differentiation: (grads, losses)
+    of ``Model.loss`` under ``vmap(grad_and_value)`` over the replicas."""
+    def one(p, b):
+        return torch.func.grad_and_value(m.loss)(p, b, opts)
+    return torch.func.vmap(one)(params, batch)
+
+
+def _stacked_leaves(m, params):
+    """(stacked leaf, number of leading layer axes) of each stack."""
+    lead = {"vlm": {"layers": 2}, "hybrid": {"mamba_groups": 2}}.get(
+        m.cfg.family, {})
+    return [(t, lead.get(k, 1)) for k in STACKS if k in params
+            for _, t in tser.leaves_with_paths(params[k])]
+
+
+class _BackwardOps(TorchDispatchMode):
+    """The ``select_backward`` and ``stack`` calls autograd makes in the
+    backward: (input sizes, dim) of each select, the shape of each
+    stack."""
+
+    def __init__(self):
+        super().__init__()
+        self.selects, self.stacks = [], collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch._C._current_autograd_node() is not None:
+            if func is torch.ops.aten.select_backward.default:
+                self.selects.append((tuple(args[1]), args[2]))
+            elif func is torch.ops.aten.stack.default:
+                self.stacks[tuple(out.shape)] += 1
+        return out
+
+
+@pytest.mark.parametrize("kind", list(WALK_CONFIGS))
+def test_backward_writes_each_stack_once(kind, one_thread):
+    """The backward takes no layer out of a stacked leaf by index (no
+    stack-sized zero-filled gradient a layer to add up) and writes each
+    stack's gradient with at most one ``stack``. Selects of other
+    tensors (the loss's label gather, the Mamba2 time loop) stay."""
+    m, params, batch = _walk_case(kind)
+    ops = _BackwardOps()
+    with ops:
+        _trainer_grads(m, params, batch)
+    leaves = _stacked_leaves(m, params)
+    # a stack (C, L, ...) or (C, G, spg, ...) and, of the latter, a group
+    stack_shapes = {t.shape[:1] + t.shape[1 + k:] for t, lead in leaves
+                    for k in range(lead)}
+    assert [s for s in ops.selects
+            if s[1] == 1 and s[0] in stack_shapes] == []
+    flat = collections.Counter(
+        (t.shape[0], t.shape[1:lead + 1].numel()) + tuple(t.shape[lead + 1:])
+        for t, lead in leaves)
+    assert flat, kind
+    for shape, n in flat.items():
+        assert ops.stacks[shape] <= n, (shape, ops.stacks[shape], n)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("kind", list(WALK_CONFIGS))
+def test_unbound_walk_bit_identical_to_index_walk(kind, remat, monkeypatch,
+                                                  one_thread):
+    """The loss and every gradient of the walk through ``unbind`` equal
+    those of the walk that indexes each layer (``t[i]``, the walk before
+    it), bit for bit: each element of a stack's gradient gets one nonzero
+    term either way."""
+    m, params, batch = _walk_case(kind)
+    opts = FwdOptions(remat=remat)
+    grads, losses = _trainer_grads(m, params, batch, opts)
+    monkeypatch.setattr(
+        transformer, "layer_slices", lambda t, lead=1: [
+            t[i] for i in itertools.product(*map(range, t.shape[:lead]))])
+    old_grads, old_losses = _trainer_grads(m, params, batch, opts)
+    assert torch.equal(losses, old_losses)
+    new = tser.leaves_with_paths(grads)
+    old = tser.leaves_with_paths(old_grads)
+    assert [p for p, _ in new] == [p for p, _ in old]
+    for (path, g), (_, h) in zip(new, old):
+        assert g.shape == h.shape and g.dtype == h.dtype, path
+        assert torch.equal(g, h), path
