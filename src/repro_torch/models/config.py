@@ -1,11 +1,18 @@
 """Unified architecture config for the assigned model pool.
 
 A copy of ``repro.models.config`` (pure Python), so the port imports
-nothing of the reference package."""
+nothing of the reference package, with the fields of :data:`PORT_ONLY`
+besides."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+
+# fields the reference's ArchConfig lacks, at the values that leave a
+# configuration as the reference has it (an expert-parallel chip's share
+# and DeepSeek-MoE's dense first layer and ungated top-k)
+PORT_ONLY = {"router_experts": 0, "first_dense_layers": 0, "norm_topk": True}
 
 
 @dataclass(frozen=True)
@@ -27,7 +34,12 @@ class ArchConfig:
     experts_per_token: int = 0
     n_shared_experts: int = 0
     moe_d_ff: int = 0           # per-expert FFN dim (fine-grained); 0 → d_ff
-    capacity_factor: float = 1.25
+    capacity_factor: float = 1.25   # 0: dropless (every held assignment)
+    router_experts: int = 0     # the router's width; 0 → n_experts. More
+                                # than n_experts: this chip holds experts
+                                # [0, n_experts) of an expert-parallel layer
+    first_dense_layers: int = 0  # leading layers with a dense SwiGLU (d_ff)
+    norm_topk: bool = True      # renormalize the top-k gates to sum to 1
     # cross-attention context (VLM image patches / audio conditioning)
     cross_attn_every: int = 0   # 0 none; 1 in-layer every layer; k interleaved
     n_context_tokens: int = 0
@@ -45,6 +57,10 @@ class ArchConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_router(self) -> int:
+        return self.router_experts or self.n_experts
 
     @property
     def q_dim(self) -> int:

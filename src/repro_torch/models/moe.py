@@ -6,6 +6,15 @@ buffer.
 Supports DeepSeek-MoE-style fine-grained experts with shared experts
 (always on) and Phi-3.5-MoE-style classic top-2.
 
+``capacity_factor`` 0 selects the dropless layer of one chip of an
+expert-parallel deployment (:func:`_dropless`, not in the reference):
+the router keeps its full width (``router_experts``), this chip holds
+experts [0, n_experts) and computes every assignment to them
+(``kernels.ops.moe_expert_rows``: a sort and grouped products, static
+shapes, no synchronize), and an assignment to an expert held elsewhere
+adds nothing here, as the deployment's exchange would bring it from
+another chip.
+
 The reference computes all of it in jnp outside any Pallas kernel, and so
 does the port: the expert products are batched matrix products over E.
 Both of the reference's combine modes are ported: ``gather`` (each
@@ -35,6 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import bmm, linear, swiglu_mlp
 from repro_torch.models.mesh_ops import (constrain, grad_replicated,
                                          is_dtensor, on_mesh, replicated,
@@ -42,22 +52,37 @@ from repro_torch.models.mesh_ops import (constrain, grad_replicated,
 
 
 class MoEConfig(NamedTuple):
-    n_experts: int
+    n_experts: int              # the experts held (and computed) here
     experts_per_token: int
-    capacity_factor: float = 1.25
+    capacity_factor: float = 1.25   # 0: dropless
     router_jitter: float = 0.0
+    router_experts: int = 0     # the router's width; 0 → n_experts
+    norm_topk: bool = True      # the top-k gates renormalized to sum to 1
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor,
                 cfg: MoEConfig) -> tuple:
-    """(gates (T, k) float32, expert_idx (T, k) int32, router_probs (T, E)
-    float32): a float32 router, softmax, the top k, the gates
-    renormalized over the selected k (DeepSeek-MoE / Mixtral)."""
+    """(gates (T, k) float32, expert_idx (T, k) int32, router_probs (T, R)
+    float32) over the router's R outputs: a float32 router, softmax, the
+    top k, the gates renormalized over the selected k where
+    ``cfg.norm_topk`` (Mixtral; DeepSeek-MoE's published gating keeps the
+    softmax's own)."""
     logits = linear(x.to(torch.float32), w_router.to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
-    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    if cfg.norm_topk:
+        gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True),
+                                    min=1e-9)
     return gates, idx.to(torch.int32), probs
+
+
+def load_balance(idx: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balance loss R · Σ_e f_e · p̄_e over the router's
+    R experts, f_e the share of first choices."""
+    R = probs.shape[-1]
+    experts = torch.arange(R, device=probs.device)
+    f = (idx[:, :1] == experts).to(torch.float32).mean(0)     # one-hot mean
+    return R * torch.sum(f * probs.mean(0))
 
 
 def position_in_expert(expert_idx: torch.Tensor,
@@ -151,6 +176,13 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig,
     if combine not in ("gather", "scatter"):
         raise ValueError(f"combine must be 'gather' or 'scatter'; got "
                          f"{combine!r}")
+    if cfg.capacity_factor == 0:
+        return _dropless(x, params, cfg)
+    if cfg.router_experts not in (0, cfg.n_experts):
+        raise ValueError(f"the capacity dispatch routes over the experts it "
+                         f"holds; router_experts {cfg.router_experts} != "
+                         f"n_experts {cfg.n_experts} needs capacity_factor "
+                         f"0 (dropless)")
     with on_mesh(x):
         return _moe_ffn(x, params, cfg, expert_axis, combine)
 
@@ -215,8 +247,29 @@ def _moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig,
         sh = params["shared"]
         out = out + swiglu_mlp(x, sh["w_gate"], sh["w_up"], sh["w_down"])
 
-    experts = torch.arange(E, device=x.device)
-    f = (idx[:, :1] == experts).to(torch.float32).mean(0)     # one-hot mean
-    p_bar = probs.mean(0)
-    aux = E * torch.sum(f * p_bar)
-    return out, aux
+    return out, load_balance(idx, probs)
+
+
+def _dropless(x: torch.Tensor, params: dict, cfg: MoEConfig) -> tuple:
+    """The dropless FFN of a chip that holds experts [0, n_experts) of a
+    router over ``router_experts``: (out (T, D), aux ()).
+
+    Every token's k choices are taken over the whole router; each choice
+    of a held expert is computed (no capacity, nothing dropped), each
+    other choice adds nothing, and the output is Σ_j gate_j · y_j over
+    the choices, then the shared experts. aux is :func:`load_balance`
+    over the whole router. Plain tensors only: the mesh path keeps the
+    capacity dispatch."""
+    if is_dtensor(x):
+        raise NotImplementedError("the dropless expert layer takes plain "
+                                  "tensors; a mesh runs the capacity "
+                                  "dispatch (capacity_factor > 0)")
+    gates, idx, probs = router_topk(x, params["router"], cfg)
+    y = ops.moe_expert_rows(x, idx, params["w_gate"].to(x.dtype),
+                            params["w_up"].to(x.dtype),
+                            params["w_down"].to(x.dtype))      # (T, k, D)
+    out = (y * gates.to(y.dtype)[..., None]).sum(dim=1)
+    if "shared" in params:
+        sh = params["shared"]
+        out = out + swiglu_mlp(x, sh["w_gate"], sh["w_up"], sh["w_down"])
+    return out, load_balance(idx, probs)

@@ -11,7 +11,12 @@ The layer weights are stacked along leading layer axes, as the reference
 stacks them for ``lax.scan`` (``params["layers"]["attn"]["wq"]`` is
 (L, D, q_dim); for vlm ``params["layers"]`` is (n_groups, spg, ...) and
 ``params["cross_layers"]`` (n_groups, ...)); here Python loops walk the
-layers, each stack unbound once a forward (:func:`unstack`). Every self-
+layers, each stack unbound once a forward (:func:`unstack`). An MoE
+config with ``first_dense_layers`` (DeepSeek-MoE's first layer, not in
+the reference) holds those layers apart, a stack of dense SwiGLU layers
+of width d_ff in ``params["dense_layers"]``, run before the MoE stack;
+each MoE layer's expert FFN runs inside a ``moe`` span of the active
+recorder (``repro_torch.obs``). Every self-
 and cross-attention of a prefill or forward goes through
 ``ops.flash_attention`` (the flash kernel on the card; a cross-attention
 with keys of their own length, Nc). Decode keeps
@@ -66,6 +71,7 @@ from repro_torch.models.mesh_ops import (constrain, first_dim_only,
 from repro_torch.models.moe import MoEConfig, moe_ffn
 from repro_torch.models.params_io import tree_from_numpy
 from repro_torch.models.remat import checkpoint
+from repro_torch.obs import get_recorder
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -145,12 +151,13 @@ def _mlp_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
 
 
 def _moe_shapes(cfg: ArchConfig) -> dict:
-    """{name: (shape, dtype)} of one layer's MoE FFN: a float32 router,
-    the (E, ·, ·) bfloat16 expert stacks and the shared experts."""
+    """{name: (shape, dtype)} of one layer's MoE FFN: a float32 router
+    over ``cfg.n_router`` experts, the (E, ·, ·) bfloat16 stacks of the E
+    experts held and the shared experts."""
     D, E = cfg.d_model, cfg.n_experts
     Fe = cfg.moe_d_ff or cfg.d_ff
     bf16 = PARAM_DTYPE
-    spec = {"router": ((D, E), torch.float32),
+    spec = {"router": ((D, cfg.n_router), torch.float32),
             "w_gate": ((E, D, Fe), bf16), "w_up": ((E, D, Fe), bf16),
             "w_down": ((E, Fe, D), bf16)}
     if cfg.n_shared_experts:
@@ -175,12 +182,13 @@ def _moe_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
     return _map(draw, _moe_shapes(cfg))
 
 
-def _self_layer_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
+def _self_layer_init(cfg: ArchConfig, generator: torch.Generator,
+                     dense: bool = False) -> dict:
     ones = torch.ones((cfg.d_model,), dtype=torch.float32,
                       device=generator.device)
     layer = {"ln1": ones, "ln2": ones.clone(),
              "attn": _attn_init(cfg, generator)}
-    if cfg.family == "moe":
+    if cfg.family == "moe" and not dense:
         layer["moe"] = _moe_init(cfg, generator)
     else:
         layer["mlp"] = _mlp_init(cfg, generator)
@@ -205,6 +213,17 @@ def _cross_layer_init(cfg: ArchConfig, generator: torch.Generator) -> dict:
 def vlm_group_shape(cfg: ArchConfig) -> tuple[int, int]:
     """(n_groups, self_per_group) for interleaved cross-attention."""
     return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
+def _n_dense(cfg: ArchConfig) -> int:
+    """Leading dense layers held apart from the stack (MoE only)."""
+    if not cfg.first_dense_layers:
+        return 0
+    if cfg.family != "moe" or cfg.first_dense_layers >= cfg.n_layers:
+        raise ValueError(f"first_dense_layers {cfg.first_dense_layers} needs "
+                         f"the moe family and fewer than n_layers "
+                         f"{cfg.n_layers}; got {cfg.family}")
+    return cfg.first_dense_layers
 
 
 def _map(fn, tree: dict) -> dict:
@@ -253,8 +272,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
         params["cross_layers"] = _stacked(
             (n_groups,), lambda: _cross_layer_init(cfg, generator))
     else:
+        n_dense = _n_dense(cfg)
+        if n_dense:
+            params["dense_layers"] = _stacked(
+                (n_dense,), lambda: _self_layer_init(cfg, generator, True))
         params["layers"] = _stacked(
-            (cfg.n_layers,), lambda: _self_layer_init(cfg, generator))
+            (cfg.n_layers - n_dense,),
+            lambda: _self_layer_init(cfg, generator))
     return params
 
 
@@ -283,11 +307,15 @@ def param_shapes(cfg: ArchConfig) -> dict:
     """{name: (shape, dtype)} of the reference's parameter tree of an
     attention family: ``layers`` holding the leaves stacked on a leading
     layer axis, or for vlm on (n_groups, spg) axes beside
-    ``cross_layers`` on an (n_groups,) axis."""
+    ``cross_layers`` on an (n_groups,) axis; an MoE config's leading dense
+    layers as ``dense_layers``, on their own layer axis."""
     _check_family(cfg)
     D = cfg.d_model
     norm = ((D,), torch.float32)
     layer = {"ln1": norm, "ln2": norm, "attn": _attn_shapes(cfg)}
+    n_dense = _n_dense(cfg)
+    if n_dense:
+        spec_dense = _lead((n_dense,), dict(layer, mlp=_mlp_shapes(cfg)))
     if cfg.family == "moe":
         layer["moe"] = _moe_shapes(cfg)
     else:
@@ -309,7 +337,9 @@ def param_shapes(cfg: ArchConfig) -> dict:
         spec["layers"] = _lead((n_groups, spg), layer)
         spec["cross_layers"] = _lead((n_groups,), cross)
     else:
-        spec["layers"] = _lead((cfg.n_layers,), layer)
+        spec["layers"] = _lead((cfg.n_layers - n_dense,), layer)
+        if n_dense:
+            spec["dense_layers"] = spec_dense
     return spec
 
 
@@ -455,17 +485,20 @@ def _ffn(layer: dict, x: torch.Tensor, cfg: ArchConfig,
          opts: Optional[FwdOptions] = None) -> tuple:
     """(out, the MoE load-balancing loss ()): the MoE FFN over the
     (B·S, D) tokens (with ``expert_axis``, the expert buffers pinned to
-    it and the ``scatter`` combine), or the dense SwiGLU MLP and a zero
-    loss."""
-    if cfg.family == "moe":
+    it and the ``scatter`` combine) in a ``moe`` span, or the dense
+    SwiGLU MLP and a zero loss."""
+    if "moe" in layer:
         B, S, D = x.shape
         moe_cfg = MoEConfig(cfg.n_experts, cfg.experts_per_token,
-                            cfg.capacity_factor)
+                            cfg.capacity_factor,
+                            router_experts=cfg.router_experts,
+                            norm_topk=cfg.norm_topk)
         axis = None if opts is None else opts.expert_axis
-        out, aux = moe_ffn(first_dim_only(x).reshape(B * S, D),
-                           layer["moe"], moe_cfg,
-                           expert_axis=axis,
-                           combine="scatter" if axis else "gather")
+        with get_recorder().span("moe", cat="model"):
+            out, aux = moe_ffn(first_dim_only(x).reshape(B * S, D),
+                               layer["moe"], moe_cfg,
+                               expert_axis=axis,
+                               combine="scatter" if axis else "gather")
         return grad_first_dim_only(out.reshape(B, S, D)), aux
     m = layer["mlp"]
     return (swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"]),
@@ -577,6 +610,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     ks, vs, cks, cvs = [], [], [], []
     spg = vlm_group_shape(cfg)[1] if cfg.family == "vlm" else 0
     layers = unstack(params["layers"], 2 if spg else 1)
+    if "dense_layers" in params:
+        layers = unstack(params["dense_layers"]) + layers
     cross = unstack(params["cross_layers"]) if spg else None
     for layer, i in zip(layers, _self_layer_index(cfg)):
         if remat:
@@ -691,8 +726,13 @@ def decode_step(params: dict, cache: DecodeCache, tokens: torch.Tensor,
     pos = int(whole(pos))
     x = embed(params["embed"].to(COMPUTE_DTYPE), tokens)
     spg = vlm_group_shape(cfg)[1] if cfg.family == "vlm" else 0
+    n_dense = _n_dense(cfg)
     for c, i in enumerate(_self_layer_index(cfg)):
-        layer = _layer(params["layers"], i)
+        if n_dense:           # i an int: the dense stack, then the MoE
+            layer = _layer(params["dense_layers"], i) if i < n_dense \
+                else _layer(params["layers"], i - n_dense)
+        else:
+            layer = _layer(params["layers"], i)
         h = rms_norm(x, layer["ln1"], cfg.norm_eps)
         x = x + _decode_self(layer, h, cache.k[c], cache.v[c], pos, cfg)
         if cfg.family == "audio":

@@ -20,7 +20,9 @@ readings at each span's open and close (``SpanRecord.device_ms``,
 ``alloc_bytes``, ``mem_start_bytes``, ``mem_bytes``): a timing event on
 the current stream and one read of the caching allocator's statistics
 each. It never synchronizes: :meth:`TraceRecorder.resolve` turns the
-event pairs into ``device_ms`` once the caller's work is done.
+event pairs into ``device_ms`` once the caller's work is done, and adds
+the counts handed over as device tensors (:meth:`device_counter`) to the
+counters.
 :func:`record_collector` adds a ``gc`` span for each pass of the garbage
 collector.
 
@@ -104,6 +106,9 @@ class Recorder:
     def counter(self, name: str, value: float = 1.0) -> None:
         pass
 
+    def device_counter(self, name: str, value: Any) -> None:
+        pass
+
     def gauge(self, name: str, value: float) -> None:
         pass
 
@@ -161,6 +166,7 @@ class TraceRecorder(Recorder):
         dev = None if device is None else torch.device(device)
         self._cuda = dev if dev is not None and dev.type == "cuda" else None
         self._pending: List[tuple] = []     # (record, start, end) events
+        self._counts: List[tuple] = []      # (name, device tensor)
         self._gc_start: Optional[float] = None
 
     # -- spans ---------------------------------------------------------------
@@ -224,12 +230,16 @@ class TraceRecorder(Recorder):
 
     def resolve(self) -> None:
         """Set ``device_ms`` of every span closed since the last call from
-        its two events. Call it once the spans' device work is done (after
+        its two events, and add the device counters given since then to
+        the metrics. Call it once the spans' device work is done (after
         the caller's synchronize); it waits on each closing event."""
         for record, start, end in self._pending:
             end.synchronize()
             record.device_ms = start.elapsed_time(end)
         self._pending.clear()
+        for name, value in self._counts:
+            self.metrics.counter(name, float(value))
+        self._counts.clear()
 
     def collector_pass(self, phase: str, info: Dict[str, int]) -> None:
         """A ``gc.callbacks`` entry (see :func:`record_collector`): a
@@ -275,6 +285,12 @@ class TraceRecorder(Recorder):
     # -- metrics -------------------------------------------------------------
     def counter(self, name: str, value: float = 1.0) -> None:
         self.metrics.counter(name, value)
+
+    def device_counter(self, name: str, value: Any) -> None:
+        """A counter whose increment is a tensor the device is still
+        computing (a count inside a step): kept as it is, never read here,
+        and added to the counter at :meth:`resolve`."""
+        self._counts.append((name, value))
 
     def gauge(self, name: str, value: float) -> None:
         self.metrics.gauge(name, value)

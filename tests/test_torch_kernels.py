@@ -264,7 +264,8 @@ def test_wkv6_cpu_dispatch_is_plain_version_and_launches_nothing():
     assert ops.launch_counts() == before
     assert before.keys() == {"cosine_partials", "weighted_aggregate", "wkv6",
                              "flash_attention", "wkv6_backward",
-                             "flash_attention_backward"}
+                             "flash_attention_backward", "moe_grouped",
+                             "moe_grouped_rows"}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_size", "shape", "state",

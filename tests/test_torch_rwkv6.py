@@ -33,6 +33,7 @@ from repro.models import rwkv6 as jrwkv
 from repro.models.model_api import Model as JModel
 from repro.models.model_api import _token_ce_loss as j_ce
 from repro_torch.configs import get_config
+from repro_torch.models.config import PORT_ONLY
 from repro_torch.core import serialization as tser
 from repro_torch.kernels import ops
 from repro_torch.models import rwkv6 as trwkv
@@ -281,8 +282,8 @@ def test_unported_families_name_their_roadmap_item():
         assert Model(get_config(arch), device="cpu").cfg.name == arch
     with pytest.raises(KeyError):
         get_config("gpt-5")
-    assert dataclasses.asdict(get_config("mnist-mlp")) == \
-        dataclasses.asdict(j_get_config("mnist-mlp"))
+    assert dataclasses.asdict(get_config("mnist-mlp")) == dict(
+        dataclasses.asdict(j_get_config("mnist-mlp")), **PORT_ONLY)
     with pytest.raises(NotImplementedError, match="run_bhfl"):
         Model(get_config("mnist-mlp"), device="cpu")
 

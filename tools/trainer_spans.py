@@ -19,7 +19,9 @@ clusters' replicas, the checked rounds that warm every shape), then:
    them (its host spans around ``local_step`` and ``consensus``, a
    synchronize on both sides) with the recorder on: :func:`per_round`
    of the program's spans beside the harness's ``local_step_ms``,
-   ``consensus_ms`` and ``chain_ms``;
+   ``consensus_ms`` and ``chain_ms``, and for a cell with a dropless MoE
+   layer its ``moe`` spans and the counters ``moe_rows_held``,
+   ``moe_rows_absent`` and ``moe_tokens`` a round;
 4. ``idle``: two rounds under ``torch.profiler`` as the benchmark traces
    them, with a recorder without a device: the device's idle time
    charged to the innermost program span open at each gap's middle
@@ -54,7 +56,9 @@ def per_round(spans: Sequence) -> Optional[Dict[str, Optional[float]]]:
     time of every ``gc`` span), ``backward_churn_gib`` (the bytes
     ``local_step`` handed out less its children's), and the
     ``local_step``, ``consensus`` and ``pofel_round`` spans' device and
-    host times. None without a ``pofel_round``; a device reading None
+    host times; where the model has MoE layers, ``moe_ms``, the device
+    time of its ``moe`` spans (each MoE layer's expert FFN in the
+    forward). None without a ``pofel_round``; a device reading None
     where a span lacks it (off the card, or not resolved)."""
     n = sum(1 for s in spans if s.name == "pofel_round")
     if not n:
@@ -89,6 +93,11 @@ def per_round(spans: Sequence) -> Optional[Dict[str, Optional[float]]]:
                                - mean("alloc_bytes", parts["update"]))
         / 2 ** 30 if counted else None,
     }
+    moe = named("moe")
+    if moe:
+        out["moe_spans"] = len(moe) / n
+        out["moe_ms"] = mean("device_ms", moe) if all(
+            s.device_ms is not None for s in moe) else None
     for name in ("local_step", "consensus", "pofel_round"):
         group = named(name)
         out[name + "_host_ms"] = mean("wall_dur", group) * 1e3
@@ -219,6 +228,8 @@ def main(argv=None) -> int:
         window["forward_ms"] + window["backward_ms"] + window["update_ms"]
     ) / window["harness_local_step_ms"]
     window["gc_passes"] = gc_passes(rec.spans)
+    window["counters"] = {k: v / window["rounds"] for k, v in
+                          rec.metrics_snapshot()["counters"].items()}
     # the recorder's cost a round: the spans that read the card, and the
     # collector's, at the host cost ``span_cost`` measured
     cost = result["span_cost"]
